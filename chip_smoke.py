@@ -11,23 +11,35 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      started together), printing the build time;
   2. holds each kernel against its plain PyTorch version on the card, for
      f32/f64/f16/bf16, at the main path's frame shape (64 MiB frames,
-     bs=128) and at edge shapes (bs=1, bs=100 with a ragged last block,
-     bs=4096, an all-constant input, a frame with every L = 0, verbatim
-     blocks, NaN/inf blocks, and lo/rb/rebase block ranges) -- every output
-     bit-identical;
+     bs=128), the store's chunk shape (2 MiB) and edge shapes (bs=1, bs=100
+     with a ragged last block, bs=4096, an all-constant input, a frame with
+     every L = 0, verbatim blocks, NaN/inf blocks, blocks of zeros of both
+     signs, and lo/rb/rebase block ranges) -- every output bit-identical:
+     encode, decode_body, unpack and unpack_dense (which must also equal
+     decode_body's values), and bitshuffle forward and inverse on random
+     tiles (nt = 1, a chunk's and a frame's worth), whose inverse undoes it;
   3. reproduces the golden SHA-256 digests of the three f32 golden streams
      that use no transcendental function, through the kernel path;
-  4. drives the main path at a size users run: an --edge^3 float32 field
-     (512^3 = 512 MiB, the size of a Nyx snapshot) made on the card from
-     --seed, through SZxCodec().compress/decompress, dump_chunked (64 MiB
+  4. drives the codec's main path at a size users run: an --edge^3 float32
+     field (512^3 = 512 MiB, the size of a Nyx snapshot) made on the card
+     from --seed, through SZxCodec().compress/decompress, dump_chunked (64 MiB
      frames), load_chunked(n=), load_chunked(select=), decompress_range;
      checks max |x - x'| <= e on the card and one frame's bytes against the
-     plain route; then f64/f16/bf16 chunked round trips of 64 MiB each.
-     Launch counters are zeroed just before this phase and read just after;
-  5. times each kernel (CUDA events, warmed up, --reps launches) and its
-     plain version at the frame shape, beside the bound from bytes moved
-     at 3.35 TB/s;
-  6. breaks one 64 MiB frame's compress and decompress into their stages
+     plain route; then f64/f16/bf16 chunked round trips of 64 MiB each;
+  5. drives the array store at the same size: the field with a zeroed
+     boundary slab and a quiet one (1 + noise at the bound), saved with
+     ArrayStore.save (default 2 MiB chunks) stage-off and with each second
+     stage this machine can run, then opened; ROIs (a z-slab, a 64^3 cube
+     across chunks, one element, a row in the zeroed slab, the whole array)
+     read by both routes (host parse + unpack, fused range decode) must
+     equal a full decode bit for bit and stay within e; both query tiers;
+     one chunk's frame bytes against the plain route, per stage.
+     Launch counters are zeroed just before phase 4 and read after phase 5:
+     every kernel must have run on the main path;
+  6. times each kernel (CUDA events, warmed up, --reps launches) and its
+     plain version at the shape the main path launches it at, beside the
+     bound from bytes moved at 3.35 TB/s;
+  7. breaks one 64 MiB frame's compress and decompress into their stages
      (host clock, synchronized around each stage).
 
 Any failed check raises, so the exit code is non-zero.  The last two lines
@@ -39,6 +51,7 @@ import argparse
 import hashlib
 import io
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -54,7 +67,16 @@ GOLDEN_SHA256 = {                  # tests/test_codec.py, the f32 golden streams
 }
 
 
-MAX_ERR = {"encode": 0.0, "decode_body": 0.0}   # kernel vs plain, this run
+MAX_ERR = {"encode": 0.0, "decode_body": 0.0, "bitshuffle": 0.0, "unpack": 0.0,
+           "unpack_dense": 0.0}                  # kernel vs plain, this run
+SOURCES = {          # kernel -> (its source, the TPU kernel it replaces)
+    "encode": ("src/repro_torch/csrc/encode.cu", "src/repro/kernels/encode.py:57"),
+    "decode_body": ("src/repro_torch/csrc/decode.cu", "src/repro/kernels/decode.py:108"),
+    "bitshuffle": ("src/repro_torch/csrc/bitshuffle.cu", "src/repro/kernels/bitshuffle.py:66"),
+    "unpack": ("src/repro_torch/csrc/unpack.cu", "src/repro/kernels/unpack.py:123"),
+    "unpack_dense": ("src/repro_torch/csrc/unpack.cu", "src/repro/kernels/unpack.py:136"),
+}
+STORE_CHUNK_BYTES = 2 << 20        # the store's default chunk (store/grid.py)
 
 
 def log(msg: str) -> None:
@@ -154,6 +176,43 @@ def decode_both(body, nnc, lo, rb, rebase, spec, nb, bs):
     return kv, int(kt)
 
 
+def unpack_both(enc, spec):
+    """Kernel and plain unpack and unpack_dense of one encoding; asserts bit
+    identity.  Returns the kernel's unpack values."""
+    from repro_torch.kernels import unpack as up
+
+    args = (enc.planes, enc.mu, enc.shift, enc.nbytes)
+    k = up.unpack(*args, enc.L, spec=spec)
+    p = up.unpack_plain(*args, enc.L, spec)
+    where = f"unpack {spec.name} {tuple(enc.L.shape)}"
+    check(same_bits(k, p), f"{where}: values differ")
+    MAX_ERR["unpack"] = max(MAX_ERR["unpack"], max_abs_diff(k, p))
+    kd = up.unpack_dense(*args, spec=spec)
+    pd = up.unpack_dense_plain(*args, spec)
+    check(same_bits(kd, pd), f"{where}: dense values differ")
+    MAX_ERR["unpack_dense"] = max(MAX_ERR["unpack_dense"], max_abs_diff(kd, pd))
+    if not bool(enc.L.any()):
+        check(same_bits(k, kd), f"{where}: dense != unpack with every L = 0")
+    return k
+
+
+def bitshuffle_both(nt, spec, gen):
+    """Kernel and plain bitshuffle, forward and inverse, of random tiles;
+    asserts bit identity and that the inverse undoes the forward."""
+    import torch
+    from repro_torch.kernels import bitshuffle as bsh, specs
+
+    T = specs.tile_bytes(spec)
+    tiles = torch.randint(0, 256, (nt, T), dtype=torch.uint8, device="cuda", generator=gen)
+    for inverse in (False, True):
+        k = bsh.bitshuffle(tiles, spec=spec, inverse=inverse)
+        p = bsh.bitshuffle_plain(tiles, inverse)
+        check(torch.equal(k, p), f"bitshuffle {spec.name} nt={nt} inverse={inverse} differs")
+        MAX_ERR["bitshuffle"] = max(MAX_ERR["bitshuffle"], max_abs_diff(k, p))
+    back = bsh.bitshuffle(bsh.bitshuffle(tiles, spec=spec), spec=spec, inverse=True)
+    check(torch.equal(back, tiles), f"bitshuffle {spec.name} nt={nt}: inverse(forward) != x")
+
+
 def kernel_vs_plain(x, e, spec, bs, *, ranges=(), expect_all_L0=False):
     """Encode x (flat, on the card) both ways, assemble the body, decode it
     both ways (full, plus block ranges with and without rebase)."""
@@ -169,6 +228,7 @@ def kernel_vs_plain(x, e, spec, bs, *, ranges=(), expect_all_L0=False):
     nb = p.nblocks
     vals, mid_total = decode_both(body, nnc, 0, nb, False, spec, nb, bs)
     check(mid_total == nmid, f"{spec.name}: decoded mid_total {mid_total} != {nmid}")
+    check(same_bits(unpack_both(enc, spec), vals), f"{spec.name} bs={bs}: unpack != decode_body")
     y = vals.reshape(-1)[: p.n]
     fin = torch.isfinite(xt)
     err = max_abs_diff(y[fin], xt[fin])
@@ -220,9 +280,21 @@ def phase_kernels(gen):
         odd[5::1999] = float("inf")
         odd[7::2999] = -float("inf")
         kernel_vs_plain(odd, e, spec, 128)
+        nb_chunk = STORE_CHUNK_BYTES // (spec.itemsize * 128)   # the store's chunk
+        kernel_vs_plain(walk(nb_chunk * 128, spec.dtype, gen), e, spec, 128,
+                        ranges=((0, 256), (100, 7)))
+        zeros = walk(128 * 300, spec.dtype, gen).reshape(300, 128)   # zeros of both signs
+        signs = torch.randint(0, 2, (100, 128), device="cuda", generator=gen)
+        zeros[1::3] = torch.where(signs == 1, -0.0, 0.0).to(spec.dtype)
+        zeros[2::9] = -0.0
+        kernel_vs_plain(zeros.reshape(-1), e, spec, 128)
+        T = specs.tile_bytes(spec)
+        for nt in (1, STORE_CHUNK_BYTES // T, FRAME_BYTES // T):
+            bitshuffle_both(nt, spec, gen)
         torch.cuda.synchronize()
-        log(f"kernels vs plain {spec.name}: bit-identical at frame nb={nb_frame} bs=128 "
-            f"and edge shapes ({time.perf_counter() - t0:.1f} s)")
+        log(f"kernels vs plain {spec.name}: bit-identical at frame nb={nb_frame} bs=128, "
+            f"store chunk nb={nb_chunk} and edge shapes; bitshuffle at nt=1, "
+            f"{STORE_CHUNK_BYTES // T}, {FRAME_BYTES // T} ({time.perf_counter() - t0:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -365,10 +437,139 @@ def phase_main(args):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: per-kernel time at the frame shape
+# phase 5: the array store at a size users run
 # ---------------------------------------------------------------------------
 
-def phase_timing(field, reps: int):
+def staged_counts(data: bytes, idx: dict) -> tuple[int, int, int]:
+    """(staged frames, staged segments, segments of staged frames) of a
+    store file, read from its frame flags and stage tables."""
+    import numpy as np
+    from repro_torch.core.codec import container
+
+    frames = staged = segs = 0
+    for off, _length, _n in idx["frames"]:
+        if not container.stage_of_flags(data[off + 5]):
+            continue
+        frames += 1
+        p0 = off + container.FRAME_HEADER.size
+        table = p0 + container.stream_prefix_length(data[p0:p0 + container.HEADER.size])
+        _seg_blocks, nseg = struct.unpack_from("<HI", data, table)
+        lens = np.frombuffer(data, "<u4", nseg, table + 6).astype(np.int64)
+        records = table + 6 + 4 * nseg + np.concatenate(([0], np.cumsum(lens[:-1])))
+        segs += nseg
+        staged += sum(data[int(r)] == 1 for r in records)
+    return frames, staged, segs
+
+
+def phase_store(field, args):
+    """Save the field (with a zeroed and a quiet boundary slab) as stores,
+    read ROIs by both routes, run both query tiers, and hold one chunk's
+    frame bytes per stage to the plain route.  Returns what phase 6 times:
+    the stage-off and rle payloads of one chunk."""
+    import numpy as np
+    import torch
+    from repro_torch.core.codec import Bound, container, plan, stage as stage_mod
+    from repro_torch.store import ArrayStore, ChunkGrid
+
+    edge = field.shape[0]
+    x = field.clone()
+    e0 = 1e-3 * float(x.max() - x.min())
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    x[: edge // 8] = 0.0                             # constant blocks, every L = 0
+    # a two-level (telegraph) slab, 1 +- 1.2 e0: non-constant blocks whose
+    # stored bytes take two patterns, which bitshuffle + RLE shrinks (on the
+    # smooth part of the field RLE never beats the raw bytes)
+    x[edge - edge // 8:] = 1.0 + 1.2 * e0 * torch.sign(torch.randn(
+        (edge // 8, edge, edge), device="cuda", generator=gen))
+    raw = x.numel() * x.element_size()
+    bound = Bound.rel(1e-3)
+    e = plan.resolve_error_bound(x.reshape(-1), bound)
+    names = [None, "bitshuffle-rle", "deflate"]
+    if stage_mod._zstd() is not None:
+        names.append("bitshuffle-zstd")
+    else:
+        log("store stage bitshuffle-zstd: not run, the zstandard package is not installed "
+            "on this machine")
+    stores = {}
+    for name in names:
+        buf = io.BytesIO()
+        idx, t_save = timed(lambda: ArrayStore.save(buf, x, bound, stage=name))
+        data = buf.getvalue()
+        ca, t_open = timed(lambda: ArrayStore.open(io.BytesIO(data)))
+        check(idx["e"] == e and ca.nchunks == len(idx["frames"]), f"store {name}: index")
+        frames, staged, segs = staged_counts(data, idx)
+        log(f"store {edge}^3 f32 stage={name or 'off'} ({ca.nchunks} chunks of "
+            f"{tuple(ca.chunk_shape)}): CR {raw / len(data):.4f}, save {t_save:.3f} s "
+            f"({raw / t_save / 1e9:.3f} GB/s), open {t_open * 1e3:.3f} ms; staged frames "
+            f"{frames}/{ca.nchunks}, staged segments {staged}/{segs}")
+        if name == "bitshuffle-rle":
+            check(staged > 0, "the rle store staged no segment: the inverse bitshuffle "
+                              "would never run")
+        stores[name] = (data, idx)
+    full_ca = ArrayStore.open(io.BytesIO(stores[None][0]))
+    full, t_full = timed(lambda: full_ca[...])
+    err = max_abs_diff(full, x)
+    check(err <= e, f"store full decode max error {err} > e={e}")
+    z, c = edge // 5, min(64, edge // 4)       # at 512: z 102, a 64^3 cube
+    rois = {"z-slab": np.s_[z:z + 4],
+            "cube": np.s_[z - 3:z - 3 + c, edge // 3:edge // 3 + c, edge // 2:edge // 2 + c],
+            "element": np.s_[edge // 2, 3 * edge // 5, 5], "zeroed row": np.s_[5, : edge // 16],
+            "all": np.s_[...]}
+    for name, (data, idx) in stores.items():
+        for fused in (False, True):
+            ca = ArrayStore.open(io.BytesIO(data), fused_range=fused)
+            rates = []
+            for rname, key in rois.items():
+                got, t = timed(lambda: ca[key])
+                check(same_bits(got, full[key]), f"store {name} fused={fused} {rname}: "
+                                                 "differs from the full decode")
+                err_r = max_abs_diff(got, x[key])
+                check(err_r <= e, f"store {name} {rname}: max error {err_r} > e={e}")
+                rates.append(f"{rname} {got.numel() * 4 / t / 1e9:.3f} GB/s ({t * 1e3:.2f} ms)")
+            log(f"store ROI reads stage={name or 'off'} "
+                f"route={'fused decode_range' if fused else 'host parse + unpack'}: "
+                + ", ".join(rates))
+        ca = ArrayStore.open(io.BytesIO(data))
+        st, t_q = timed(lambda: ca.stats())
+        hs, t_h = timed(lambda: ca.stats(header_only=True))
+        fd = full.double()
+        check(st.exact and st.count == full.numel(), f"store {name}: exact stats count")
+        check(st.min[0] == float(full.min()) and st.max[0] == float(full.max()),
+              f"store {name}: exact min/max differ from the decoded array's")
+        # float64 sums in another order: within 1e-12 of the sum of magnitudes
+        check(abs(st.sum[0] - float(fd.sum())) <= 1e-12 * float(fd.abs().sum()),
+              f"store {name}: exact sum {st.sum[0]} vs {float(fd.sum())}")
+        for k in ("sum", "min", "max", "mean"):
+            lo, hi = getattr(hs, k)
+            check(lo <= getattr(st, k)[0] <= hi, f"store {name}: header-only {k} interval")
+        log(f"store queries stage={name or 'off'}: exact stats {t_q:.3f} s (mean "
+            f"{st.mean[0]:.9g}, min {st.min[0]:.9g}, max {st.max[0]:.9g}), header-only "
+            f"{t_h:.3f} s (mean in [{hs.mean[0]:.6g}, {hs.mean[1]:.6g}])")
+        cid = len(idx["frames"]) // 2
+        off, length, _n = idx["frames"][cid]
+        grid = ChunkGrid(tuple(idx["shape"]), tuple(idx["chunk_shape"]))
+        box = tuple(slice(lo, hi) for lo, hi in grid.chunk_box(grid.chunk_coord(cid)))
+        want = container.build_frame(plain_stream(x[box].reshape(-1), e), cid,
+                                      last=False, stage=name, device="cpu")
+        check(data[off:off + length] == want,
+              f"store {name}: chunk {cid}'s frame differs from the plain route's")
+    log(f"store: full decode {raw / t_full / 1e9:.3f} GB/s, max|x-x'| {err:.6g} <= e={e:.6g}; "
+        f"every ROI by both routes bit-identical to it; chunk frames match the plain route")
+    cid = len(stores[None][1]["frames"]) // 2
+
+    def payload(name):
+        data, idx = stores[name]
+        off, length, _n = idx["frames"][cid]
+        return data[off + container.FRAME_HEADER.size: off + length]
+
+    return {"chunk": payload(None), "chunk_rle": payload("bitshuffle-rle")}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: per-kernel time at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def phase_timing(field, store, reps: int):
     import numpy as np
     import torch
     from repro_torch.core.codec import container, device, plan
@@ -397,19 +598,52 @@ def phase_timing(field, reps: int):
     nbm = (nb + 7) // 8
     needed_body = body.numel() - (nbm + W * nb + nnc)      # L codes + mid bytes
     dec_bytes = needed_body + nb * (W + 12) + nb * bs * W + 8
+    timings = [("encode", f"f32 frame nb={nb} bs={bs}", enc_ms, enc_plain_ms, enc_bytes),
+               ("decode_body", f"f32 frame nb={nb} bs={bs}", dec_ms, dec_plain_ms, dec_bytes)]
+
+    # the store path: one 2 MiB chunk of the field, decoded by the host-parse
+    # route (unpack / unpack_dense) and staged by bitshuffle-rle
+    from repro_torch.core.codec import stage as stage_mod
+    from repro_torch.kernels import bitshuffle as bsh, unpack as up
+
+    cp, enc = container.parse_stream(store["chunk"], device="cuda")
+    cnb, cbs = enc.L.shape
+    args = (enc.planes, enc.mu, enc.shift, enc.nbytes)
+    live = int(enc.nbytes.to(torch.int64).sum()) * cbs        # plane bytes read
+    meta = cnb * (W + 4 + 4)                                   # mu, shift, nbytes
+    out = cnb * cbs * W
+    shape = f"f32 store chunk nb={cnb} bs={cbs}"
+    timings.append(("unpack", shape, cuda_ms(lambda: up.unpack(*args, enc.L, spec=spec), reps),
+                    cuda_ms(lambda: up.unpack_plain(*args, enc.L, spec), max(reps // 10, 3)),
+                    live + cnb * cbs + meta + out))
+    timings.append(("unpack_dense", shape, cuda_ms(lambda: up.unpack_dense(*args, spec=spec), reps),
+                    cuda_ms(lambda: up.unpack_dense_plain(*args, spec), max(reps // 10, 3)),
+                    live + meta + out))
+    prefix_len = container.stream_prefix_length(store["chunk"])
+    sec = container.parse_stream_sections(store["chunk"][:prefix_len], device="cuda")
+    T = specs.tile_bytes(spec)
+    nt = sum(-(-(b - a) // T) for a, b in (
+        sec.mid_range(lo, hi) for lo, hi in stage_mod._seg_ranges(cnb, stage_mod.DEFAULT_SEG_BLOCKS)))
+    tiles = torch.randint(0, 256, (nt, T), dtype=torch.uint8, device="cuda")
+    fwd_ms = cuda_ms(lambda: bsh.bitshuffle(tiles, spec=spec), reps)
+    inv_ms = cuda_ms(lambda: bsh.bitshuffle(tiles, spec=spec, inverse=True), reps)
+    fwd_plain = cuda_ms(lambda: bsh.bitshuffle_plain(tiles, False), max(reps // 10, 3))
+    log(f"time bitshuffle inverse f32 store chunk nt={nt}: kernel {inv_ms:.4f} ms, "
+        f"forward {fwd_ms:.4f} ms")
+    timings.append(("bitshuffle", f"f32 store chunk nt={nt} tiles of {T} B (forward)",
+                    fwd_ms, fwd_plain, 2 * nt * T))
     rows = []
-    for name, ms, pms, nbytes_moved in (("encode", enc_ms, enc_plain_ms, enc_bytes),
-                                        ("decode_body", dec_ms, dec_plain_ms, dec_bytes)):
+    for name, where, ms, pms, nbytes_moved in timings:
         bound_ms = nbytes_moved / HBM_BYTES_PER_S * 1e3
         rows.append((name, ms, pms, bound_ms))
-        log(f"time {name} f32 frame nb={nb} bs={bs}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({nbytes_moved / 1e6:.1f} MB at 3.35 TB/s, "
+        log(f"time {name} {where}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({nbytes_moved / 1e6:.3f} MB at 3.35 TB/s, "
             f"{bound_ms / ms * 100:.1f}% of the bound)")
     return rows
 
 
 # ---------------------------------------------------------------------------
-# phase 6: where one frame's time goes
+# phase 7: where one frame's time goes
 # ---------------------------------------------------------------------------
 
 def phase_breakdown(field, reps: int = 5) -> None:
@@ -510,21 +744,21 @@ def main() -> int:
 
     ops.reset_launch_counts()
     field = phase_main(args)
+    store = phase_store(field, args)
     launches = ops.launch_counts()
     log(f"main-path launches: {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
 
-    rows = phase_timing(field, args.reps)
+    rows = phase_timing(field, store, args.reps)
     phase_breakdown(field)
-    sources = {"encode": ("src/repro_torch/csrc/encode.cu", "src/repro/kernels/encode.py:57"),
-               "decode_body": ("src/repro_torch/csrc/decode.cu", "src/repro/kernels/decode.py:108")}
     kernels = []
     for name, ms, pms, bound_ms in rows:
-        src, replaces = sources[name]
+        src, replaces = SOURCES[name]
+        n = launches[name] + (launches["bitshuffle_inverse"] if name == "bitshuffle" else 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": MAX_ERR[name],
+            "launches": n, "max_abs_err": MAX_ERR[name],
             "ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None,
         })

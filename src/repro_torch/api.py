@@ -7,6 +7,9 @@
                   f32/f64/f16/bf16) on the card, streams byte-identical to
                   the JAX package's
   compress / decompress / compress_with_stats -- one-shot functional API
+  ArrayStore   -- block-addressable compressed N-d array store: ``save`` /
+                  ``save_sharded`` / ``open`` -> lazy ``CompressedArray`` with
+                  ROI reads and compressed-domain queries on the card
 """
 from repro_torch.core.codec.plan import Bound  # noqa: F401
 from repro_torch.core.codec.szx_codec import (  # noqa: F401
@@ -16,8 +19,10 @@ from repro_torch.core.codec.szx_codec import (  # noqa: F401
     compress_with_stats,
     decompress,
 )
+from repro_torch.store import ArrayStore  # noqa: F401
 
 __all__ = [
+    "ArrayStore",
     "Bound",
     "SZxCodec",
     "CompressionStats",

@@ -7,7 +7,8 @@
 
 ``--bound`` takes the unified spelling (``1e-3`` = abs, ``abs:1e-3``,
 ``rel:1e-4``); the legacy ``--error-bound``/``--mode`` pair still works.
-``--device`` picks where the codec runs (default ``cuda``).
+``--device`` picks where the codec runs (default ``cuda``); ``--stage``
+adds the negotiated second stage to the compressed frames.
 
 ``compress`` reads a raw binary array (``--dtype`` elements), writes a
 chunked container-v3 stream (self-delimiting frames + seekable index
@@ -52,7 +53,7 @@ def _cmd_compress(args) -> int:
     data = _read_raw(args.input, spec)
     bound = resolve_cli_bound(args)
     codec = SZxCodec(block_size=args.block_size, device=args.device,
-                     workers=args.workers)
+                     workers=args.workers, stage=args.stage)
     with open(args.output, "wb") as f:
         written = codec.dump_chunked(
             data, f, bound,
@@ -79,7 +80,7 @@ def _cmd_decompress(args) -> int:
     return 0
 
 
-def _scan_frames(f, container):
+def _scan_frames(f, container, device):
     """Sequential frame walk for footer-less v2 streams, through the
     container's validating iterator: (nframes, nraw, total elements, dtype
     code, e)."""
@@ -87,7 +88,7 @@ def _scan_frames(f, container):
     total_n = 0
     dtype_code = None
     e = None
-    for payload, flags in container.iter_frames(f, with_flags=True):
+    for payload, flags in container.iter_frames(f, with_flags=True, device=device):
         nframes += 1
         if flags & container.FLAG_RAW:
             nraw += 1                          # raw pack: no v2 header inside
@@ -107,7 +108,7 @@ def _cmd_info(args) -> int:
         idx = container.read_index_footer_safe(f)
         if idx is None:
             f.seek(0)
-            nframes, nraw, total_n, dtype_code, e = _scan_frames(f, container)
+            nframes, nraw, total_n, dtype_code, e = _scan_frames(f, container, args.device)
         else:
             # answer from the index: read at most one frame for dtype/e
             nframes = len(idx["frames"])
@@ -117,7 +118,8 @@ def _cmd_info(args) -> int:
             e = None
             if idx["frames"]:
                 off, length = idx["frames"][0][:2]
-                payload, _flags = container.read_frame_at(f, off, length, 0)
+                payload, _flags = container.read_frame_at(f, off, length, 0,
+                                                          device=args.device)
                 dtype_code, _n, e = container.peek_stream_meta(payload)
     dtype = plan.spec_for_code(dtype_code).name if dtype_code is not None else None
     if args.json:
@@ -165,6 +167,10 @@ def main(argv: list[str] | None = None) -> int:
     c.add_argument("--device", default="cuda")
     c.add_argument("--no-index", action="store_true",
                    help="omit the container-v3 index footer")
+    c.add_argument("--stage", default=None,
+                   choices=("bitshuffle-rle", "bitshuffle-zstd", "deflate"),
+                   help="negotiated lossless second stage over the mid-byte "
+                        "section (per-frame; skipped when it would not shrink)")
     c.set_defaults(fn=_cmd_compress)
 
     d = sub.add_parser("decompress", help="SZx stream -> raw binary")
@@ -178,6 +184,8 @@ def main(argv: list[str] | None = None) -> int:
     i.add_argument("input")
     i.add_argument("--json", action="store_true",
                    help="machine-readable summary incl. per-frame byte ranges")
+    i.add_argument("--device", default="cuda",
+                   help="where staged frames are destaged while walking them")
     i.set_defaults(fn=_cmd_info)
 
     args = ap.parse_args(argv)

@@ -53,6 +53,18 @@ class DeviceEncoding:
         return self.arrays[key]
 
 
+def resolve_device(device, owner: str) -> torch.device:
+    """Where a codec entry point runs: ``None`` means ``"cuda"``, and a card
+    that is not there raises rather than falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{owner}: no CUDA device is available; the codec runs on the "
+            "card (pass device='cpu' to run the plain PyTorch route)"
+        )
+    return dev
+
+
 # ---------------------------------------------------------------------------
 # the two transfer helpers
 # ---------------------------------------------------------------------------
@@ -109,11 +121,7 @@ def _assemble_body(spec: DtypeSpec, enc: BlockEncoding):
     mu_bytes = enc.mu.contiguous().view(torch.uint8).reshape(-1)
     rows = torch.nonzero_static(nonconst, size=nnc).reshape(-1)
     reqlen = enc.reqlen[rows].to(torch.uint8)
-    # 2-bit L codes, 4 per byte little-endian: c0 | c1<<2 | c2<<4 | c3<<6
-    codes = enc.L[rows].reshape(-1)
-    codes = torch.nn.functional.pad(codes, (0, (-codes.numel()) % 4)).to(torch.int32)
-    c = codes.reshape(-1, 4)
-    lcodes = (c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)).to(torch.uint8)
+    lcodes = container.pack_2bit(enc.L[rows].reshape(-1))
     # mid stream: value v stores planes L[v] .. nbytes-1, in plane order
     stored = torch.nonzero_static(mask.reshape(-1), size=nmid).reshape(-1)
     mid = enc.planes.permute(0, 2, 1).reshape(-1)[stored]
@@ -236,3 +244,30 @@ def decode_stream(buf, *, device, out: torch.Tensor | None = None,
         out.copy_(flat)
         return out
     return flat
+
+
+def decode_range(prefix: bytes, mid, lo: int, hi: int, *, device) -> torch.Tensor:
+    """Decode blocks [lo, hi) from a stream's metadata prefix plus exactly
+    that range's mid bytes (the store ROI read layout) -> flat (hi-lo)*bs
+    values on ``device``.
+
+    ``prefix[40:] + mid`` has the same section offsets as a full body (the
+    mid section simply starts at block ``lo``'s first mid byte), so this is
+    the full decode with ``rebase=True``: the kernel re-derives block
+    ``lo``'s absolute mid offset from the L-code cumsum and subtracts it.
+    One host-to-device copy, the fused decode, three measured scalars back.
+    """
+    spec, bs, n, nb, nnc, nmid, prefix_len = _checked_stream_header(prefix)
+    if not 0 <= lo < hi <= nb:
+        raise ValueError(f"block range [{lo}, {hi}) out of [0, {nb})")
+    raw = np.concatenate([
+        np.frombuffer(prefix, np.uint8, prefix_len - container.HEADER.size,
+                      container.HEADER.size),
+        np.frombuffer(mid, np.uint8),
+    ])
+    body = to_device(raw, device)
+    vals, meas = ops.decode_staged(
+        body, nnc, lo, spec=spec, nb=nb, bs=bs, rb=hi - lo, rebase=True
+    )
+    _check_measured(to_host(meas), nnc, nmid, spec)
+    return vals.reshape(-1)

@@ -119,8 +119,9 @@ class SZxCodec:
     kernels run for CUDA tensors; ``device="cpu"`` runs their plain PyTorch
     versions.  ``workers > 1`` runs the chunked paths' frame bodies on an
     ordered thread pool, each worker on its own CUDA stream; the bytes are
-    identical for any worker count.  ``stage`` (the second stage) is not
-    ported yet: only ``None`` is accepted.
+    identical for any worker count.  ``stage`` (None, ``'bitshuffle-rle'``,
+    ``'bitshuffle-zstd'`` or ``'deflate'``) is the negotiated second stage
+    of the chunked frames, run on the codec's device (see ``stage.py``).
     """
 
     block_size: int = DEFAULT_BLOCK_SIZE
@@ -129,17 +130,11 @@ class SZxCodec:
     stage: str | int | None = None
 
     def __post_init__(self):
-        dev = torch.device("cuda" if self.device is None else self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "SZxCodec: no CUDA device is available; the codec runs on the "
-                "card (pass device='cpu' to run the plain PyTorch route)"
-            )
+        dev = device_mod.resolve_device(self.device, "SZxCodec")
         if self.stage is not None:
-            raise ValueError(
-                f"second stage {self.stage!r} is not available in repro_torch "
-                "yet (stage=None writes stage-off frames)"
-            )
+            from repro_torch.core.codec import stage as stage_mod
+
+            stage_mod.resolve(self.stage)   # unknown/unavailable -> raises now
         object.__setattr__(self, "device", dev)
 
     # ------------------------------------------------------------- monolithic
@@ -244,7 +239,8 @@ class SZxCodec:
         for i, (payload, last) in enumerate(
             self.iter_chunk_payloads(x, b, chunk_bytes=chunk_bytes, dtype=dtype)
         ):
-            yield container.build_frame(payload, i, last=last)
+            yield container.build_frame(payload, i, last=last, stage=self.stage,
+                                        device=self.device)
 
     def decompress_chunked(self, frames, *, n: int | None = None) -> torch.Tensor:
         """Decompress a frame sequence -> flat tensor on the codec's device.
@@ -260,7 +256,7 @@ class SZxCodec:
             nonlocal out
             spec_code = None
             off = 0
-            for payload in container.iter_frames(frames):
+            for payload in container.iter_frames(frames, device=self.device):
                 if len(payload) <= 5:
                     raise ValueError("truncated SZx stream (shorter than header)")
                 if spec_code is None:
@@ -383,7 +379,7 @@ class SZxCodec:
                 )
             wanted = set(select)
             parts = []
-            for i, payload in enumerate(container.iter_frames(fileobj)):
+            for i, payload in enumerate(container.iter_frames(fileobj, device=self.device)):
                 if i in wanted:
                     parts.append(self.decompress(payload))
             if select[-1] >= i + 1:
@@ -397,7 +393,8 @@ class SZxCodec:
             if i >= len(frames):
                 raise ValueError(f"frame index {i} out of range [0, {len(frames)})")
             off, length, _elems = frames[i]
-            payload, _flags = container.read_frame_at(fileobj, off, length, i)
+            payload, _flags = container.read_frame_at(fileobj, off, length, i,
+                                                      device=self.device)
             parts.append(self.decompress(payload))
         return _concat(parts)
 

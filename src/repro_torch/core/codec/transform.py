@@ -1,15 +1,20 @@
-"""Transform layer records: the fixed-shape block encoding and its layout rule.
+"""Transform layer: the fixed-shape block encoding, its layout rule, and the
+decode of a laid-out encoding.
 
 Stage two of the pipeline (paper Algorithm 1 lines 3-9) runs in the kernels
 (``repro_torch.kernels``); this module keeps the record the device layer
-hands to the body assembly, and the Formula-5 layout rule that turns a
-stored reqlen back into (shift, nbytes).
+hands to the body assembly, the Formula-5 layout rule that turns a stored
+reqlen back into (shift, nbytes), and :func:`decode_blocks`, the decode of
+the host-parse route (``container.parse_stream`` /
+``extract_block_range``), which runs the unpack kernels.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.kernels import ops
 
 
 @dataclass(frozen=True)
@@ -31,3 +36,20 @@ def derive_layout(reqlen: torch.Tensor, const: torch.Tensor):
     shift = torch.where(const, 0, (8 - reqlen % 8) % 8).to(torch.int32)
     nbytes = torch.where(const, 0, (reqlen + shift) // 8).to(torch.int32)
     return shift, nbytes
+
+
+def decode_blocks(enc: BlockEncoding, p) -> torch.Tensor:
+    """(nb, bs) values in the plan's dtype, on the encoding's device.
+
+    Encodings with no XOR-lead elision anywhere (every L = 0) take the dense
+    path, which skips the index-propagation scan.
+    """
+    if not bool(enc.L.any()):
+        return ops.unpack_dense(enc.planes, enc.mu, enc.shift, enc.nbytes, spec=p.dtype)
+    return ops.unpack(enc.planes, enc.mu, enc.shift, enc.nbytes, enc.L, spec=p.dtype)
+
+
+def decode_block_range(enc: BlockEncoding, p, lo: int, hi: int) -> torch.Tensor:
+    """Partial decode: blocks [lo, hi) only -> (hi - lo, bs), at O(hi - lo)."""
+    return ops.unpack_range(enc.planes, enc.mu, enc.shift, enc.nbytes, enc.L, lo, hi,
+                            spec=p.dtype)

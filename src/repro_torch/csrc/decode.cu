@@ -20,7 +20,8 @@
 //   3. one warp per decoded block redoes the in-block exclusive scan of the
 //      counts (warp shuffles, carried across 32-value tiles), gathers its
 //      bytes, runs the max-scan per plane below the lead cap (carried across
-//      tiles), and composes the values.
+//      tiles), and composes the values.  The max-scan and the compose are
+//      szx_traits.cuh's max_scan and compose, shared with unpack.cu.
 // Every body offset is int64 and every gather index is clamped to the body,
 // so a corrupt stream cannot read out of bounds; the host then checks the
 // measured counts and raises.
@@ -115,7 +116,6 @@ decode_blocks_kernel(const uint8_t* __restrict__ body, long long cap, int bs,
                      const long long* __restrict__ block_start,
                      S* __restrict__ out) {
   using T = Traits<S>;
-  using C = typename T::C;
   using U = typename T::U;
   constexpr int W = T::W;
   constexpr int LEAD = T::LEAD;
@@ -158,25 +158,11 @@ decode_blocks_kernel(const uint8_t* __restrict__ body, long long cap, int bs,
           ws |= (U)((U)byte << (8 * (W - 1 - j)));
           continue;
         }
-        // fused key: idx dominates, so the running max carries the byte of
-        // the nearest preceding value that stored this plane
-        int key = stored ? i * 256 + byte : -1;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int u = __shfl_up_sync(FULL, key, o);
-          if (lane >= o) key = max(key, u);
-        }
-        key = max(key, carry_key[j]);
-        carry_key[j] = __shfl_sync(FULL, key, 31);
+        const int key = max_scan(stored ? i * 256 + byte : -1, lane, carry_key[j]);
         const int bb = key >= 0 ? (key & 0xFF) : 0;
         ws |= (U)((U)bb << (8 * (W - 1 - j)));
       }
-      if (valid) {
-        const U w = (U)(ws << sh);       // keep the word width (no promotion)
-        const C vc = T::widen(T::from_bits(w));
-        const S x = vc != vc ? T::from_bits(T::quiet(w)) : T::narrow(vc + T::widen(m));
-        out[r * bs + i] = nbt == 0 ? m : x;
-      }
+      if (valid) out[r * bs + i] = compose<S>(ws, sh, m, nbt);
     }
   }
 }

@@ -67,6 +67,9 @@ encode_kernel(const S* __restrict__ x, long long nb, int bs,
       mx = nan_max(mx, __shfl_xor_sync(FULL, mx, o));
     }
     S mu = T::narrow(C(0.5) * (mn + mx));           // storage-rounded mu
+    // a block of zeros only: numpy's min/max end in a scalar pass that keeps
+    // the later of two equal values, so mu carries the LAST value's sign
+    if (mn == C(0) && mx == C(0)) mu = xb[bs - 1];
     const C muw = T::widen(mu);
     const C r = nan_max(mx - muw, muw - mn);        // radius vs rounded mu
     C r_test = r;

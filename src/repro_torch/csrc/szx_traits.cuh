@@ -112,4 +112,34 @@ __device__ __forceinline__ U shfl_idx(U v, int src) {
   }
 }
 
+// Index propagation of one byte plane over a 32-value tile: the inclusive
+// running max of the fused key (idx*256 + byte, -1 where the value did not
+// store the plane) across the warp's lanes, then against `carry`, the last
+// key of the block's earlier tiles (updated here).  idx dominates, so the
+// surviving key carries the byte of the nearest preceding stored value.
+// Every lane of the warp must call it.
+__device__ __forceinline__ int max_scan(int key, int lane, int& carry) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, key, o);
+    if (lane >= o) key = max(key, u);
+  }
+  key = max(key, carry);
+  carry = __shfl_sync(FULL, key, 31);
+  return key;
+}
+
+// A reassembled (shifted) word back to a value: shift back (kept at the
+// word width, no promotion), bitcast, add mu in the compute type and round
+// to storage.  NaN keeps numpy's bits; a constant block (nbytes == 0) is mu.
+template <typename S>
+__device__ __forceinline__ S compose(typename Traits<S>::U ws, int shift, S mu, int nbytes) {
+  using T = Traits<S>;
+  using U = typename T::U;
+  const U w = (U)(ws << shift);
+  const typename T::C vc = T::widen(T::from_bits(w));
+  const S x = vc != vc ? T::from_bits(T::quiet(w)) : T::narrow(vc + T::widen(mu));
+  return nbytes == 0 ? mu : x;
+}
+
 }  // namespace szx

@@ -1,12 +1,13 @@
 """Dispatch for the SZx kernels on the codec's main path.
 
 The route follows the tensor's device: a CUDA tensor goes to the hand-written
-Hopper kernel (``kernels/encode.py``, ``kernels/decode.py``), a CPU tensor to
-its plain PyTorch version (``kernels/ref.py``).  There is no backend knob and
-no fallback: a CUDA call that cannot launch raises.
+Hopper kernel (``kernels/encode.py``, ``decode.py``, ``bitshuffle.py``,
+``unpack.py``), a CPU tensor to its plain PyTorch version
+(``kernels/ref.py``).  There is no backend knob and no fallback: a CUDA call
+that cannot launch raises.
 
 Each kernel wrapper counts its launches in a plain int (``encode.LAUNCHES``,
-``decode.LAUNCHES``); :func:`launch_counts` reads them and
+``decode.LAUNCHES``, ...); :func:`launch_counts` reads them and
 :func:`reset_launch_counts` zeroes them, so a run can show that its main path
 went through the kernels.
 """
@@ -14,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import decode, encode, ref, specs
+from repro_torch.kernels import bitshuffle as bitshuffle_mod, decode, encode, ref, specs
+from repro_torch.kernels import unpack as unpack_mod
 from repro_torch.kernels.specs import DtypeSpec
 
 
@@ -47,10 +49,49 @@ def decode_staged(body: torch.Tensor, nnc: int, lo: int = 0, *,
     return vals, measured
 
 
+def unpack(planes, mu, shift, nbytes, L, *, spec: DtypeSpec = specs.F32):
+    """Inverse of the encode's pack: (nb, W, bs) planes -> (nb, bs) values."""
+    return unpack_mod.unpack(planes, mu, shift, nbytes, L.to(torch.uint8).contiguous(),
+                             spec=spec)
+
+
+def unpack_dense(planes, mu, shift, nbytes, *, spec: DtypeSpec = specs.F32):
+    """Fast path for blocks whose L codes are all zero: no index-propagation
+    scan.  Bit-identical to ``unpack(..., L=0)``."""
+    return unpack_mod.unpack_dense(planes, mu, shift, nbytes, spec=spec)
+
+
+def unpack_range(planes, mu, shift, nbytes, L, lo: int, hi: int, *,
+                 spec: DtypeSpec = specs.F32):
+    """Partial decode of blocks [lo, hi): ``unpack(...)[lo:hi]`` at O(hi - lo)
+    cost; a range with no XOR-lead elision takes the dense path."""
+    nb = mu.shape[0]
+    if not 0 <= lo < hi <= nb:
+        raise ValueError(f"block range [{lo}, {hi}) out of [0, {nb})")
+    args = (planes[lo:hi].contiguous(), mu[lo:hi].contiguous(),
+            shift[lo:hi].contiguous(), nbytes[lo:hi].contiguous())
+    L_r = L[lo:hi]
+    if not bool(L_r.any()):
+        return unpack_dense(*args, spec=spec)
+    return unpack(*args, L_r, spec=spec)
+
+
+def bitshuffle(tiles: torch.Tensor, *, spec: DtypeSpec = specs.F32,
+               inverse: bool = False) -> torch.Tensor:
+    """Bit-transpose uint8 tiles of ``specs.tile_bytes(spec)`` bytes; the
+    inverse with ``inverse=True``."""
+    return bitshuffle_mod.bitshuffle(tiles, spec=spec, inverse=inverse)
+
+
 def launch_counts() -> dict[str, int]:
-    return {"encode": encode.LAUNCHES, "decode_body": decode.LAUNCHES}
+    return {"encode": encode.LAUNCHES, "decode_body": decode.LAUNCHES,
+            "bitshuffle": bitshuffle_mod.LAUNCHES,
+            "bitshuffle_inverse": bitshuffle_mod.INVERSE_LAUNCHES,
+            "unpack": unpack_mod.LAUNCHES, "unpack_dense": unpack_mod.DENSE_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     encode.LAUNCHES = 0
     decode.LAUNCHES = 0
+    bitshuffle_mod.LAUNCHES = bitshuffle_mod.INVERSE_LAUNCHES = 0
+    unpack_mod.LAUNCHES = unpack_mod.DENSE_LAUNCHES = 0

@@ -95,6 +95,10 @@ def block_stats_ref(xb: torch.Tensor, e: float, spec: DtypeSpec, p_e: int):
     mn = x.amin(dim=1)
     mx = x.amax(dim=1)
     mu = (0.5 * (mn + mx)).to(spec.dtype)          # storage-rounded mu
+    # a block of zeros only: numpy's min/max end in a scalar pass that keeps
+    # the later of two equal values, so both carry the LAST value's sign
+    # (torch's and the card's reductions would pick either zero)
+    mu = torch.where((mn == 0) & (mx == 0), xb[:, -1].to(spec.dtype), mu)
     mu_w = mu.to(cdt)                              # exact widening
     # radius vs the ROUNDED mu: the constant-block test then already covers
     # the mu storage rounding of the narrow dtypes
@@ -179,6 +183,60 @@ def _compose_word(ws, mu, shift, nbytes, spec: DtypeSpec):
     x = (v.to(cdt) + mu.to(cdt)[:, None]).to(spec.dtype)
     x = torch.where(torch.isnan(v), _numpy_nan(v, spec), x)
     return torch.where((nbytes == 0)[:, None], mu[:, None], x)
+
+
+def unpack_ref(planes, mu, shift, nbytes, L, spec: DtypeSpec):
+    """Inverse of :func:`pack_ref`: (nb, W, bs) byte planes -> (nb, bs)
+    values in the spec's dtype.
+
+    Planes below the lead cap run the fused-key (``idx*256 + byte``) cummax
+    that carries each elided leading byte forward from the nearest
+    preceding value that stored it; planes at or past the cap are stored by
+    every live value.  Planes ``j >= nbytes`` of a block are not read.
+    """
+    nb, W, bs = planes.shape
+    live = torch.arange(W, device=planes.device)[None, :] < nbytes[:, None]   # (nb, W)
+    L = L.to(torch.int64)
+    idxs = torch.arange(bs, device=planes.device, dtype=torch.int64)[None, :]
+    ws = torch.zeros((nb, bs), dtype=torch.int64, device=planes.device)
+    for j in range(W):
+        byte = torch.where(live[:, j, None], planes[:, j].to(torch.int64), 0)
+        if j < spec.lead_cap:
+            key = torch.where((L <= j) & live[:, j, None], idxs * 256 + byte, -1)
+            key = torch.cummax(key, dim=1).values
+            byte = torch.where(key >= 0, key & 0xFF, 0)
+        ws = ws | (byte << (8 * (W - 1 - j)))
+    return _compose_word(ws, mu, shift, nbytes, spec)
+
+
+def unpack_dense_ref(planes, mu, shift, nbytes, spec: DtypeSpec):
+    """All-``L == 0`` fast path: every live plane byte sits at its own
+    value, so no propagation runs.  Equals ``unpack_ref(..., L=0)``."""
+    nb, W, bs = planes.shape
+    live = torch.arange(W, device=planes.device)[None, :] < nbytes[:, None]
+    ws = torch.zeros((nb, bs), dtype=torch.int64, device=planes.device)
+    for j in range(W):
+        byte = torch.where(live[:, j, None], planes[:, j].to(torch.int64), 0)
+        ws = ws | (byte << (8 * (W - 1 - j)))
+    return _compose_word(ws, mu, shift, nbytes, spec)
+
+
+def bitshuffle_ref(tiles: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Bit transpose of each (T,) uint8 tile of ``tiles`` (nt, T), T % 8 == 0.
+
+    Forward: bit k of input byte i lands at bit ``i % 8`` of output byte
+    ``k * T/8 + i // 8`` -- ``np.packbits(..., bitorder="little")`` of the
+    (8, T) bit matrix.  ``inverse=True`` is the exact inverse.
+    """
+    nt, T = tiles.shape
+    k = torch.arange(8, device=tiles.device, dtype=torch.int32)
+    bits = (tiles.to(torch.int32)[:, :, None] >> k) & 1           # (nt, T, 8)
+    if inverse:
+        bits = bits.reshape(nt, 8, T // 8, 8).permute(0, 2, 3, 1)
+    else:
+        bits = bits.permute(0, 2, 1)
+    bits = bits.reshape(nt, T, 8)
+    return (bits << k).sum(dim=2).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -119,6 +119,14 @@ def spec_for_code(code: int) -> DtypeSpec:
     return spec
 
 
+TILE_VALUES = 1024          # values per bitshuffle tile
+
+
+def tile_bytes(spec: DtypeSpec) -> int:
+    """Bytes per bitshuffle tile for this dtype geometry (multiple of 8)."""
+    return TILE_VALUES * spec.itemsize
+
+
 def exact_exponent_of(e: float) -> int:
     """Exact floor(log2 e) of a positive python float (Formula 4's p(e))."""
     m, ex = math.frexp(e)  # e = m * 2**ex with 0.5 <= m < 1

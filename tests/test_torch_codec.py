@@ -315,16 +315,24 @@ def test_corrupt_frames_raise_reference_messages():
 
 
 def test_second_stage_frames_fail_loudly():
+    """Stage bits over a payload that was never staged are a corrupt second
+    stage (the reference's message); an unknown stage code or name fails
+    loudly.  Staged frames themselves are covered by test_torch_stage.py."""
     payload = REF.compress(_walk(1000), 1e-3)
-    for code in (1, 3, 7):
+    for code, match in ((1, "corrupt second-stage payload"), (3, "corrupt second-stage payload"),
+                        (7, "stream requires second stage")):
         frame = container.FRAME_HEADER.pack(
             container.FRAME_MAGIC, container.FRAME_VERSION,
             container.FLAG_LAST | (code << container.FLAG_STAGE_SHIFT), 0, len(payload),
         ) + payload
-        with pytest.raises(ValueError, match="stream requires second stage"):
+        with pytest.raises(ValueError) as ref_err:
+            REF.decompress_chunked(frame)
+        with pytest.raises(ValueError, match=match) as err:
             CPU.decompress_chunked(frame)
-    with pytest.raises(ValueError, match="second stage"):
-        SZxCodec(device="cpu", stage="deflate")
+        assert str(err.value) == str(ref_err.value)
+    with pytest.raises(ValueError, match="unknown second stage"):
+        SZxCodec(device="cpu", stage="huffman")
+    assert SZxCodec(device="cpu", stage="deflate").stage == "deflate"
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +397,9 @@ def test_cli_matches_reference_cli(tmp_path, dtype, capsys):
 def test_cpu_codec_launches_no_kernel():
     tops.reset_launch_counts()
     CPU.decompress(CPU.compress(_walk(5000), 1e-3))
-    assert tops.launch_counts() == {"encode": 0, "decode_body": 0}
+    counts = tops.launch_counts()
+    assert {"encode", "decode_body", "bitshuffle", "bitshuffle_inverse", "unpack",
+            "unpack_dense"} == set(counts) and set(counts.values()) == {0}
 
 
 def test_frame_header_struct_matches_reference():

@@ -135,3 +135,89 @@ def test_one_body_copy_per_frame_on_card(card, monkeypatch):
     frames = list(SZxCodec().compress_chunked(x, 1e-3, chunk_bytes=1 << 19))
     payloads = list(container.iter_frames(frames))
     assert gets == [n for p in payloads for n in (2, len(p) - container.HEADER.size)]
+
+
+@pytest.mark.parametrize("spec", specs.SPECS, ids=lambda s: s.name)
+def test_bitshuffle_kernel_matches_plain(card, spec):
+    from repro_torch.kernels import bitshuffle
+
+    g = torch.Generator().manual_seed(spec.code)
+    T = specs.tile_bytes(spec)
+    for nt in (0, 1, 3, 257):
+        tiles = torch.randint(0, 256, (nt, T), dtype=torch.uint8, generator=g).to(card)
+        fwd = bitshuffle.bitshuffle(tiles, spec=spec)
+        assert torch.equal(fwd, bitshuffle.bitshuffle_plain(tiles, False)), (spec.name, nt)
+        inv = bitshuffle.bitshuffle(tiles, spec=spec, inverse=True)
+        assert torch.equal(inv, bitshuffle.bitshuffle_plain(tiles, True)), (spec.name, nt)
+        assert torch.equal(bitshuffle.bitshuffle(fwd, spec=spec, inverse=True), tiles)
+    with pytest.raises(ValueError, match="tile width"):
+        bitshuffle.bitshuffle(torch.zeros((1, T + 8), dtype=torch.uint8, device=card), spec=spec)
+    counts = ops.launch_counts()
+    assert counts["bitshuffle"] == 3 and counts["bitshuffle_inverse"] == 6
+
+
+@pytest.mark.parametrize("spec", specs.SPECS, ids=lambda s: s.name)
+def test_unpack_kernels_match_plain(card, spec):
+    from repro_torch.kernels import unpack
+
+    for nb, bs in ((4096, 128), (257, 1), (97, 100), (5, 4096)):
+        x = _with_nonfinite(_walk(nb * bs, spec.dtype, seed=nb, dev=card)).reshape(nb, bs)
+        x[1::3] = 0.0
+        x[1::3, ::2] = -0.0                               # blocks of mixed-sign zeros
+        for e in (1e-3, float(torch.finfo(spec.dtype).tiny)):
+            mu, _c, _r, shift, nbytes, planes, L = encode.encode(
+                x, e, specs.exact_exponent_of(e), spec=spec)
+            k = unpack.unpack(planes, mu, shift, nbytes, L, spec=spec)
+            assert _same(k, unpack.unpack_plain(planes, mu, shift, nbytes, L, spec))
+            kd = unpack.unpack_dense(planes, mu, shift, nbytes, spec=spec)
+            assert _same(kd, unpack.unpack_dense_plain(planes, mu, shift, nbytes, spec))
+            if not bool(L.any()):
+                assert _same(k, kd)
+    counts = ops.launch_counts()
+    assert counts["unpack"] == 8 and counts["unpack_dense"] == 8
+
+
+@pytest.mark.parametrize("stage", [None, "bitshuffle-rle", "deflate"])
+def test_staged_store_round_trip_on_card(card, stage, tmp_path):
+    from repro_torch.store import ArrayStore
+
+    x = _walk(1 << 18, torch.float32, seed=3).reshape(256, 1024)
+    x[:32] = 0.0
+    x[-32:] = 1.0 + 1e-3 * torch.randn((32, 1024), generator=torch.Generator().manual_seed(1))
+    ArrayStore.save(tmp_path / "c.szs", x.to(card), 1e-3, chunk_shape=(64, 1024), stage=stage)
+    ArrayStore.save(tmp_path / "h.szs", x, 1e-3, chunk_shape=(64, 1024), stage=stage,
+                    device="cpu")
+    assert (tmp_path / "c.szs").read_bytes() == (tmp_path / "h.szs").read_bytes()
+    cpu = ArrayStore.open(tmp_path / "h.szs", device="cpu")
+    for fused in (False, True):
+        ca = ArrayStore.open(tmp_path / "c.szs", fused_range=fused)
+        for key in ((Ellipsis,), (slice(0, 16),), (slice(100, 141), slice(3, 901)), (250, -1)):
+            got = ca[key]
+            assert got.device.type == "cuda" and _same(got.cpu(), cpu[key]), (stage, key)
+        assert ca.stats().to_dict()["max"] == cpu.stats().to_dict()["max"]
+        assert ca.stats(header_only=True).to_dict() == cpu.stats(header_only=True).to_dict()
+    counts = ops.launch_counts()
+    assert counts["unpack"] > 0 and counts["unpack_dense"] > 0 and counts["decode_body"] > 0
+    if stage == "bitshuffle-rle":
+        assert counts["bitshuffle"] > 0 and counts["bitshuffle_inverse"] > 0
+
+
+def test_wrappers_raise_when_a_launch_fails(card, monkeypatch):
+    """No fallback: a CUDA tensor whose launch fails raises, and the plain
+    version is not run in its place."""
+    from repro_torch.kernels import _build, bitshuffle, unpack
+
+    monkeypatch.setattr(_build, "function", lambda *a, **k: (lambda *args: 1))
+    monkeypatch.setattr(bitshuffle, "bitshuffle_plain", None)
+    monkeypatch.setattr(unpack, "unpack_plain", None)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bitshuffle.bitshuffle(torch.zeros((1, 4096), dtype=torch.uint8, device=card))
+    nb, bs = 4, 8
+    args = (torch.zeros((nb, 4, bs), dtype=torch.uint8, device=card),
+            torch.zeros(nb, device=card), torch.zeros(nb, dtype=torch.int32, device=card),
+            torch.zeros(nb, dtype=torch.int32, device=card))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        unpack.unpack(*args, torch.zeros((nb, bs), dtype=torch.uint8, device=card))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        unpack.unpack_dense(*args)
+    assert set(ops.launch_counts().values()) == {0}

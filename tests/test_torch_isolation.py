@@ -29,7 +29,8 @@ def test_import_loads_nothing_of_the_reference():
         "    sys.modules[name] = None\n"
         "import repro_torch, repro_torch.api, repro_torch.core.codec\n"
         "import repro_torch.core.codec.__main__, repro_torch.kernels.ops\n"
-        "import repro_torch.kernels._build\n"
+        "import repro_torch.kernels._build, repro_torch.core.codec.stage\n"
+        "import repro_torch.store, repro_torch.store.__main__\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
         "          and any(m == b or m.startswith(b + '.') for b in %r)]\n"
         "print(loaded)\n" % (BANNED,)
@@ -66,6 +67,29 @@ def test_codec_refuses_to_run_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SZxCodec(device="cuda:0")
     assert SZxCodec(device="cpu").device == torch.device("cpu")
+
+
+def test_store_and_stage_refuse_to_run_without_a_card(monkeypatch, tmp_path):
+    """No fallback: without ``device=`` the store and the second stage run on
+    the card, and raise when there is none."""
+    import numpy as np
+
+    from repro_torch.core.codec import SZxCodec, stage
+    from repro_torch.store import ArrayStore
+
+    x = np.linspace(0, 1, 4096, dtype=np.float32).reshape(64, 64)
+    ArrayStore.save(tmp_path / "a.szs", x, 1e-3, device="cpu")
+    payload = SZxCodec(device="cpu").compress(x, 1e-3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ArrayStore.save(tmp_path / "b.szs", x, 1e-3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ArrayStore.open(tmp_path / "a.szs")
+    for fn in (stage.stage_payload, stage.destage_payload):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(payload, stage.DEFLATE)
+    with ArrayStore.open(tmp_path / "a.szs", device="cpu") as ca:
+        assert ca.shape == (64, 64)
 
 
 def test_chip_smoke_refuses_to_run_without_the_port(tmp_path):
