@@ -40,7 +40,21 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      plain version at the shape the main path launches it at, beside the
      bound from bytes moved at 3.35 TB/s;
   7. breaks one 64 MiB frame's compress and decompress into their stages
-     (host clock, synchronized around each stage).
+     (host clock, synchronized around each stage);
+  8. drives the szx-planes gradient path at the full width of llama3.2-1b:
+     its gradient tree (1,235,814,400 f32 values, 4.94 GB, made on the card
+     from --seed) through compressed_psum_mean with error feedback in a
+     one-rank NCCL group, three steps at P = 1 and at P = 2 (block 64): the
+     mean and residual bit-identical to the plain versions on the card, the
+     error within the block bound, the wire bytes n * wire_bytes_per_value;
+     then compressed_ppermute on a ring of one, compressed_all_to_all on
+     one rank, and pipeline_apply with compressed shifts on one stage
+     (8 microbatches of hidden states).  Launch counters are zeroed just before this phase and read
+     after it: both planes kernels must have run.
+
+Phase 2 also holds the planes kernels against their plain versions (P = 1,
+2, 3; bs 1, 3, 64, 128, 4096; leading dims; nb = 0; edge blocks; random
+records), and phase 6 times them on the embed gradient's shape.
 
 Any failed check raises, so the exit code is non-zero.  The last two lines
 are the kernels JSON and the result JSON.
@@ -51,6 +65,7 @@ import argparse
 import hashlib
 import io
 import json
+import math
 import struct
 import subprocess
 import sys
@@ -68,14 +83,20 @@ GOLDEN_SHA256 = {                  # tests/test_codec.py, the f32 golden streams
 
 
 MAX_ERR = {"encode": 0.0, "decode_body": 0.0, "bitshuffle": 0.0, "unpack": 0.0,
-           "unpack_dense": 0.0}                  # kernel vs plain, this run
+           "unpack_dense": 0.0, "planes_encode": 0.0,
+           "planes_decode": 0.0}                 # kernel vs plain, this run
 SOURCES = {          # kernel -> (its source, the TPU kernel it replaces)
     "encode": ("src/repro_torch/csrc/encode.cu", "src/repro/kernels/encode.py:57"),
     "decode_body": ("src/repro_torch/csrc/decode.cu", "src/repro/kernels/decode.py:108"),
     "bitshuffle": ("src/repro_torch/csrc/bitshuffle.cu", "src/repro/kernels/bitshuffle.py:66"),
     "unpack": ("src/repro_torch/csrc/unpack.cu", "src/repro/kernels/unpack.py:123"),
     "unpack_dense": ("src/repro_torch/csrc/unpack.cu", "src/repro/kernels/unpack.py:136"),
+    "planes_encode": ("src/repro_torch/csrc/planes.cu", "src/repro/kernels/planes.py:71"),
+    "planes_decode": ("src/repro_torch/csrc/planes.cu", "src/repro/kernels/planes.py:111"),
 }
+CODEC_KERNELS = ("encode", "decode_body", "bitshuffle", "bitshuffle_inverse", "unpack",
+                 "unpack_dense")
+PLANES_KERNELS = ("planes_encode", "planes_decode")
 STORE_CHUNK_BYTES = 2 << 20        # the store's default chunk (store/grid.py)
 
 
@@ -569,7 +590,7 @@ def phase_store(field, args):
 # phase 6: per-kernel time at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def phase_timing(field, store, reps: int):
+def phase_timing(field, store, reps: int, seed: int):
     import numpy as np
     import torch
     from repro_torch.core.codec import container, device, plan
@@ -632,6 +653,7 @@ def phase_timing(field, store, reps: int):
         f"forward {fwd_ms:.4f} ms")
     timings.append(("bitshuffle", f"f32 store chunk nt={nt} tiles of {T} B (forward)",
                     fwd_ms, fwd_plain, 2 * nt * T))
+    timings += time_planes(seed + 5, reps)
     rows = []
     for name, where, ms, pms, nbytes_moved in timings:
         bound_ms = nbytes_moved / HBM_BYTES_PER_S * 1e3
@@ -640,6 +662,28 @@ def phase_timing(field, store, reps: int):
             f"bound {bound_ms:.4f} ms ({nbytes_moved / 1e6:.3f} MB at 3.35 TB/s, "
             f"{bound_ms / ms * 100:.1f}% of the bound)")
     return rows
+
+
+def time_planes(seed: int, reps: int):
+    """planes_encode / planes_decode at the shape the gradient path launches
+    them on its largest-row leaf: llama3.2-1b's embed gradient (128256 x 2048
+    f32), P = 1, block 64."""
+    import torch
+    from repro_torch.kernels import planes as pk
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows, d = LLAMA_1B_GRADS["embed"]
+    xb = (torch.randn((rows, d), device="cuda", generator=gen) * 1e-3).reshape(rows, -1, GRAD_BLOCK)
+    n, nb = xb.numel(), xb.numel() // GRAD_BLOCK
+    enc = pk.planes_encode(xb, 1)
+    moved = n * 4 + n * 1 + nb * 8          # f32 values, one plane, mu + int32 sexp
+    where = f"embed gradient {rows}x{d} P=1 block {GRAD_BLOCK}"
+    out = []
+    for name, fn, plain in (
+            ("planes_encode", lambda: pk.planes_encode(xb, 1), lambda: pk.planes_encode_plain(xb, 1)),
+            ("planes_decode", lambda: pk.planes_decode(*enc), lambda: pk.planes_decode_plain(*enc))):
+        out.append((name, where, cuda_ms(fn, reps), cuda_ms(plain, max(reps // 10, 3)), moved))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -698,6 +742,279 @@ def phase_breakdown(field, reps: int = 5) -> None:
             f"total {total:.3f} ms = {FRAME_BYTES / total / 1e6:.3f} GB/s; {parts}")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 8: the szx-planes gradient path at the full width of llama3.2-1b
+# ---------------------------------------------------------------------------
+
+# The gradient pytree of llama3.2-1b: the leaf shapes of
+# src/repro/models/transformer.py:117 init_params with
+# src/repro/configs/llama3p2_1b.py (d_model 2048, 16 layers stacked on a
+# leading axis, 32 heads and 8 kv heads of 64, d_ff 8192, vocab 128256, tied
+# embeddings): 1,235,814,400 float32 values, 4.94 GB.
+LLAMA_1B_GRADS = {
+    "embed": (128256, 2048),
+    "layers": {
+        "attn": {"wq": (16, 2048, 2048), "wk": (16, 2048, 512),
+                 "wv": (16, 2048, 512), "wo": (16, 2048, 2048)},
+        "ln1": (16, 2048), "ln2": (16, 2048),
+        "mlp": {"wi": (16, 2048, 16384), "wo": (16, 8192, 2048)},
+    },
+    "final_ln": (2048,),
+}
+GRAD_BLOCK = 64                    # grad_compress.DEFAULT_BLOCK (repro/core/grad_compress.py:26)
+
+
+def leaves(tree, prefix=""):
+    """(dotted name, leaf) pairs of a nested dict, in insertion order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def planes_edge_blocks(bs: int = 8):
+    """Blocks the planes math must get right: constant blocks, signed zeros,
+    subnormals, tiny radius (sexp >= 127), NaN with payloads, +-inf, and
+    min + max that overflows."""
+    import torch
+
+    nan, inf = float("nan"), float("inf")
+    snan = struct.unpack("<f", struct.pack("<I", 0x7F812345))[0]
+    neg_nan = struct.unpack("<f", struct.pack("<I", 0xFFC00001))[0]
+    fill = [float(i) for i in range(1, bs)]
+    rows = [[0.0] * bs, [-0.0] * bs, [0.0, -0.0] * (bs // 2), [3.5] * bs, [1e-40] * bs,
+            [0.0] * 3 + [1e-40] + [0.0] * (bs - 4), [-1e-40, 1e-40] + [0.0] * (bs - 2),
+            [1e-38, 1.2e-38] + [1.1e-38] * (bs - 2), [1.5e-38, -1.2e-38] + [1.3e-38] * (bs - 2),
+            [1.0, 1.0 + 2 ** -23] + [1.0] * (bs - 2), [1e-30] * (bs - 1) + [1.0000001e-30],
+            [nan] + fill, [1.0, nan, nan] + fill[2:], [snan] + fill, [neg_nan] * bs,
+            [inf] + fill, [-inf] + fill, [inf, -inf] + [0.0] * (bs - 2), [inf] * bs,
+            [3e38, 2e38] + [3.3e38] * (bs - 2), [-3e38, -2e38] + [-3.3e38] * (bs - 2),
+            [3.4e38, -3.4e38] + fill[:-1]]
+    return torch.tensor(rows, dtype=torch.float32, device="cuda")
+
+
+def planes_both(x, P):
+    """Kernel and plain planes encode of ``x`` and decode of the result;
+    asserts bit identity of all four outputs."""
+    from repro_torch.kernels import planes as pk
+
+    k = pk.planes_encode(x, P)
+    p = pk.planes_encode_plain(x, P)
+    for name, a, b in zip(("mu", "sexp", "planes"), k, p):
+        check(same_bits(a, b), f"planes_encode P={P} {tuple(x.shape)}: {name} differs")
+        MAX_ERR["planes_encode"] = max(MAX_ERR["planes_encode"], max_abs_diff(a, b))
+    planes_decode_both(*k)
+    return k
+
+
+def planes_decode_both(mu, sexp, planes):
+    from repro_torch.kernels import planes as pk
+
+    kd = pk.planes_decode(mu, sexp, planes)
+    pd = pk.planes_decode_plain(mu, sexp, planes)
+    check(same_bits(kd, pd), f"planes_decode P={planes.shape[0]} {tuple(planes.shape)}: differs")
+    MAX_ERR["planes_decode"] = max(MAX_ERR["planes_decode"], max_abs_diff(kd, pd))
+    return kd
+
+
+def phase_planes_kernels(gen):
+    """planes_encode / planes_decode against their plain versions."""
+    import torch
+
+    t0 = time.perf_counter()
+    cases = []
+    for bs in (1, 3, 64, 128, 4096):
+        nb = (1 << 22) // bs
+        scale = torch.exp2(torch.randint(-40, 40, (nb, 1), device="cuda", generator=gen).float())
+        cases.append(torch.randn((nb, bs), device="cuda", generator=gen) * scale)
+    cases.append(torch.randn((3, 5, 2, 32), device="cuda", generator=gen))     # leading dims
+    cases.append(torch.zeros((0, 64), device="cuda"))                           # nb = 0
+    cases += [planes_edge_blocks(), planes_edge_blocks(64)]
+    base = 1.0 + torch.rand((2000, 1), device="cuda", generator=gen)            # sexp >= 127
+    cases.append(base + torch.randint(0, 3, (2000, 16), device="cuda", generator=gen) * 2.0 ** -23 * base)
+    for x in cases:
+        for P in (1, 2, 3):
+            planes_both(x, P)
+    nb, bs = 1 << 16, 64
+    mu = torch.randn(nb, device="cuda", generator=gen) * torch.exp2(
+        torch.randint(-140, 127, (nb,), device="cuda", generator=gen).float())
+    mu[::97], mu[1::101], mu[2::103], mu[3::107] = float("nan"), float("inf"), 1e-40, -0.0
+    sexp = torch.randint(-300, 300, (nb,), device="cuda", generator=gen, dtype=torch.int32)
+    edges = torch.tensor([-128, -127, -126, -125, 125, 126, 127, 128, 0, 2 ** 31 - 1, -2 ** 31],
+                         dtype=torch.int32, device="cuda")
+    sexp[::5] = edges.repeat(nb // 50 + 1)[: len(sexp[::5])]
+    for P in (1, 2, 3):
+        planes_decode_both(mu, sexp, torch.randint(0, 256, (P, nb, bs), dtype=torch.uint8,
+                                            device="cuda", generator=gen))
+    torch.cuda.synchronize()
+    log(f"planes kernels vs plain: bit-identical for P = 1, 2, 3 at bs = 1, 3, 64, 128, 4096 "
+        f"(2^22 values each), leading dims, nb = 0, edge blocks, and random records with "
+        f"sexp at +-127 and beyond ({time.perf_counter() - t0:.1f} s)")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def llama_grads(seed: int):
+    """A gradient tree of llama3.2-1b's shapes on the card: normal values at a
+    magnitude drawn per row (1e-6 .. 1e-1), as gradients vary by layer."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(shape):
+        rows = torch.empty(shape[:-1] + (1,), device="cuda").uniform_(-6.0, -1.0, generator=gen)
+        return torch.randn(shape, device="cuda", generator=gen) * torch.pow(10.0, rows)
+
+    return tree_map(make, LLAMA_1B_GRADS)
+
+
+def check_leaf(name, x, mean, resid, P):
+    """One leaf of a one-member psum-mean against the plain versions on the
+    card: the mean is (0 + decode(encode(x))) * 1, the residual is
+    x - decode(encode(x)), both bit for bit; the error per value is within
+    max_block_error_bound, widened as stated below.  Returns (values over
+    the bare bound, values at the top of the range, max error / bound)."""
+    import torch
+    from repro_torch.core import planes as cplanes
+    from repro_torch.kernels import ref
+
+    xb = x.reshape(x.shape[:-1] + (-1, GRAD_BLOCK))
+    mu, sexp, planes = ref.planes_encode_ref(xb, P)
+    dec = ref.planes_decode_ref(mu, sexp, planes).reshape(x.shape)
+    want_mean = ref.mul_flushed(ref.flush(torch.zeros_like(dec) + dec), torch.ones_like(dec))
+    check(same_bits(mean, want_mean), f"psum-mean P={P} {name}: mean != plain decode(encode)")
+    check(same_bits(resid, ref.flush(ref.flush(x) - dec)), f"psum-mean P={P} {name}: residual")
+    # max_block_error_bound takes the scale as an exact power of two and
+    # leaves out clamp events.  The jax route's exp2 is a few ulps off 2^s
+    # (delta = |scale(s) 2^-s - 1|), which adds |x - mu| |scale(s) scale(-s) - 1|
+    # to every value; a value clamped to the top of the range is off by up to
+    # one step more, 2 bound (1 + 2^(8P-1) delta); and the three float
+    # roundings (x - mu, the product, the add) each add half an ulp of a value
+    # below |mu| + |x - mu|
+    bound = cplanes.max_block_error_bound(
+        cplanes.PlanesEncoded(mu, sexp, planes, x.numel(), GRAD_BLOCK)).double()[..., None]
+    scale, inv = ref.planes_exp2(sexp.float()).double(), ref.planes_exp2(-sexp.float()).double()
+    skew = (scale * inv - 1).abs()[..., None]
+    delta = (scale * torch.pow(2.0, -sexp.double()) - 1).abs()[..., None]
+    v = (xb.double() - mu.double()[..., None]).abs()
+    err = (dec.reshape(xb.shape).double() - xb.double()).abs()
+    uq = planes[0].to(torch.int32)
+    for k in range(1, P):
+        uq |= planes[k].to(torch.int32) << (8 * k)
+    top = uq == (1 << (8 * P - 1)) - 1
+    limit = (bound * torch.where(top, 2 + 2.0 ** (8 * P) * delta, 1.0) + v * skew
+             + 2.0 ** -22 * (mu.double().abs()[..., None] + v))
+    check(bool((err <= limit).all()), f"psum-mean P={P} {name}: error above the block bound")
+    over = int((err > bound).sum())
+    return over, int(top.sum()), float((err / bound).max())
+
+
+def phase_gradient(args):
+    """The gradient of llama3.2-1b through compressed_psum_mean with error
+    feedback in a one-rank NCCL group, then compressed_ppermute on a ring of
+    one, compressed_all_to_all on one rank and pipeline_apply on one stage."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import grad_compress as gc
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    wire = [0]
+    gather = dist.all_gather
+
+    def counted(parts, t, group=None, async_op=False):        # bytes each member sends
+        wire[0] += t.numel() * t.element_size()
+        return gather(parts, t, group=group, async_op=async_op)
+
+    dist.all_gather = counted
+    rows = {}
+    try:
+        grads = llama_grads(args.seed + 3)
+        n = sum(g.numel() for _, g in leaves(grads))
+        check(n == 1_235_814_400, f"llama3.2-1b gradient has {n} values")
+        for P in (1, 2):
+            acc = tree_map(torch.zeros_like, grads)
+            times = []
+            for step in range(3):
+                inp = tree_map(torch.add, grads, acc)
+                wire[0] = 0
+                (mean, resid), t = timed(lambda: gc.compressed_psum_mean(
+                    inp, None, num_planes=P, block=GRAD_BLOCK))
+                times.append(t)
+                want = n * gc.wire_bytes_per_value(P, GRAD_BLOCK)
+                check(wire[0] == want, f"psum-mean P={P}: wire bytes {wire[0]} != {want}")
+                over = clamps = 0
+                worst = 0.0
+                for (name, x), (_, m), (_, r) in zip(leaves(inp), leaves(mean), leaves(resid)):
+                    # in slices of the leading axis (whole blocks) to bound memory
+                    per = x.shape[0] if x.dim() == 1 else max(1, (1 << 26) // (x.numel() // x.shape[0]))
+                    for i in range(0, x.shape[0], per):
+                        sl = slice(i, i + per)
+                        o, c, w = check_leaf(name, x[sl], m[sl], r[sl], P)
+                        over, clamps, worst = over + o, clamps + c, max(worst, w)
+                log(f"grad psum-mean P={P} step {step + 1}: {t:.3f} s host clock "
+                    f"({n * 4 / t / 1e9:.3f} GB/s of f32 gradient), wire {wire[0]} B "
+                    f"({wire[0] / n:.4f} B/value); mean and residual bit-identical to the plain "
+                    f"route; error within the block bound ({over} values above the bare bound, "
+                    f"{clamps} at the top of the range, max error/bound {worst:.6f})")
+                acc = resid                      # error feedback
+                del inp, mean
+            rows[P] = times
+        del grads, acc, resid
+        # activation traffic: one microbatch of hidden states (8 x 2048 tokens x d_model)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 4)
+        h = torch.randn((8, 2048, 2048), device="cuda", generator=gen)
+        from repro_torch.kernels import ref
+
+        for P in (1, 3):
+            want = ref.planes_decode_ref(*ref.planes_encode_ref(
+                h.reshape(8, 2048, -1, GRAD_BLOCK), P)).reshape(h.shape)
+            got = gc.compressed_ppermute(h, None, [(0, 0)], num_planes=P, block=GRAD_BLOCK)
+            check(same_bits(got, want), f"compressed_ppermute P={P} on a ring of one")
+            got = gc.compressed_all_to_all(h, None, 0, 1, num_planes=P, block=GRAD_BLOCK)
+            check(same_bits(got, want), f"compressed_all_to_all P={P} on one rank")
+        log("compressed_ppermute (ring of one: a self-pair is a local copy) and compressed_all_to_all "
+            "(one rank) of (8, 2048, 2048) hidden states at P = 1, 3: bit-identical to the "
+            "plain decode(encode)")
+        # the GPipe schedule with compressed shifts, one stage on a ring of
+        # one: each of the 8 ticks round-trips the stage's output through
+        # both planes kernels (the shift's result feeds no later stage here;
+        # the cross-card case is tests/test_torch_cuda.py)
+        from repro_torch.kernels import ops
+        from repro_torch.pipeline_par import pipeline_apply
+
+        w = torch.stack([torch.full((2048,), 2.0, device="cuda"),
+                         torch.randn(2048, device="cuda", generator=gen).round()])
+        before = ops.launch_counts()
+        out = pipeline_apply(lambda p, x: x * p[0] + p[1], compress_activations=True,
+                             num_planes=1, compress_block=GRAD_BLOCK)(w, h)
+        after = ops.launch_counts()
+        check(same_bits(out, h * w[0] + w[1]), "pipeline_apply: outputs != the stage's")
+        for k in PLANES_KERNELS:
+            check(after[k] - before[k] == h.shape[0],
+                  f"pipeline_apply: {after[k] - before[k]} {k} launches for {h.shape[0]} ticks")
+        log(f"pipeline_apply, one stage, compressed shifts at P = 1: outputs bit-identical to "
+            f"the stage's; {h.shape[0]} ticks launched each planes kernel {h.shape[0]} times")
+    finally:
+        dist.all_gather = gather
+        dist.destroy_process_group()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -740,18 +1057,36 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernels(gen)
+    phase_planes_kernels(gen)
     phase_golden()
 
     ops.reset_launch_counts()
     field = phase_main(args)
     store = phase_store(field, args)
-    launches = ops.launch_counts()
-    log(f"main-path launches: {launches}")
+    launches = {k: v for k, v in ops.launch_counts().items() if k in CODEC_KERNELS}
+    log(f"codec and store path launches: {launches}")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        check(n > 0, f"kernel {name} was not launched on the codec and store path")
 
-    rows = phase_timing(field, store, args.reps)
+    rows = phase_timing(field, store, args.reps, args.seed)
     phase_breakdown(field)
+    del field, store
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    step_s = phase_gradient(args)
+    grad_launches = {k: v for k, v in ops.launch_counts().items() if k in PLANES_KERNELS}
+    log(f"gradient path launches: {grad_launches}")
+    for name, n in grad_launches.items():
+        check(n > 0, f"kernel {name} was not launched on the gradient path")
+    launches.update(grad_launches)
+    n = sum(math.prod(shape) for _, shape in leaves(LLAMA_1B_GRADS))
+    for P, times in step_s.items():
+        enc_bytes = n * 4 + n * P + (n // GRAD_BLOCK) * 8
+        log(f"time psum-mean step, whole llama3.2-1b gradient P={P} (host clock, synchronized): "
+            + ", ".join(f"{t * 1e3:.1f} ms" for t in times)
+            + f"; encode bound {enc_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"({enc_bytes} B at 3.35 TB/s)")
     kernels = []
     for name, ms, pms, bound_ms in rows:
         src, replaces = SOURCES[name]

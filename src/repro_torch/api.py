@@ -7,11 +7,14 @@
                   f32/f64/f16/bf16) on the card, streams byte-identical to
                   the JAX package's
   compress / decompress / compress_with_stats -- one-shot functional API
+  PlanesCodec  -- fixed-shape szx-planes codec (gradient and activation
+                  traffic; ``repro_torch.core.grad_compress`` runs on it)
   ArrayStore   -- block-addressable compressed N-d array store: ``save`` /
                   ``save_sharded`` / ``open`` -> lazy ``CompressedArray`` with
                   ROI reads and compressed-domain queries on the card
 """
 from repro_torch.core.codec.plan import Bound  # noqa: F401
+from repro_torch.core.codec.planes_codec import PlanesCodec  # noqa: F401
 from repro_torch.core.codec.szx_codec import (  # noqa: F401
     CompressionStats,
     SZxCodec,
@@ -24,6 +27,7 @@ from repro_torch.store import ArrayStore  # noqa: F401
 __all__ = [
     "ArrayStore",
     "Bound",
+    "PlanesCodec",
     "SZxCodec",
     "CompressionStats",
     "compress",

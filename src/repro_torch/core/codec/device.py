@@ -35,6 +35,9 @@ class DeviceEncoding:
 
     The byte-stream codec uses kind ``"szx-v2"``: array ``body`` (exactly the
     stream body's bytes, on the device) and meta ``plan``, ``nnc``, ``nmid``.
+    The fixed-plane codec (``PlanesCodec``: gradient and activation traffic)
+    uses kind ``"szx-planes"``: arrays ``mu``, ``sexp``, ``planes`` and meta
+    ``num_planes`` (and ``block`` for a leaf blocked along its last axis).
     """
 
     kind: str
@@ -51,6 +54,13 @@ class DeviceEncoding:
 
     def __getitem__(self, key: str):
         return self.arrays[key]
+
+    def replace(self, **arrays) -> "DeviceEncoding":
+        """New encoding with some arrays swapped (kind/meta preserved)."""
+        unknown = set(arrays) - set(self.arrays)
+        if unknown:
+            raise KeyError(f"unknown encoding arrays {sorted(unknown)}")
+        return DeviceEncoding(self.kind, {**self.arrays, **arrays}, self.meta)
 
 
 def resolve_device(device, owner: str) -> torch.device:

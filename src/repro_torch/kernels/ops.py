@@ -2,7 +2,7 @@
 
 The route follows the tensor's device: a CUDA tensor goes to the hand-written
 Hopper kernel (``kernels/encode.py``, ``decode.py``, ``bitshuffle.py``,
-``unpack.py``), a CPU tensor to its plain PyTorch version
+``unpack.py``, ``planes.py``), a CPU tensor to its plain PyTorch version
 (``kernels/ref.py``).  There is no backend knob and no fallback: a CUDA call
 that cannot launch raises.
 
@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bitshuffle as bitshuffle_mod, decode, encode, ref, specs
-from repro_torch.kernels import unpack as unpack_mod
+from repro_torch.kernels import planes as planes_mod, unpack as unpack_mod
 from repro_torch.kernels.specs import DtypeSpec
 
 
@@ -83,11 +83,26 @@ def bitshuffle(tiles: torch.Tensor, *, spec: DtypeSpec = specs.F32,
     return bitshuffle_mod.bitshuffle(tiles, spec=spec, inverse=inverse)
 
 
+def planes_encode(xb, num_planes: int):
+    """szx-planes fixed-plane encode of (..., bs) blocks -> (mu, sexp int32,
+    planes (P, ..., bs) uint8), on the device ``xb`` lies on."""
+    return planes_mod.planes_encode(xb.to(torch.float32), num_planes)
+
+
+def planes_decode(mu, sexp, planes):
+    """Inverse of :func:`planes_encode` -> (..., bs) float32 (any integer
+    sexp dtype)."""
+    return planes_mod.planes_decode(mu.to(torch.float32), sexp.to(torch.int32),
+                                    planes.to(torch.uint8))
+
+
 def launch_counts() -> dict[str, int]:
     return {"encode": encode.LAUNCHES, "decode_body": decode.LAUNCHES,
             "bitshuffle": bitshuffle_mod.LAUNCHES,
             "bitshuffle_inverse": bitshuffle_mod.INVERSE_LAUNCHES,
-            "unpack": unpack_mod.LAUNCHES, "unpack_dense": unpack_mod.DENSE_LAUNCHES}
+            "unpack": unpack_mod.LAUNCHES, "unpack_dense": unpack_mod.DENSE_LAUNCHES,
+            "planes_encode": planes_mod.ENCODE_LAUNCHES,
+            "planes_decode": planes_mod.DECODE_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -95,3 +110,4 @@ def reset_launch_counts() -> None:
     decode.LAUNCHES = 0
     bitshuffle_mod.LAUNCHES = bitshuffle_mod.INVERSE_LAUNCHES = 0
     unpack_mod.LAUNCHES = unpack_mod.DENSE_LAUNCHES = 0
+    planes_mod.ENCODE_LAUNCHES = planes_mod.DECODE_LAUNCHES = 0

@@ -337,3 +337,159 @@ def decode_body_ref(body, nnc: int, lo: int, mu, shift, nbytes, rank,
         b = torch.where(key >= 0, key & 0xFF, 0)
         ws = ws | (b << sh)
     return _compose_word(ws, mu_r, shift_r, nbytes_r, spec), mid_total
+
+
+# ---------------------------------------------------------------------------
+# Fixed-plane ("szx-planes") mode: per-block mu, a scale from the radius
+# exponent, and P uint8 quantization planes (gradient and activation traffic).
+# ---------------------------------------------------------------------------
+#
+# The semantics are the reference's jax route on the CPU, which XLA runs with
+# subnormals flushed: a subnormal operand counts as a zero of its sign, and a
+# result that is tiny after rounding becomes a zero of its sign.  Sums of two
+# such floats are exact when they are tiny, so one IEEE add and a flush give
+# the same bits; a product is taken exactly in float64 and flushed when it is
+# below FLT_MIN after rounding to 24 bits (``_TINY_PRODUCT``), then rounded
+# once.  NaN bits follow the host too: an input NaN keeps its payload with the
+# quiet bit set, a NaN made by the arithmetic (inf - inf, 0 * inf) is the
+# host's default NaN ``0xFFC00000``.
+#
+# The scale is not an exact power of two: ``jnp.exp2`` lowers to
+# ``exp(f32(ln 2) * s)``, and XLA's CPU exp misses 2**s by a few ulps for
+# most integers s.  ``PLANES_SCALE_ULPS`` holds, for s = -125 .. 127, the
+# difference in ulps between that value and 2**s; s <= -126 gives 0 (the
+# result is below FLT_MIN and flushed) and s >= 128 gives inf.  The values
+# are those of jax/jaxlib 0.9.0 on an x86-64 host with AVX-512 and FMA; XLA's
+# exp differs for some s on other instruction sets, and
+# tests/test_torch_planes.py compares the table with ``jnp.exp2``.  The CUDA
+# kernels read the same table (``planes_scale_table``).
+
+PLANES_SCALE_MIN, PLANES_SCALE_MAX = -125, 127
+PLANES_SCALE_ULPS = (
+    26, 14, 2, -20, -44, 30, 18, 6, -12, -36, -60, 22, 10, -4, -28, -52,        # -125
+    26, 14, 2, -19, -43, -67, 18, 6, -11, -35, -59, 22, 10, -3, -27, -51,       # -109
+    27, 15, 3, -19, 11, -3, -27, 7, -11, -35, 3, -19, 11, -3, -27, 7,           # -93
+    -10, 15, 3, -18, 11, -2, -26, 7, -10, -34, 3, -18, 11, -2, -26, 7,          # -77
+    -10, 15, 3, -18, 11, -2, -26, 7, -10, -34, 3, -18, 11, -2, -26, 7,          # -61
+    -9, -1, 3, -17, -9, -1, 3, 7, -9, -1, 3, -17, -9, -1, 4, 8,                 # -45
+    -9, -1, 4, -17, -9, -1, 4, -1, -9, -1, 4, -1, -9, -1, 4, 0,                 # -29
+    -8, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,                            # -13
+    0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 4, 0, -8, 0, 4, 0,                            # 3
+    -7, 0, 4, 0, -7, 0, 4, 8, -7, 0, 4, -15, -7, 1, 5, 9,                       # 19
+    -7, 1, 5, -15, -7, 1, 5, 9, -7, 1, 5, -15, 13, 1, -22, 9,                   # 35
+    -6, 17, 5, -14, 13, 1, -22, 9, -6, -30, 5, -14, 13, 1, -22, 9,              # 51
+    -6, 17, 5, -14, 13, 1, -22, 9, -6, -30, 5, -14, 13, 1, -21, 9,              # 67
+    -5, 17, 5, -13, 13, 1, -21, 9, -5, -29, -53, 26, 14, 2, -21, -45,           # 83
+    30, 18, 6, -13, -37, 34, 22, 10, -5, -29, -53, 26, 14, 2, -20, -44,         # 99
+    30, 18, 6, -12, -36, -60, 22, 10, -4, -28, -52, 26, 14,                     # 115
+)
+_TINY = 2.0 ** -126
+_TINY_PRODUCT = 2.0 ** -126 - 2.0 ** -151
+_DEFAULT_NAN_BITS = -0x00400000          # 0xFFC00000 as int32
+_QUIET_BIT = 0x00400000
+_SCALE_TABLES: dict[torch.device, torch.Tensor] = {}
+
+
+def planes_scale_table(device) -> torch.Tensor:
+    """The reference's exp2(s) for s = -125 .. 127 as float32 on ``device``
+    (cached per device)."""
+    device = torch.device(device)
+    tab = _SCALE_TABLES.get(device)
+    if tab is None:
+        bits = [((s + 127) << 23) + d for s, d in
+                zip(range(PLANES_SCALE_MIN, PLANES_SCALE_MAX + 1), PLANES_SCALE_ULPS)]
+        tab = torch.tensor(bits, dtype=torch.int32).view(torch.float32).to(device)
+        _SCALE_TABLES[device] = tab
+    return tab
+
+
+def planes_exp2(s: torch.Tensor) -> torch.Tensor:
+    """exp2 of integer-valued float32 ``s`` as the reference computes it."""
+    tab = planes_scale_table(s.device)
+    idx = s.clamp(PLANES_SCALE_MIN, PLANES_SCALE_MAX).to(torch.int64) - PLANES_SCALE_MIN
+    v = tab[idx]
+    v = torch.where(s < PLANES_SCALE_MIN, torch.zeros_like(v), v)
+    return torch.where(s > PLANES_SCALE_MAX, torch.full_like(v, float("inf")), v)
+
+
+def flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormals to a zero of the same sign (NaN passes)."""
+    return torch.where(x.abs() < _TINY, torch.copysign(torch.zeros_like(x), x), x)
+
+
+def mul_flushed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 product with the host's flush (tiny after rounding)."""
+    p = a.double() * b.double()                      # exact: 24 + 24 bits
+    p = torch.where(p.abs() < _TINY_PRODUCT, torch.copysign(torch.zeros_like(p), p), p)
+    return p.float()
+
+
+def _nan_to(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """``x`` with every NaN replaced by the float32 whose int32 bits are
+    ``bits`` (broadcast against ``x``)."""
+    return torch.where(torch.isnan(x), bits.view(torch.float32), x)
+
+
+def _quiet(x: torch.Tensor) -> torch.Tensor:
+    """int32 bits of float32 ``x`` with the quiet bit set."""
+    return x.view(torch.int32) | _QUIET_BIT
+
+
+def planes_encode_ref(xb: torch.Tensor, num_planes: int):
+    """Error-bounded block quantization of (..., bs) float32 blocks to
+    ``num_planes`` bytes.
+
+    Returns (mu (...,) f32, sexp (...,) int32, planes (P, ..., bs) uint8):
+    q = rint((x - mu) * scale(sexp)) clamped to the signed 8P-bit range, with
+    sexp = 8P - 2 - E from the block radius exponent E, so |q| < 2^(8P-1).
+    A NaN product (a constant block: radius 0 makes the scale inf) counts as
+    q = 0.
+    """
+    assert 1 <= num_planes <= 3, "szx-planes supports 1..3 byte planes"
+    xb = xb.to(torch.float32)
+    xf = flush(xb)
+    mn = xf.amin(dim=-1)
+    mx = xf.amax(dim=-1)
+    # XLA orders -0 below +0 in min and max
+    zero, neg = xf == 0, torch.signbit(xf)
+    mn = torch.where(mn == 0, torch.where((zero & neg).any(-1), -0.0, 0.0), mn)
+    mx = torch.where(mx == 0, torch.where((zero & ~neg).any(-1), 0.0, -0.0), mx)
+    mu = mul_flushed(torch.full_like(mn, 0.5), flush(mn + mx))
+    # mu of a block holding NaN is its first NaN, quieted; inf - inf is the
+    # host's default NaN
+    isn = torch.isnan(xb)
+    first = torch.gather(xb, -1, isn.to(torch.int8).argmax(dim=-1, keepdim=True))[..., 0]
+    mu = _nan_to(mu, torch.where(isn.any(-1), _quiet(first), _DEFAULT_NAN_BITS))
+    radius = torch.maximum(flush(mx - mu), flush(mu - mn))
+    E = ((radius.view(torch.int32) >> 23) & 0xFF) - 127
+    nbits = 8 * num_planes
+    sexp = ((nbits - 2) - E).to(torch.int32)
+    v = flush(xf - mu[..., None])
+    p = mul_flushed(v, planes_exp2(sexp.to(torch.float32))[..., None])
+    lim = float(2 ** (nbits - 1))
+    q = torch.round(p)
+    q = torch.where(torch.isnan(q), torch.zeros_like(q), q).clamp(-lim, lim - 1)
+    q = q.to(torch.int32)
+    planes = torch.stack([((q >> (8 * k)) & 0xFF).to(torch.uint8)
+                          for k in range(num_planes)], dim=0)
+    return mu, sexp, planes
+
+
+def planes_decode_ref(mu: torch.Tensor, sexp: torch.Tensor, planes: torch.Tensor):
+    """Inverse of :func:`planes_encode_ref` -> (..., bs) float32:
+    q * scale(-sexp) + mu.  num_planes (planes.shape[0]) must be <= 3."""
+    num_planes = planes.shape[0]
+    assert num_planes <= 3, "szx-planes supports 1..3 byte planes"
+    nbits = 8 * num_planes
+    uq = torch.zeros(planes.shape[1:], dtype=torch.int32, device=planes.device)
+    for k in range(num_planes):
+        uq = uq | (planes[k].to(torch.int32) << (8 * k))
+    # sign-extend a width-`nbits` two's-complement integer
+    q = torch.where(uq >= (1 << (nbits - 1)), uq - (1 << nbits), uq).to(torch.float32)
+    mu = mu.to(torch.float32)
+    scale = planes_exp2(-(sexp.to(torch.int32).to(torch.float32)))
+    v = mul_flushed(q, scale[..., None])
+    out = flush(v + flush(mu)[..., None])
+    # a NaN mu wins over a NaN product (0 * inf); else a NaN is the default
+    bits = torch.where(torch.isnan(mu), _quiet(mu), _DEFAULT_NAN_BITS)
+    return _nan_to(out, bits[..., None])

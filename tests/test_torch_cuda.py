@@ -202,14 +202,183 @@ def test_staged_store_round_trip_on_card(card, stage, tmp_path):
         assert counts["bitshuffle"] > 0 and counts["bitshuffle_inverse"] > 0
 
 
+def _f32(bits) -> float:
+    return torch.tensor(bits, dtype=torch.int32).view(torch.float32).item()
+
+
+def _planes_edge_blocks(bs: int = 8) -> torch.Tensor:
+    """Blocks the planes math must get right: constant blocks, signed zeros,
+    subnormals, tiny radius (sexp >= 127), NaN with payloads, +-inf, and
+    min + max that overflows."""
+    nan, inf = float("nan"), float("inf")
+    snan, neg_nan = _f32(0x7F812345), _f32(-0x003FFFFF)        # 0xFFC00001
+    fill = [float(i) for i in range(1, bs)]
+    rows = [[0.0] * bs, [-0.0] * bs, [0.0, -0.0] * (bs // 2), [3.5] * bs, [1e-40] * bs,
+            [0.0] * 3 + [1e-40] + [0.0] * (bs - 4), [-1e-40, 1e-40] + [0.0] * (bs - 2),
+            [1e-38, 1.2e-38] + [1.1e-38] * (bs - 2), [1.5e-38, -1.2e-38] + [1.3e-38] * (bs - 2),
+            [1.0, 1.0 + 2 ** -23] + [1.0] * (bs - 2), [1e-30] * (bs - 1) + [1.0000001e-30],
+            [nan] + fill, [1.0, nan, nan] + fill[2:], [snan] + fill, [neg_nan] * bs,
+            [inf] + fill, [-inf] + fill, [inf, -inf] + [0.0] * (bs - 2), [inf] * bs,
+            [3e38, 2e38] + [3.3e38] * (bs - 2), [-3e38, -2e38] + [-3.3e38] * (bs - 2),
+            [3.4e38, -3.4e38] + fill[:-1]]
+    return torch.tensor(rows, dtype=torch.float32)
+
+
+def test_planes_kernels_match_plain(card):
+    from repro_torch.kernels import planes
+
+    g = torch.Generator().manual_seed(5)
+    cases = []
+    for bs in (1, 3, 64, 128, 4096):
+        nb = max(2, (1 << 16) // bs)
+        scale = torch.exp2(torch.randint(-40, 40, (nb, 1), generator=g).float())
+        cases.append(torch.randn((nb, bs), generator=g) * scale)
+    cases += [torch.randn((3, 5, 2, 32), generator=g), torch.zeros((0, 64)),
+              _planes_edge_blocks(), _planes_edge_blocks(64)]
+    base = 1.0 + torch.rand((200, 1), generator=g)
+    cases.append(base + torch.randint(0, 3, (200, 16), generator=g) * 2.0 ** -23 * base)
+    n_enc = n_dec = 0
+    for x in cases:
+        for P in (1, 2, 3):
+            k = planes.planes_encode(x.to(card), P)
+            p = planes.planes_encode_plain(x.to(card), P)
+            for name, a, b in zip(("mu", "sexp", "planes"), k, p):
+                assert _same(a, b), (tuple(x.shape), P, name)
+            assert _same(planes.planes_decode(*k), planes.planes_decode_plain(*p)), (x.shape, P)
+            n_enc += x.numel() > 0
+            n_dec += x.numel() > 0
+    nb, bs = 4096, 16
+    mu = torch.randn(nb, generator=g) * torch.exp2(torch.randint(-140, 127, (nb,), generator=g).float())
+    mu[::97], mu[1::101], mu[2::103], mu[3::107] = float("nan"), float("inf"), 1e-40, -0.0
+    sexp = torch.randint(-300, 300, (nb,), generator=g, dtype=torch.int32)
+    sexp[::5] = torch.tensor([-128, -127, -126, -125, 125, 126, 127, 128, 0, 2 ** 31 - 1,
+                              -2 ** 31], dtype=torch.int32).repeat(nb // 50 + 1)[: len(sexp[::5])]
+    for P in (1, 2, 3):
+        pl = torch.randint(0, 256, (P, nb, bs), generator=g, dtype=torch.uint8)
+        args = (mu.to(card), sexp.to(card), pl.to(card))
+        assert _same(planes.planes_decode(*args), planes.planes_decode_plain(*args)), P
+        n_dec += 1
+    counts = ops.launch_counts()
+    assert counts["planes_encode"] == n_enc and counts["planes_decode"] == n_dec
+
+
+def test_planes_codec_on_card_matches_cpu_route(card):
+    from repro_torch.core.codec import PlanesCodec
+
+    x = torch.randn((6, 7, 300), generator=torch.Generator().manual_seed(9))
+    for P in (1, 2, 3):
+        codec = PlanesCodec(P)
+        enc = codec.encode_last_axis_device(x.to(card), 64)
+        ref_enc = codec.encode_last_axis_device(x, 64)
+        for name in ("mu", "sexp", "planes"):
+            assert enc[name].device.type == "cuda" and _same(enc[name].cpu(), ref_enc[name])
+        y = codec.decode_last_axis_encoding(enc, x.shape, torch.float32)
+        assert _same(y.cpu(), codec.decode_last_axis_encoding(ref_enc, x.shape, torch.float32))
+        host = codec.encode_blocks(x.numpy().reshape(-1, 100))      # numpy goes to the card
+        assert host[0].device.type == "cuda"
+    counts = ops.launch_counts()
+    assert counts["planes_encode"] == 6 and counts["planes_decode"] == 3
+
+
+COLLECTIVES_WORKER = r"""
+import sys
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.core import grad_compress as gc
+from repro_torch.pipeline_par import pipeline_apply
+
+rank, n, backend, store, inputs, dest = sys.argv[1:7]
+rank, n = int(rank), int(n)
+dev = torch.device("cuda", rank) if backend == "nccl" else torch.device("cpu")
+if backend == "nccl":
+    torch.cuda.set_device(dev)
+dist.init_process_group(backend, store=dist.FileStore(store, n), rank=rank, world_size=n,
+                        timeout=timedelta(seconds=120))
+d = {k: torch.from_numpy(v).to(dev) for k, v in np.load(inputs).items()}
+ring = [(i, (i + 1) % n) for i in range(n)]
+out = {}
+for P in (1, 3):
+    g = {"w": d["gw"][rank], "b": {"bias": d["gb"][rank]}}
+    mean, res = gc.compressed_psum_mean(g, None, num_planes=P)
+    out[f"psum{P}/mean"], out[f"psum{P}/resid"] = mean["w"], res["b"]["bias"]
+out["ring_p1"] = gc.compressed_ppermute(d["xp"][rank], None, ring, num_planes=1)
+out["partial_p2"] = gc.compressed_ppermute(d["xp"][rank], None, [(0, n - 1)], num_planes=2)
+out["a2a_p2"] = gc.compressed_all_to_all(d["xa"][rank], None, 0, 1, num_planes=2)
+exact = lambda p, x: x * p[0] + p[1]
+out["pipe_raw"] = pipeline_apply(exact)(d["wx"][rank], d["xx"])
+for P in (1, 3):
+    out[f"pipe_p{P}"] = pipeline_apply(exact, compress_activations=True,
+                                       num_planes=P)(d["wx"][rank], d["xx"])
+np.savez(dest, **{k: v.cpu().numpy() for k, v in out.items()})
+dist.destroy_process_group()
+print("WORKER-OK")
+"""
+
+
+def test_collectives_across_cards_match_gloo(card, tmp_path):
+    """With two or more cards: the collectives and the pipeline on NCCL, one
+    rank per card, give the bits the same code gives on gloo on the CPU
+    (which tests/test_torch_grad_compress.py holds to the reference).  The
+    pipeline's stages are exact in float32 (x * a + b, a a power of two), so
+    the compressed shifts alone make its output differ from the raw run's."""
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    rng = np.random.default_rng(7)
+    np.savez(tmp_path / "in.npz",
+             gw=(rng.standard_normal((n, 3, 130)) * 0.01).astype(np.float32),
+             gb=rng.standard_normal((n, 70)).astype(np.float32),
+             xp=rng.standard_normal((n, 8, 64)).astype(np.float32),
+             xa=rng.standard_normal((n, 2 * n, 12, 64)).astype(np.float32),
+             wx=np.stack([np.exp2(rng.integers(-1, 2, (n, 64))),
+                          rng.integers(-4096, 4097, (n, 64))], axis=1).astype(np.float32),
+             xx=(rng.uniform(-1, 1, (8, 2, 64)) * 8192).astype(np.float32))
+    env = dict(os.environ, PYTHONPATH=str(__import__("pathlib").Path(__file__).parents[1] / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", COLLECTIVES_WORKER, str(r), str(n), backend,
+         str(tmp_path / f"store-{backend}"), str(tmp_path / "in.npz"),
+         str(tmp_path / f"{backend}{r}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for backend in ("nccl", "gloo") for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for log in logs:
+        assert "WORKER-OK" in log, log[-3000:]
+    for r in range(n):
+        got, want = np.load(tmp_path / f"nccl{r}.npz"), np.load(tmp_path / f"gloo{r}.npz")
+        for k in want.files:
+            assert np.array_equal(got[k].view(np.int32), want[k].view(np.int32)), (r, k)
+        for P in (1, 3):
+            assert np.abs(got[f"pipe_p{P}"] - got["pipe_raw"]).max() > 0, (r, P)
+
+
 def test_wrappers_raise_when_a_launch_fails(card, monkeypatch):
     """No fallback: a CUDA tensor whose launch fails raises, and the plain
     version is not run in its place."""
-    from repro_torch.kernels import _build, bitshuffle, unpack
+    from repro_torch.kernels import _build, bitshuffle, planes, unpack
 
     monkeypatch.setattr(_build, "function", lambda *a, **k: (lambda *args: 1))
     monkeypatch.setattr(bitshuffle, "bitshuffle_plain", None)
     monkeypatch.setattr(unpack, "unpack_plain", None)
+    monkeypatch.setattr(planes, "planes_encode_plain", None)
+    monkeypatch.setattr(planes, "planes_decode_plain", None)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        planes.planes_encode(torch.zeros((4, 8), device=card), 1)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        planes.planes_decode(torch.zeros(4, device=card),
+                             torch.zeros(4, dtype=torch.int32, device=card),
+                             torch.zeros((1, 4, 8), dtype=torch.uint8, device=card))
     with pytest.raises(RuntimeError, match="launch failed"):
         bitshuffle.bitshuffle(torch.zeros((1, 4096), dtype=torch.uint8, device=card))
     nb, bs = 4, 8

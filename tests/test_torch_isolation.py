@@ -31,6 +31,8 @@ def test_import_loads_nothing_of_the_reference():
         "import repro_torch.core.codec.__main__, repro_torch.kernels.ops\n"
         "import repro_torch.kernels._build, repro_torch.core.codec.stage\n"
         "import repro_torch.store, repro_torch.store.__main__\n"
+        "import repro_torch.core.codec.planes_codec, repro_torch.core.planes\n"
+        "import repro_torch.core.grad_compress, repro_torch.pipeline_par.gpipe\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
         "          and any(m == b or m.startswith(b + '.') for b in %r)]\n"
         "print(loaded)\n" % (BANNED,)
@@ -90,6 +92,24 @@ def test_store_and_stage_refuse_to_run_without_a_card(monkeypatch, tmp_path):
             fn(payload, stage.DEFLATE)
     with ArrayStore.open(tmp_path / "a.szs", device="cpu") as ca:
         assert ca.shape == (64, 64)
+
+
+def test_planes_codec_refuses_to_run_without_a_card(monkeypatch):
+    """A host array goes to the card unless ``device=`` asks for the CPU;
+    without a card that raises instead of running the plain route."""
+    import numpy as np
+
+    from repro_torch.core import planes
+    from repro_torch.core.codec import PlanesCodec
+
+    x = np.linspace(0, 1, 256, dtype=np.float32).reshape(4, 64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PlanesCodec().encode_blocks(x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        planes.encode(x.reshape(-1))
+    mu, _sexp, _planes = PlanesCodec(device="cpu").encode_blocks(x)
+    assert mu.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_the_port(tmp_path):
