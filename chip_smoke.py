@@ -52,9 +52,24 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      (8 microbatches of hidden states).  Launch counters are zeroed just before this phase and read
      after it: both planes kernels must have run.
 
+  9. serves llama3.2-1b at full width and depth (16 layers, d_model 2048, 32
+     query and 8 kv heads of 64, d_ff 8192, vocab 128256; float32 weights
+     made on the card from --seed, bf16 compute): prefill of 4 prompts of
+     2048 tokens, then 64 greedy decode steps, with a dense KV cache and
+     SZx-planes caches at P = 1 and 2.  Launch counters are zeroed just
+     before and read after: every prefill launches the flash kernel once per
+     layer, every compressed step both planes kernels; the cache bytes equal
+     the slab shapes; then the prefill and the first decode steps are held
+     to forward over the same tokens, and the flash kernel is timed beside
+     its plain version, scaled_dot_product_attention (a yardstick the port
+     never calls) and its bound; last, torch.profiler traces one prefill and
+     2 decode steps per mode: where the device time goes, and its busy share.
+
 Phase 2 also holds the planes kernels against their plain versions (P = 1,
 2, 3; bs 1, 3, 64, 128, 4096; leading dims; nb = 0; edge blocks; random
-records), and phase 6 times them on the embed gradient's shape.
+records), and phase 6 times them on the embed gradient's shape; the flash
+kernel is held to its plain version right after (llama3.2-1b's prefill
+shape, a window, unaligned S, hd 80 and 128, float32).
 
 Any failed check raises, so the exit code is non-zero.  The last two lines
 are the kernels JSON and the result JSON.
@@ -84,7 +99,7 @@ GOLDEN_SHA256 = {                  # tests/test_codec.py, the f32 golden streams
 
 MAX_ERR = {"encode": 0.0, "decode_body": 0.0, "bitshuffle": 0.0, "unpack": 0.0,
            "unpack_dense": 0.0, "planes_encode": 0.0,
-           "planes_decode": 0.0}                 # kernel vs plain, this run
+           "planes_decode": 0.0, "flash_attention": 0.0}     # kernel vs plain, this run
 SOURCES = {          # kernel -> (its source, the TPU kernel it replaces)
     "encode": ("src/repro_torch/csrc/encode.cu", "src/repro/kernels/encode.py:57"),
     "decode_body": ("src/repro_torch/csrc/decode.cu", "src/repro/kernels/decode.py:108"),
@@ -93,6 +108,8 @@ SOURCES = {          # kernel -> (its source, the TPU kernel it replaces)
     "unpack_dense": ("src/repro_torch/csrc/unpack.cu", "src/repro/kernels/unpack.py:136"),
     "planes_encode": ("src/repro_torch/csrc/planes.cu", "src/repro/kernels/planes.py:71"),
     "planes_decode": ("src/repro_torch/csrc/planes.cu", "src/repro/kernels/planes.py:111"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:83"),
 }
 CODEC_KERNELS = ("encode", "decode_body", "bitshuffle", "bitshuffle_inverse", "unpack",
                  "unpack_dense")
@@ -1016,6 +1033,242 @@ def phase_gradient(args):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: serving llama3.2-1b at full width
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core rate (data sheet)
+FP32_FLOPS = 67e12                 # H100 SXM float32 rate on the CUDA cores (data sheet)
+SERVE_ARCH = "llama3.2-1b"         # src/repro/configs/llama3p2_1b.py, full width and depth
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 64
+SERVE_MODES = (("dense", 1), ("compressed", 1), ("compressed", 2))
+TEACHER_STEPS = 4                  # decode steps held to forward over the same tokens
+# decode logits vs forward over the same tokens, as a share of the largest
+# logit (tests/test_models.py's criterion): bf16 activations at full depth
+# round at other places in the two forms, and the compressed cache adds the
+# planes' quantization.  Measured on the card (PERF.md §6): up to 0.0154
+# dense, 0.0237 at P = 1, 0.0152 at P = 2; the limits are twice the dense
+# figure and the reference's own compressed limit (0.06)
+TEACHER_TOL = {"dense": 0.03, "compressed": 0.06}
+PROFILE_STEPS = 2                  # decode steps in each traced run
+FLASH_CASES = (                    # (B, S, Hq, Hkv, hd, causal, window, dtype name)
+    (4, 2048, 32, 8, 64, True, 0, "bfloat16"),      # llama3.2-1b's prefill, the main path
+    (4, 2048, 32, 8, 64, True, 512, "bfloat16"),    # a sliding window
+    (4, 2000, 32, 8, 64, True, 0, "bfloat16"),      # unaligned S
+    (2, 1024, 32, 32, 80, True, 0, "bfloat16"),     # hd 80 (stablelm-3b)
+    (2, 1024, 32, 4, 128, True, 0, "bfloat16"),     # hd 128 (yi-6b)
+    (2, 1024, 32, 8, 64, True, 0, "float32"),
+)
+
+
+def flash_inputs(gen, b, s, hq, hkv, hd, dtype):
+    import torch
+
+    return tuple(torch.randn(shape, device="cuda", generator=gen).to(dtype)
+                 for shape in ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+
+
+def phase_flash_kernel(gen):
+    """The flash-attention kernel against its plain version on the card.
+    Tolerance: float32 sums in another order (|d| <= 1e-5 |ref| + 1e-6);
+    bf16 outputs are one rounding of a float32 result in both, so they may
+    differ by one bf16 ulp (|d| <= 2^-7 |ref| + 1e-6)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    t0 = time.perf_counter()
+    for b, s, hq, hkv, hd, causal, window, dname in FLASH_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, dtype)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        d = (got.float() - want.float()).abs()
+        check(bool((d <= rtol * want.float().abs() + 1e-6).all()) and not bool(got.isnan().any()),
+              f"flash_attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} window={window} {dname}: "
+              f"max |kernel - plain| {float(d.max())}")
+        MAX_ERR["flash_attention"] = max(MAX_ERR["flash_attention"], float(d.max()))
+        log(f"flash_attention vs plain B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} causal={causal} "
+            f"window={window} {dname}: max |d| {float(d.max()):.3e} (tolerance "
+            f"{'2^-7' if rtol > 1e-5 else '1e-5'} |ref| + 1e-6)")
+    torch.cuda.synchronize()
+    log(f"flash kernel vs plain: {len(FLASH_CASES)} cases within tolerance "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def time_flash(gen, reps: int):
+    """The kernel, its plain version and scaled_dot_product_attention (the
+    yardstick; the port never calls it) at llama3.2-1b's prefill shape,
+    beside the bound from this input's bytes and causal operations."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    b, s, hq, hkv, hd = SERVE_BATCH, SERVE_PROMPT, 32, 8, 64
+    q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, torch.bfloat16)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), max(reps // 10, 3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                            enable_gqa=True), reps)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    pairs = s * (s + 1) // 2                       # (q, k) pairs under the causal mask
+    flops = b * hq * pairs * hd * 4                # q.k and p @ v, 2 flops a multiply-add
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    log(f"time flash_attention bf16 B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} causal: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms ({flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16; "
+        f"{nbytes / 1e6:.3f} MB at 3.35 TB/s takes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+        f"{bound_ms / ms * 100:.1f}% of the bound; on the CUDA cores at 67 TFLOP/s float32 "
+        f"p @ v alone takes {flops / 2 / FP32_FLOPS * 1e3:.4f} ms, both products "
+        f"{flops / FP32_FLOPS * 1e3:.4f} ms")
+    return ms, plain_ms, lib_ms, bound_ms
+
+
+def phase_serve(args):
+    """llama3.2-1b at full width and depth, weights from --seed on the card:
+    prefill of 4 prompts of 2048 tokens, then 64 greedy decode steps, with
+    a dense and an SZx-planes cache (P = 1, 2).  Returns, per mode, what the
+    checks after the path need."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    cfg = configs.get(SERVE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 6)
+    model, t_init = timed(lambda: T.init_params(cfg, gen, "cuda"))
+    nparams = sum(p.numel() for p in model.parameters())
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model        # param_count() leaves the norms out
+    check(nparams == cfg.param_count() + norms, f"{SERVE_ARCH}: {nparams} parameters")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
+                            generator=gen)
+    log(f"serve {SERVE_ARCH}: {nparams} parameters (f32) made on the card in {t_init:.2f} s; "
+        f"{SERVE_BATCH} prompts of {SERVE_PROMPT} tokens, {SERVE_STEPS} greedy steps")
+    seq = SERVE_PROMPT + SERVE_STEPS
+    hd, hkv, nl = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_layers
+    _, t_first = timed(lambda: E.prefill(model, cfg, prompts, seq_len=seq))
+    log(f"serve {SERVE_ARCH}: first prefill (allocator and cuBLAS warm-up) {t_first * 1e3:.1f} ms")
+    runs = {}
+    for mode, P in SERVE_MODES:
+        before = ops.launch_counts()
+        (cache, logits), t_pre = timed(lambda: E.prefill(model, cfg, prompts, seq_len=seq,
+                                                         kv_mode=mode, num_planes=P))
+        after = ops.launch_counts()
+        check(after["flash_attention"] - before["flash_attention"] == nl,
+              f"{mode} P={P}: prefill launched flash_attention "
+              f"{after['flash_attention'] - before['flash_attention']} times, not {nl}")
+        if mode == "compressed":
+            check(after["planes_encode"] - before["planes_encode"] == 2,
+                  f"compressed P={P}: prefill's K and V encodes")
+        per = hd * T.compute_dtype(cfg).itemsize if mode == "dense" else 4 + 1 + P * hd
+        want_bytes = 2 * nl * SERVE_BATCH * seq * hkv * per
+        check(E.cache_nbytes(cache) == want_bytes,
+              f"{mode} P={P}: cache {E.cache_nbytes(cache)} B != slab shapes {want_bytes} B")
+        first = [logits[:, -1].float()]
+        gen_tokens = []
+        tok = torch.argmax(logits[:, -1:], -1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = ops.launch_counts()
+        for step in range(SERVE_STEPS):
+            gen_tokens.append(tok)
+            logits, cache = E.decode_step(model, cfg, cache, tok, kv_mode=mode, num_planes=P)
+            if step < TEACHER_STEPS:
+                first.append(logits[:, -1].float())
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        after = ops.launch_counts()
+        check(after["flash_attention"] == before["flash_attention"], "decode launched flash")
+        if mode == "compressed":
+            nchunks = -(-seq // E.DECODE_CHUNK)
+            for k, n in (("planes_encode", 2 * nl * SERVE_STEPS),
+                         ("planes_decode", 2 * nl * nchunks * SERVE_STEPS)):
+                check(after[k] - before[k] == n,
+                      f"compressed P={P}: {after[k] - before[k]} {k} launches in "
+                      f"{SERVE_STEPS} steps, not {n}")
+        check(bool(torch.isfinite(logits).all()), f"{mode} P={P}: decode logits not finite")
+        toks = torch.cat(gen_tokens, dim=1)
+        runs[(mode, P)] = (toks, torch.stack(first, dim=1))
+        log(f"serve {SERVE_ARCH} kv={mode} P={P}: prefill {t_pre * 1e3:.1f} ms "
+            f"({SERVE_BATCH * SERVE_PROMPT / t_pre:.0f} tok/s), decode {SERVE_STEPS} steps in "
+            f"{t_dec:.3f} s = {SERVE_BATCH * SERVE_STEPS / t_dec:.1f} tok/s "
+            f"({t_dec / SERVE_STEPS * 1e3:.2f} ms a step), cache {want_bytes} B "
+            f"({E.cache_nbytes(cache) / 2**20:.1f} MiB), sample row "
+            f"{toks[0, :8].tolist()}")
+        del cache, logits
+    return model, cfg, prompts, runs
+
+
+def check_serve(model, cfg, prompts, runs) -> None:
+    """Decode logits after teacher-forced steps against ``forward`` over the
+    same tokens on the card (tests/test_models.py's criterion)."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    dense_toks = runs[("dense", 1)][0]
+    for (mode, P), (toks, dec) in runs.items():
+        full_toks = torch.cat([prompts, toks[:, :TEACHER_STEPS]], dim=1)
+        h, _ = T.forward(model, cfg, full_toks)
+        full = T.logits_for(model, cfg, h[:, SERVE_PROMPT - 1:]).float()   # (B, steps + 1, V)
+        rel = [float((full[:, i] - dec[:, i]).abs().max() / full[:, i].abs().max())
+               for i in range(TEACHER_STEPS + 1)]
+        check(max(rel) < TEACHER_TOL[mode], f"{mode} P={P}: decode vs forward {rel}")
+        agree = float((toks == dense_toks).float().mean())
+        log(f"serve check kv={mode} P={P}: prefill and {TEACHER_STEPS} decode steps vs forward "
+            f"over the same tokens, max |d| / max |logit| = "
+            + ", ".join(f"{r:.5f}" for r in rel)
+            + f" (tolerance {TEACHER_TOL[mode]}); greedy tokens equal to dense's: {agree:.3f}")
+        del h, full
+
+
+def profile_serve(model, cfg, prompts) -> None:
+    """torch.profiler over one prefill and the PROFILE_STEPS decode steps
+    after it, per mode: device time by kernel and the device's busy share of
+    the wall time (kernels run on one stream, so their times add up without
+    overlap).  It traces the card's activity only: the host's op events
+    would triple the time spent reading the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import engine as E
+
+    seq = SERVE_PROMPT + SERVE_STEPS
+
+    def traced(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return out, wall, [e for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def decode(cache, tok, mode, P):
+        for _ in range(PROFILE_STEPS):
+            logits, cache = E.decode_step(model, cfg, cache, tok, kv_mode=mode, num_planes=P)
+            tok = torch.argmax(logits, -1)
+        return cache
+
+    for mode, P in SERVE_MODES:
+        (cache, logits), wall_pre, evs_pre = traced(
+            lambda: E.prefill(model, cfg, prompts, seq_len=seq, kv_mode=mode, num_planes=P))
+        tok = torch.argmax(logits[:, -1:], -1)
+        _, wall_dec, evs_dec = traced(lambda: decode(cache, tok, mode, P))
+        for what, wall, evs in (("prefill", wall_pre, evs_pre),
+                                (f"decode x{PROFILE_STEPS}", wall_dec, evs_dec)):
+            busy = sum(e.self_device_time_total for e in evs) / 1e6
+            evs.sort(key=lambda e: -e.self_device_time_total)
+            top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
+                            f"x{e.count}" for e in evs[:8])
+            share = f"{100 * busy / wall:.1f}%" if busy else "not measured: no device events"
+            log(f"profile kv={mode} P={P} {what}: wall {wall * 1e3:.1f} ms, device busy "
+                f"{busy * 1e3:.1f} ms ({share}); top: {top}")
+        del cache, logits
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1058,6 +1311,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernels(gen)
     phase_planes_kernels(gen)
+    phase_flash_kernel(gen)
     phase_golden()
 
     ops.reset_launch_counts()
@@ -1087,6 +1341,24 @@ def main() -> int:
             + ", ".join(f"{t * 1e3:.1f} ms" for t in times)
             + f"; encode bound {enc_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
               f"({enc_bytes} B at 3.35 TB/s)")
+    torch.cuda.empty_cache()
+
+    log(f"phase 9 starts {time.perf_counter() - t_start:.1f} s into the run")
+    ops.reset_launch_counts()
+    model, cfg, prompts, runs = phase_serve(args)
+    serve_launches = {k: v for k, v in ops.launch_counts().items()
+                      if k in PLANES_KERNELS + ("flash_attention",)}
+    log(f"serving path launches: {serve_launches}")
+    for name, n in serve_launches.items():
+        check(n > 0, f"kernel {name} was not launched on the serving path")
+    launches["flash_attention"] = serve_launches["flash_attention"]
+    check_serve(model, cfg, prompts, runs)
+    _, t_prof = timed(lambda: profile_serve(model, cfg, prompts))
+    log(f"serving profile: {t_prof:.1f} s in all")
+    del model, runs
+    torch.cuda.empty_cache()
+    flash_ms, flash_plain_ms, flash_lib_ms, flash_bound_ms = time_flash(gen, max(args.reps // 2, 5))
+
     kernels = []
     for name, ms, pms, bound_ms in rows:
         src, replaces = SOURCES[name]
@@ -1097,6 +1369,12 @@ def main() -> int:
             "ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None,
         })
+    kernels.append({
+        "name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"][0],
+        "replaces": SOURCES["flash_attention"][1], "launches": launches["flash_attention"],
+        "max_abs_err": MAX_ERR["flash_attention"], "ms": flash_ms, "plain_ms": flash_plain_ms,
+        "bound_ms": flash_bound_ms, "bound_by": "operations", "library_ms": flash_lib_ms,
+    })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

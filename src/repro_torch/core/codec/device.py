@@ -64,12 +64,12 @@ class DeviceEncoding:
 
 
 def resolve_device(device, owner: str) -> torch.device:
-    """Where a codec entry point runs: ``None`` means ``"cuda"``, and a card
+    """Where an entry point runs: ``None`` means ``"cuda"``, and a card
     that is not there raises rather than falling back to the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"{owner}: no CUDA device is available; the codec runs on the "
+            f"{owner}: no CUDA device is available; the port runs on the "
             "card (pass device='cpu' to run the plain PyTorch route)"
         )
     return dev

@@ -9,7 +9,8 @@ the cached file.  Nothing here runs at import: the first launch builds.
 Flags: ``sm_90a`` (Hopper); ``--fmad=false`` because the codec's float steps
 must round exactly as numpy does (a fused multiply-add rounds once where the
 reference rounds twice); no ``--use_fast_math``, which would flush the
-subnormals the exponent rule relies on.
+subnormals the exponent rule relies on.  ``flash_attention``, held to a
+tolerance, writes its products as explicit ``__fmaf_rn``.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("encode", "decode", "bitshuffle", "unpack", "planes")
+SOURCES = ("encode", "decode", "bitshuffle", "unpack", "planes", "flash_attention")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

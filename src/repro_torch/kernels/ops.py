@@ -1,9 +1,10 @@
-"""Dispatch for the SZx kernels on the codec's main path.
+"""Dispatch for the port's kernels: the SZx codec's, szx-planes' and the
+model's attention.
 
 The route follows the tensor's device: a CUDA tensor goes to the hand-written
 Hopper kernel (``kernels/encode.py``, ``decode.py``, ``bitshuffle.py``,
-``unpack.py``, ``planes.py``), a CPU tensor to its plain PyTorch version
-(``kernels/ref.py``).  There is no backend knob and no fallback: a CUDA call
+``unpack.py``, ``planes.py``, ``flash_attention.py``), a CPU tensor to its
+plain PyTorch version (``kernels/ref.py``).  There is no backend knob and no fallback: a CUDA call
 that cannot launch raises.
 
 Each kernel wrapper counts its launches in a plain int (``encode.LAUNCHES``,
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bitshuffle as bitshuffle_mod, decode, encode, ref, specs
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import planes as planes_mod, unpack as unpack_mod
 from repro_torch.kernels.specs import DtypeSpec
 
@@ -96,13 +98,20 @@ def planes_decode(mu, sexp, planes):
                                     planes.to(torch.uint8))
 
 
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """GQA attention forward, q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) ->
+    (B, Sq, Hq, hd) in q.dtype."""
+    return flash_mod.flash_attention(q, k, v, causal=causal, window=window)
+
+
 def launch_counts() -> dict[str, int]:
     return {"encode": encode.LAUNCHES, "decode_body": decode.LAUNCHES,
             "bitshuffle": bitshuffle_mod.LAUNCHES,
             "bitshuffle_inverse": bitshuffle_mod.INVERSE_LAUNCHES,
             "unpack": unpack_mod.LAUNCHES, "unpack_dense": unpack_mod.DENSE_LAUNCHES,
             "planes_encode": planes_mod.ENCODE_LAUNCHES,
-            "planes_decode": planes_mod.DECODE_LAUNCHES}
+            "planes_decode": planes_mod.DECODE_LAUNCHES,
+            "flash_attention": flash_mod.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -111,3 +120,4 @@ def reset_launch_counts() -> None:
     bitshuffle_mod.LAUNCHES = bitshuffle_mod.INVERSE_LAUNCHES = 0
     unpack_mod.LAUNCHES = unpack_mod.DENSE_LAUNCHES = 0
     planes_mod.ENCODE_LAUNCHES = planes_mod.DECODE_LAUNCHES = 0
+    flash_mod.LAUNCHES = 0

@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the width-generic SZx kernels.
+"""Plain PyTorch versions of the width-generic SZx kernels, of the szx-planes
+kernels and of the flash-attention forward.
 
 These functions are the semantics the CUDA kernels in ``csrc/`` are held to,
-bit for bit: the CPU tests run them against the JAX package, and
+bit for bit (the flash-attention forward to a stated tolerance, since its
+sums run in another order): the CPU tests run them against the JAX package, and
 ``chip_smoke.py`` runs them on the card beside the kernels.  They are plain
 tensor code and run on any device.
 
-Every op is parameterized by a :class:`repro_torch.kernels.specs.DtypeSpec`.
+Every codec op is parameterized by a :class:`repro_torch.kernels.specs.DtypeSpec`.
 Per-block statistics run in the spec's *compute dtype* (f32 for words up to 4
 bytes, f64 for float64); the bit-level split runs on the *storage* word after
 rounding the normalized residual to the input dtype.
@@ -29,6 +31,8 @@ Notation follows the paper (Algorithm 1 / Formulas 4-5):
              compares against the zero word
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -493,3 +497,66 @@ def planes_decode_ref(mu: torch.Tensor, sexp: torch.Tensor, planes: torch.Tensor
     # a NaN mu wins over a NaN product (0 * inf); else a NaN is the default
     bits = torch.where(torch.isnan(mu), _quiet(mu), _DEFAULT_NAN_BITS)
     return _nan_to(out, bits[..., None])
+
+
+# ---------------------------------------------------------------------------
+# flash-attention forward (the model's attention)
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 1024):
+    """Online-softmax attention, as ``repro/models/layers.py::flash_attention``
+    computes it.
+
+    q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) with Hq % Hkv == 0 (query
+    head h reads kv head h // (Hq / Hkv)).  window > 0 masks keys with
+    qpos - kpos >= window.  Scores are q.k^T in float32 times 1/sqrt(hd);
+    masked scores are -1e30, and p = exp(s - m) only where s > -5e29, so a
+    fully masked row gives 0.  p @ v is in float32 (v promoted).  Query and
+    key chunks of ``q_chunk`` x ``kv_chunk`` set the order of summation.
+    Returns (B, Sq, Hq, hd) in q.dtype.
+    """
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(hd)
+    cq, ck = min(q_chunk, sq), min(kv_chunk, skv)
+    pad_q, pad_k = (-sq) % cq, (-skv) % ck
+    q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
+    k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = (sq + pad_q) // cq, (skv + pad_k) // ck
+    qg = q.reshape(b, sq + pad_q, hkv, g, hd)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qx = qg[:, qi * cq:(qi + 1) * cq].float()                  # (B,cq,hkv,g,hd)
+        qpos = qi * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, cq, hd), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            kx = k[:, ki * ck:(ki + 1) * ck].float()
+            vx = v[:, ki * ck:(ki + 1) * ck].float()
+            kpos = ki * ck + torch.arange(ck, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qx, kx) * scale
+            valid = (kpos[None, :] < skv) & (qpos[:, None] < sq)
+            if causal:
+                valid &= kpos[None, :] <= qpos[:, None]
+            if window:
+                valid &= qpos[:, None] - kpos[None, :] < window
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # a fully masked row has s == m_new == -1e30, where exp(0) = 1
+            p = torch.where(s > NEG_INF / 2, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vx)
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, cq, hq, hd).to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :sq]

@@ -390,3 +390,104 @@ def test_wrappers_raise_when_a_launch_fails(card, monkeypatch):
     with pytest.raises(RuntimeError, match="launch failed"):
         unpack.unpack_dense(*args)
     assert set(ops.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# flash-attention forward (the model's attention) and the serving path
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Hq, Hkv, hd, causal, window, Skv): the shapes of tests/test_torch_flash.py,
+# unaligned S, GQA groups 1..6 and 32, and the configs' head dims 64, 80, 128
+FLASH_CASES = [(2, 64, 4, 2, 32, True, 0, 64), (2, 96, 2, 1, 16, True, 16, 96),
+               (2, 128, 8, 8, 8, False, 0, 128), (1, 50, 4, 2, 16, True, 0, 50),
+               (2, 48, 6, 1, 16, True, 8, 48), (1, 40, 4, 2, 32, False, 0, 77),
+               (1, 300, 32, 8, 64, True, 0, 300), (2, 257, 32, 32, 80, True, 0, 257),
+               (1, 333, 32, 4, 128, True, 100, 333), (1, 200, 32, 1, 64, False, 37, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_kernel_matches_plain(card, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, hq, hkv, hd, causal, window, skv = case
+    g = torch.Generator(device=card).manual_seed(sq * hq + hd)
+    q = torch.randn((b, sq, hq, hd), device=card, generator=g).to(dtype)
+    k = torch.randn((b, skv, hkv, hd), device=card, generator=g).to(dtype)
+    v = torch.randn((b, skv, hkv, hd), device=card, generator=g).to(dtype)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    # float32: the sums run in another order; bf16: both round a float32
+    # result once, so they are one bf16 ulp (2^-7 relative) apart at most
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert bool(((got.float() - want.float()).abs() <= rtol * want.float().abs() + 1e-6).all())
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels import flash_attention as fa
+
+    def qkv(hd=16, dtype=torch.bfloat16, hq=4, hkv=2):
+        return (torch.zeros((1, 8, hq, hd), dtype=dtype, device=card),
+                torch.zeros((1, 8, hkv, hd), dtype=dtype, device=card),
+                torch.zeros((1, 8, hkv, hd), dtype=dtype, device=card))
+
+    for hd in (12, 136):
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention(*qkv(hd=hd))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(*qkv(dtype=torch.float16))
+    q, k, v = qkv()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
+    with pytest.raises(ValueError, match="kv heads"):
+        fa.flash_attention(*qkv(hq=6, hkv=4))
+    with pytest.raises(ValueError, match="on cpu"):
+        fa.flash_attention(q, k.cpu(), v)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+def test_flash_attention_wrapper_raises_when_a_launch_fails(card, monkeypatch):
+    from repro_torch.kernels import _build, flash_attention as fa
+
+    monkeypatch.setattr(_build, "function", lambda *a, **k: (lambda *args: 1))
+    monkeypatch.setattr(fa, "flash_attention_plain", None)
+    q = torch.zeros((1, 8, 4, 16), device=card)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("mode,planes", [("dense", 1), ("compressed", 2)])
+def test_serving_launches_the_kernels(card, mode, planes):
+    """Prefill launches the flash kernel once per layer; a compressed decode
+    step encodes K and V once per layer and decodes each chunk of both.  The
+    logits agree with the plain route on the CPU (same weights)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    cfg = configs.get("llama3.2-1b").reduced()
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = T.Transformer(cfg, device=card)
+    model.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    cache, logits = E.prefill(model, cfg, toks.to(card), seq_len=44, kv_mode=mode,
+                              num_planes=planes)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["planes_encode"] == (2 if mode == "compressed" else 0)
+    ops.reset_launch_counts()
+    logits, cache = E.decode_step(model, cfg, cache, toks[:, -1:].to(card), kv_mode=mode,
+                                  num_planes=planes)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 0
+    if mode == "compressed":
+        assert counts["planes_encode"] == counts["planes_decode"] == 2 * cfg.n_layers
+    c_cache, _ = E.prefill(cpu, cfg, toks, seq_len=44, kv_mode=mode, num_planes=planes)
+    want, _ = E.decode_step(cpu, cfg, c_cache, toks[:, -1:], kv_mode=mode, num_planes=planes)
+    assert (logits.cpu() - want).abs().max() <= 1e-4 * want.abs().max()

@@ -1,0 +1,98 @@
+"""The flash-attention forward's plain version against the JAX package.
+
+``repro_torch.kernels.ref.flash_attention_ref`` (what the CUDA kernel is held
+to, and the model's attention on the CPU) against the reference's jnp scan
+``repro.models.layers.flash_attention`` and its Pallas kernel
+``repro.kernels.flash_attention.flash_attention_fwd`` in interpret mode, on
+the shapes and masks of tests/test_flash_kernel.py and tests/test_models.py:
+causal, sliding window, non-causal, unaligned S, GQA groups.  Inputs are made
+with numpy from a seed and fed to both.
+
+Tolerance: float32, rtol 2e-4 / atol 2e-5, the reference's own between its
+two versions (the sums run in another order).  bf16 inputs: both compute in
+float32 and round the output once, so they may differ by one bf16 ulp
+(2^-7 relative).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_fwd
+from repro.models import layers as RL
+from repro_torch.kernels import flash_attention as fa, ops, ref
+
+RTOL, ATOL = 2e-4, 2e-5
+
+
+def _qkv(seed, b, s, hq, hkv, hd, skv=None):
+    rng = np.random.default_rng(seed)
+    skv = s if skv is None else skv
+    return (rng.standard_normal((b, s, hq, hd), dtype=np.float32),
+            rng.standard_normal((b, skv, hkv, hd), dtype=np.float32),
+            rng.standard_normal((b, skv, hkv, hd), dtype=np.float32))
+
+
+def _port(q, k, v, **kw):
+    return ref.flash_attention_ref(*(torch.from_numpy(x) for x in (q, k, v)), **kw).numpy()
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16), (False, 0)])
+@pytest.mark.parametrize("s,hq,hkv,hd", [(64, 4, 2, 32), (96, 2, 1, 16), (128, 8, 8, 8)])
+def test_plain_matches_pallas_kernel(causal, window, s, hq, hkv, hd):
+    q, k, v = _qkv(s * hq + hkv + hd, 2, s, hq, hkv, hd)
+    want = flash_attention_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                               window=window, q_block=32, kv_block=32, interpret=True)
+    got = _port(q, k, v, causal=causal, window=window, q_chunk=32, kv_chunk=32)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 8), (False, 0)])
+@pytest.mark.parametrize("s,hq,hkv", [(32, 4, 2), (48, 6, 1), (64, 4, 4)])
+def test_plain_matches_jnp_scan(causal, window, s, hq, hkv):
+    q, k, v = _qkv(s * hq + hkv, 2, s, hq, hkv, 16)
+    want = RL.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                              window=window, q_chunk=16, kv_chunk=16)
+    got = _port(q, k, v, causal=causal, window=window, q_chunk=16, kv_chunk=16)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("chunks", [(32, 32), (16, 8), (512, 1024)])
+def test_plain_unaligned_seq(chunks):
+    """S = 50 pads the last query and key chunks; padded keys are masked,
+    padded query rows cut."""
+    q, k, v = _qkv(0, 1, 50, 4, 2, 16)
+    want = flash_attention_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               q_block=32, kv_block=32, interpret=True)
+    got = _port(q, k, v, q_chunk=chunks[0], kv_chunk=chunks[1])
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_plain_non_causal_cross_lengths():
+    """Sq != Skv without a causal mask: every query sees every key."""
+    q, k, v = _qkv(3, 2, 40, 4, 2, 32, skv=77)
+    want = RL.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False,
+                              q_chunk=16, kv_chunk=32)
+    got = _port(q, k, v, causal=False, q_chunk=16, kv_chunk=32)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_plain_bf16_within_one_ulp():
+    q, k, v = _qkv(5, 2, 64, 4, 2, 32)
+    qj, kj, vj = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(RL.flash_attention(qj, kj, vj, window=24, q_chunk=32, kv_chunk=32)
+                      .astype(jnp.float32))
+    qt, kt, vt = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    got = ref.flash_attention_ref(qt, kt, vt, window=24, q_chunk=32, kv_chunk=32)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_less(np.abs(got.float().numpy() - want),
+                                 2.0 ** -7 * np.abs(want) + 1e-6)
+
+
+def test_wrapper_takes_the_plain_version_on_the_cpu():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(7, 1, 33, 6, 2, 8))
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, window=5)
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v, window=5))
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert fa.flash_attention_plain is ref.flash_attention_ref

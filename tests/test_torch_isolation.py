@@ -33,6 +33,10 @@ def test_import_loads_nothing_of_the_reference():
         "import repro_torch.store, repro_torch.store.__main__\n"
         "import repro_torch.core.codec.planes_codec, repro_torch.core.planes\n"
         "import repro_torch.core.grad_compress, repro_torch.pipeline_par.gpipe\n"
+        "import repro_torch.configs, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.models.layers, repro_torch.models.transformer\n"
+        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "repro_torch.configs.all_configs()\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
         "          and any(m == b or m.startswith(b + '.') for b in %r)]\n"
         "print(loaded)\n" % (BANNED,)
@@ -110,6 +114,54 @@ def test_planes_codec_refuses_to_run_without_a_card(monkeypatch):
         planes.encode(x.reshape(-1))
     mu, _sexp, _planes = PlanesCodec(device="cpu").encode_blocks(x)
     assert mu.device.type == "cpu"
+
+
+def test_serving_refuses_to_run_without_a_card(monkeypatch):
+    """The serve launcher and the engine's caches run on the card unless
+    ``device``/``--device`` asks for the CPU; without a card they raise."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.serve import engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "llama3.2-1b", "--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.make_cache(configs.get("llama3.2-1b").reduced(), 1, 8)
+    cache = engine.make_cache(configs.get("llama3.2-1b").reduced(), 1, 8, device="cpu")
+    assert cache["slot_pos"].device.type == "cpu"
+
+
+def test_model_refuses_to_run_without_a_card(monkeypatch):
+    """The model's parameters go to the card unless ``device`` asks for the
+    CPU; without a card building them raises instead of running the plain
+    route."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get("llama3.2-1b").reduced()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.Transformer(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.params_from_jax({}, cfg)
+    model = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert model.embed.device.type == "cpu"
+
+
+def test_building_a_model_leaves_the_matmul_flags_alone():
+    """The precision flags are set only while a forward pass runs."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+
+    mm = torch.backends.cuda.matmul
+    before = mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction
+    cfg = configs.get("llama3.2-1b").reduced()
+    model = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    T.forward(model, cfg, torch.zeros((1, 4), dtype=torch.int64))
+    assert (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction) == before
 
 
 def test_chip_smoke_refuses_to_run_without_the_port(tmp_path):

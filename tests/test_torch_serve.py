@@ -1,0 +1,198 @@
+"""The port's serving engine against the JAX package.
+
+``repro_torch.serve.engine`` (prefill + decode_step, dense and SZx-planes KV
+caches) against ``repro.serve.engine`` on the reduced llama3.2-1b and on the
+reduced h2o-danube-1.8b with sliding_window=8 (a ring of 8 slots that
+evicts), with the reference's weights loaded through ``params_from_jax`` and
+tokens made with numpy from a seed.
+
+What is compared, and to what:
+  - logits of the prefill and of every decode step: float32 throughout; the
+    model's K/V differ from XLA's in their last bits (matmul order), which
+    moves a P-plane quantum here and there, so within 1e-4 of the largest
+    logit (measured up to 1e-5);
+  - the cache after prefill, bit for bit: fed the reference's own K/V (its
+    layer scan's captures), the port builds the reference's records -- mu,
+    sexp, planes, slot_pos, pos -- exactly;
+  - the records decode_step appends: the encode is bit-identical on the same
+    K/V (layer 0, whose input is the token alone, so the reference's dense
+    run gives the K/V its compressed run encoded inside lax.scan); on the
+    port's own K/V, sexp is equal and the quantized values differ by at most
+    one step;
+  - the port's own teacher-forcing criterion (tests/test_models.py): decode
+    after prefill equals forward over the same tokens within 1e-3 (dense)
+    and 0.06 (compressed) of the largest logit.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as rconfigs
+from repro.models import transformer as RT
+from repro.serve import engine as RE
+from repro_torch import configs
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import transformer as T
+from repro_torch.serve import engine as E
+
+ARCHS = {"llama3.2-1b": (0, 2, 24, 3), "h2o-danube-1.8b": (8, 1, 16, 6)}   # window, B, S, extra
+MODES = [("dense", 1), ("compressed", 1), ("compressed", 2)]
+LOGIT_TOL = 1e-4
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(arch):
+    window, b, s, extra = ARCHS[arch]
+    rcfg, cfg = rconfigs.get(arch).reduced(), configs.get(arch).reduced()
+    if window:
+        rcfg = dataclasses.replace(rcfg, sliding_window=window)
+        cfg = dataclasses.replace(cfg, sliding_window=window)
+    rp = RT.init_params(rcfg, jax.random.key(0))
+    m = T.params_from_jax(jax.tree.map(np.asarray, rp), cfg, "cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s + extra)).astype(np.int32)
+    return rcfg, cfg, rp, m, toks, s, extra
+
+
+def _np_cache(cache):
+    return {"pos": int(cache["pos"]), "slot_pos": np.array(cache["slot_pos"]),
+            "layers": {k: np.array(v) for k, v in cache["layers"].items()}}
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_run(arch, mode, planes):
+    """The reference's prefill and teacher-forced decode steps: logits and
+    the cache after each call, as numpy."""
+    rcfg, _cfg, rp, _m, toks, s, extra = _setup(arch)
+    cache, logits = RE.prefill(rp, rcfg, jnp.asarray(toks[:, :s]), seq_len=s + extra,
+                               kv_mode=mode, num_planes=planes)
+    out = [(np.asarray(logits), _np_cache(cache))]
+    for i in range(extra):
+        logits, cache = RE.decode_step(rp, rcfg, cache, jnp.asarray(toks[:, s + i:s + i + 1]),
+                                       kv_mode=mode, num_planes=planes)
+        out.append((np.asarray(logits), _np_cache(cache)))
+    return out
+
+
+def _port_run(arch, mode, planes):
+    _rcfg, cfg, _rp, m, toks, s, extra = _setup(arch)
+    cache, logits = E.prefill(m, cfg, torch.from_numpy(toks[:, :s]), seq_len=s + extra,
+                              kv_mode=mode, num_planes=planes)
+    out = [(logits.numpy(), _np_cache(cache))]
+    for i in range(extra):
+        logits, cache = E.decode_step(m, cfg, cache, torch.from_numpy(toks[:, s + i:s + i + 1]),
+                                      kv_mode=mode, num_planes=planes)
+        out.append((logits.numpy(), _np_cache(cache)))
+    return out
+
+
+def _signed_q(planes):
+    """The quantized integers of uint8 planes (P, ...)."""
+    p = planes.shape[0]
+    uq = sum(planes[k].astype(np.int64) << (8 * k) for k in range(p))
+    return np.where(uq >= 1 << (8 * p - 1), uq - (1 << (8 * p)), uq)
+
+
+@pytest.mark.parametrize("mode,planes", MODES)
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_logits_match_reference(arch, mode, planes):
+    ref_out = _reference_run(arch, mode, planes)
+    port_out = _port_run(arch, mode, planes)
+    for step, ((lr, cr), (lp, cp)) in enumerate(zip(ref_out, port_out)):
+        assert lp.shape == lr.shape and lp.dtype == np.float32
+        assert np.abs(lp - lr).max() <= LOGIT_TOL * np.abs(lr).max(), (arch, mode, step)
+        assert cp["pos"] == cr["pos"] and np.array_equal(cp["slot_pos"], cr["slot_pos"])
+        assert {k: (v.shape, v.dtype) for k, v in cp["layers"].items()} == \
+            {k: (v.shape, v.dtype) for k, v in cr["layers"].items()}
+
+
+@pytest.mark.parametrize("mode,planes", MODES)
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_prefill_cache_bit_identical_on_the_same_kv(arch, mode, planes):
+    rcfg, cfg, rp, _m, toks, s, extra = _setup(arch)
+    h = RT.embed_tokens(rp, rcfg, jnp.asarray(toks[:, :s]))
+    _h, _aux, caps = RT._run_layers(rp["layers"], h, rcfg, causal=True, capture=True)
+    cache = E.make_cache(cfg, toks.shape[0], s + extra, kv_mode=mode, num_planes=planes,
+                         dtype=torch.float32, device="cpu")
+    E.fill_cache(cache, torch.tensor(np.asarray(caps["k"])), torch.tensor(np.asarray(caps["v"])),
+                 kv_mode=mode, num_planes=planes)
+    want = _reference_run(arch, mode, planes)[0][1]
+    got = _np_cache(cache)
+    assert got["pos"] == want["pos"] and np.array_equal(got["slot_pos"], want["slot_pos"])
+    for name, arr in want["layers"].items():
+        assert got["layers"][name].dtype == arr.dtype, name
+        assert np.array_equal(got["layers"][name].view(np.uint8), arr.view(np.uint8)), name
+
+
+@pytest.mark.parametrize("planes", [1, 2])
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_decode_records(arch, planes):
+    _rcfg, _cfg, _rp, _m, _toks, s, extra = _setup(arch)
+    w = _reference_run(arch, "compressed", planes)[0][1]["slot_pos"].shape[0]
+    dense = _reference_run(arch, "dense", 1)
+    ref_c = _reference_run(arch, "compressed", planes)
+    port_c = _port_run(arch, "compressed", planes)
+    for i in range(1, extra + 1):
+        slot = (s + i - 1) % w
+        want = ref_c[i][1]["layers"]
+        for nm in "kv":
+            # the encode, bit for bit, on the reference's own layer-0 K/V
+            mu, sexp, pl = E._kv_encode(torch.from_numpy(dense[i][1]["layers"][nm][0, :, slot]),
+                                        planes)
+            assert np.array_equal(mu.numpy().view(np.int32),
+                                  want[nm + "mu"][0, :, slot].view(np.int32))
+            assert np.array_equal(sexp.numpy(), want[nm + "sexp"][0, :, slot])
+            assert np.array_equal(pl.numpy(), want[nm + "pl"][0, :, :, slot])
+            # the port's own K/V, every layer
+            got = port_c[i][1]["layers"]
+            assert np.array_equal(got[nm + "sexp"][:, :, slot], want[nm + "sexp"][:, :, slot])
+            dq = (_signed_q(np.moveaxis(got[nm + "pl"][:, :, :, slot], 1, 0))
+                  - _signed_q(np.moveaxis(want[nm + "pl"][:, :, :, slot], 1, 0)))
+            assert np.abs(dq).max() <= 1
+            np.testing.assert_allclose(got[nm + "mu"][:, :, slot], want[nm + "mu"][:, :, slot],
+                                       rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode,planes", MODES)
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_prefill_decode_matches_forward(arch, mode, planes):
+    _rcfg, cfg, _rp, m, toks, s, extra = _setup(arch)
+    h, _ = T.forward(m, cfg, torch.from_numpy(toks))
+    full = T.logits_for(m, cfg, h[:, -1:])
+    logits = _port_run(arch, mode, planes)[-1][0]
+    if cfg.sliding_window:
+        assert _port_run(arch, mode, planes)[-1][1]["slot_pos"].shape == (8,)
+    rel = np.abs(full.numpy() - logits).max() / np.abs(full.numpy()).max()
+    assert rel < (1e-3 if mode == "dense" else 0.06), (arch, mode, rel)
+
+
+@pytest.mark.parametrize("mode", ["dense", "compressed"])
+def test_ragged_last_decode_chunk(monkeypatch, mode):
+    """With W > the decode chunk the port attends to every slot, the short
+    last chunk included; the answer equals the single-shot attention's."""
+    _rcfg, cfg, _rp, m, toks, s, extra = _setup("llama3.2-1b")
+    single = _port_run("llama3.2-1b", mode, 2)
+    monkeypatch.setattr(E, "DECODE_CHUNK", 10)         # W = 27: chunks of 10, 10, 7
+    chunked = _port_run("llama3.2-1b", mode, 2)
+    for (ls, _), (lc, _) in zip(single, chunked):
+        np.testing.assert_allclose(lc, ls, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode,planes", MODES)
+def test_cache_bytes_are_the_slab_shapes(mode, planes):
+    cfg = configs.get("llama3.2-1b").reduced()
+    cache = E.make_cache(cfg, 3, 40, kv_mode=mode, num_planes=planes, device="cpu")
+    per = cfg.head_dim * 2 if mode == "dense" else 4 + 1 + planes * cfg.head_dim
+    assert E.cache_nbytes(cache) == 2 * cfg.n_layers * 3 * 40 * cfg.n_kv_heads * per
+
+
+@pytest.mark.parametrize("mode", ["dense", "compressed"])
+def test_serve_cli_on_the_cpu(capsys, mode):
+    serve_cli.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--batch", "2",
+                    "--prompt", "12", "--tokens", "5", "--kv-mode", mode])
+    out = capsys.readouterr().out
+    assert f"llama3.2-1b kv={mode} on cpu:" in out and "tok/s" in out and "sample row" in out
