@@ -65,6 +65,26 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      never calls) and its bound; last, torch.profiler traces one prefill and
      2 decode steps per mode: where the device time goes, and its busy share.
 
+ 10. drives the two-call encode (ops.block_stats, then ops.pack, then pack
+     with shift = 0, as the paper's Fig. 6 analysis calls them) on phase 4's
+     512^3 field at rel 1e-3, bs 128, with launch counters zeroed just before
+     and read after; then holds block_stats and pack bit for bit to their
+     plain versions and the two calls' (mu, const, reqlen, shift, nbytes,
+     planes, L) to the fused encode kernel, on that field, 64 MiB
+     f64/f16/bf16 fields and edge inputs (bs 1/3/4096, NaN/inf, zeros of both
+     signs, verbatim, constant, empty, the f16 rounding guard), pack with
+     shift = 0 included; times both beside their byte bounds;
+ 11. trains llama3.2-1b at full width and depth (float32 weights and AdamW
+     state from --seed on the card, B 4 x S 2048 SyntheticLM tokens): a
+     warm-up and 3 steps each plain and compressed at P = 1 and P = 2 (a
+     one-rank NCCL group), every loss finite, AdamW moving the weights, the
+     flash kernel launched twice a layer a step (forward and remat), the
+     planes kernels in the compressed steps; a torch.profiler trace of one
+     compressed step; then a Trainer run of 6 compressed steps with SZx
+     checkpoints every 3 steps and a fault at step 5: the restart restores
+     on the card through the decode kernel (every leaf within the bound of
+     the saved one) and replays step 4.
+
 Phase 2 also holds the planes kernels against their plain versions (P = 1,
 2, 3; bs 1, 3, 64, 128, 4096; leading dims; nb = 0; edge blocks; random
 records), and phase 6 times them on the embed gradient's shape; the flash
@@ -98,8 +118,8 @@ GOLDEN_SHA256 = {                  # tests/test_codec.py, the f32 golden streams
 
 
 MAX_ERR = {"encode": 0.0, "decode_body": 0.0, "bitshuffle": 0.0, "unpack": 0.0,
-           "unpack_dense": 0.0, "planes_encode": 0.0,
-           "planes_decode": 0.0, "flash_attention": 0.0}     # kernel vs plain, this run
+           "unpack_dense": 0.0, "planes_encode": 0.0, "planes_decode": 0.0,
+           "flash_attention": 0.0, "block_stats": 0.0, "pack": 0.0}  # kernel vs plain, this run
 SOURCES = {          # kernel -> (its source, the TPU kernel it replaces)
     "encode": ("src/repro_torch/csrc/encode.cu", "src/repro/kernels/encode.py:57"),
     "decode_body": ("src/repro_torch/csrc/decode.cu", "src/repro/kernels/decode.py:108"),
@@ -110,10 +130,13 @@ SOURCES = {          # kernel -> (its source, the TPU kernel it replaces)
     "planes_decode": ("src/repro_torch/csrc/planes.cu", "src/repro/kernels/planes.py:111"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:83"),
+    "block_stats": ("src/repro_torch/csrc/block_stats.cu", "src/repro/kernels/block_stats.py:91"),
+    "pack": ("src/repro_torch/csrc/pack.cu", "src/repro/kernels/pack.py:73"),
 }
 CODEC_KERNELS = ("encode", "decode_body", "bitshuffle", "bitshuffle_inverse", "unpack",
                  "unpack_dense")
 PLANES_KERNELS = ("planes_encode", "planes_decode")
+TWO_CALL_KERNELS = ("block_stats", "pack")
 STORE_CHUNK_BYTES = 2 << 20        # the store's default chunk (store/grid.py)
 
 
@@ -146,14 +169,15 @@ def same_bits(a, b) -> bool:
 
 
 def max_abs_diff(a, b) -> float:
-    """max |a - b| over the positions where not both are NaN."""
+    """max |a - b| over the positions where not both are NaN (equal values,
+    infinities included, differ by 0)."""
     import torch
 
     if a.numel() == 0:
         return 0.0
     a, b = a.double(), b.double()
     d = (a - b).abs()
-    return float(torch.where(torch.isnan(a) & torch.isnan(b), 0.0, d).max())
+    return float(torch.where((a == b) | (torch.isnan(a) & torch.isnan(b)), 0.0, d).max())
 
 
 def walk(n, dtype, gen, scale=0.01):
@@ -1269,6 +1293,364 @@ def profile_serve(model, cfg, prompts) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the two-call encode (block_stats, pack) at a size users run
+# ---------------------------------------------------------------------------
+
+STATS_NAMES = ("mu", "radius", "const", "reqlen", "shift", "nbytes")
+ENCODE_NAMES = ("mu", "const", "reqlen", "shift", "nbytes", "planes", "L")
+
+
+def same_stats(a, b, where: str) -> None:
+    """block_stats outputs bit-identical; a NaN radius by position (the NaN
+    bits of a subtraction are the card's in both)."""
+    import torch
+
+    for name, x, y in zip(STATS_NAMES, a, b):
+        if name == "radius":
+            check(torch.equal(x.isnan(), y.isnan()), f"{where}: radius NaN positions differ")
+            x, y = x[~x.isnan()], y[~y.isnan()]
+        check(same_bits(x, y), f"{where}: block_stats {name} differs")
+
+
+def two_call_vs_plain(xb, e, spec, where: str, *, lo: int = 0) -> None:
+    """ops.block_stats / ops.pack on (nb, bs) blocks against their plain
+    versions and the fused encode kernel, and pack with shift = 0, all bit
+    for bit.  ``lo`` only names the blocks in messages."""
+    import torch
+    from repro_torch.kernels import block_stats as bsk, encode as enc_mod, ops, pack as pk, specs
+
+    p_e = specs.exact_exponent_of(e)
+    k = ops.block_stats(xb, e, spec=spec)
+    plain = bsk.block_stats_plain(xb, e, spec, p_e)
+    same_stats(k, plain, f"{where} blocks {lo}+")
+    MAX_ERR["block_stats"] = max(MAX_ERR["block_stats"],
+                                 *(max_abs_diff(a.double(), b.double()) for a, b in zip(k, plain)))
+    mu, _r, const, reqlen, shift, nbytes = k
+    kp = ops.pack(xb, mu, shift, nbytes, spec=spec)
+    for name, a, b in zip(("planes", "L", "mid"), kp, pk.pack_plain(xb, mu, shift, nbytes, spec)):
+        check(same_bits(a, b), f"{where} blocks {lo}+: pack {name} differs")
+        MAX_ERR["pack"] = max(MAX_ERR["pack"], max_abs_diff(a.double(), b.double()))
+    fused = enc_mod.encode(xb, e, p_e, spec=spec)
+    two = (mu, const, reqlen, shift, nbytes, kp[0], kp[1].to(torch.uint8))
+    for name, a, b in zip(ENCODE_NAMES, fused, two):
+        check(same_bits(a, b), f"{where} blocks {lo}+: two calls != fused encode ({name})")
+    zero = torch.zeros_like(shift)
+    for name, a, b in zip(("planes", "L", "mid"), ops.pack(xb, mu, zero, nbytes, spec=spec),
+                          pk.pack_plain(xb, mu, zero, nbytes, spec)):
+        check(same_bits(a, b), f"{where} blocks {lo}+: pack shift=0 {name} differs")
+
+
+def phase_two_call(field, args):
+    """The two-call encode on the 512^3 field at rel 1e-3, bs 128, as the
+    paper's Fig. 6 analysis drives it (benchmarks/run.py:141-178): block
+    statistics, pack with Solution C's shift, and pack with shift = 0 for
+    Solution B's bit count.  Launch counters are zeroed just before this
+    path and read just after it.  Returns the path's outputs for the
+    checks and timings that follow."""
+    import torch
+    from repro_torch.core.codec import Bound, SZxCodec, plan
+    from repro_torch.kernels import ops, specs
+
+    p, xt = plan.make_plan(field, Bound.rel(1e-3), block_size=128, device="cuda")
+    xb = plan.to_blocks(xt, p)
+    e = p.error_bound
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = ops.block_stats(xb, e)
+    mu, _radius, const, reqlen, shift, nbytes = stats
+    planes, L, mid = ops.pack(xb, mu, shift, nbytes)
+    _p0, L0, _m0 = ops.pack(xb, mu, torch.zeros_like(shift), nbytes)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    launches = {k: v for k, v in ops.launch_counts().items() if k in TWO_CALL_KERNELS}
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the two-call path")
+    nc = ~const
+    bits_c = int(mid[nc].to(torch.int64).sum()) * 8
+    bits_b = int((reqlen[nc][:, None].to(torch.int64) - 8 * L0[nc].to(torch.int64))
+                 .clamp(min=0).sum())
+    comp = len(SZxCodec().compress(field, e))
+    check(0 <= bits_b <= bits_c, f"Solution B bits {bits_b} vs C bits {bits_c}")
+    log(f"two-call encode f32 {args.edge}^3 rel 1e-3 (e={e:.6g}) nb={p.nblocks} bs=128: "
+        f"block_stats + pack + pack(shift=0) {t_path * 1e3:.1f} ms host clock; launches "
+        f"{launches}; constant blocks {int(const.sum())}; Fig. 6 shift overhead (Solution C "
+        f"minus B bytes over the stream's {comp} B) {(bits_c - bits_b) / 8 / comp * 100:.3f}%")
+    del planes, L, mid, L0, _p0, _m0
+    # the same blocks against the plain versions and the fused encode kernel,
+    # a 64 MiB frame of blocks at a time
+    per = FRAME_BYTES // (4 * 128)
+    for lo in range(0, p.nblocks, per):
+        two_call_vs_plain(xb[lo:lo + per], e, specs.F32, f"f32 {args.edge}^3", lo=lo)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    for spec in specs.SPECS[1:]:
+        n = FRAME_BYTES // spec.itemsize
+        x = walk(n, spec.dtype, gen, scale=0.001).reshape(-1, 128)
+        two_call_vs_plain(x, float(plan.resolve_error_bound(x, Bound.rel(1e-3))), spec,
+                          f"{spec.name} 64 MiB")
+    for spec in specs.SPECS:
+        e = 1e-3 if spec.itemsize >= 4 else 1e-2
+        for nb, bs in ((4096, 1), (3001, 3), (64, 4096)):
+            two_call_vs_plain(walk(nb * bs, spec.dtype, gen).reshape(nb, bs), e, spec,
+                              f"{spec.name} bs={bs}")
+        odd = walk(200 * 128, spec.dtype, gen).reshape(200, 128)    # NaN, inf, zeros
+        odd[3, ::7] = float("nan")
+        odd[5, 11] = float("inf")
+        odd[6, :] = -float("inf")
+        odd[9, :] = 0.0
+        odd[10, ::3] = -0.0
+        odd[11, :] = -0.0
+        two_call_vs_plain(odd, e, spec, f"{spec.name} NaN/inf/zeros")
+        two_call_vs_plain(walk(200 * 128, spec.dtype, gen, scale=1.0).reshape(200, 128),
+                          float(torch.finfo(spec.dtype).tiny), spec, f"{spec.name} verbatim")
+        two_call_vs_plain(torch.full((50, 128), 2.5, dtype=spec.dtype, device="cuda"), 1e-3,
+                          spec, f"{spec.name} constant")
+        two_call_vs_plain(torch.zeros((0, 128), dtype=spec.dtype, device="cuda"), 1e-3, spec,
+                          f"{spec.name} nb=0")
+    # the 16-bit next-up radius guard: e exactly at the f32-rounded radius
+    g16 = torch.tensor([[-1.751e-03, 2554.0]], dtype=torch.float16, device="cuda")
+    mn, mx = (float(v) for v in g16[0].double())
+    mu16 = float(torch.tensor(0.5 * (mn + mx), dtype=torch.float32).to(torch.float16))
+    e16 = float(max(torch.tensor(mx, dtype=torch.float32) - mu16,
+                    mu16 - torch.tensor(mn, dtype=torch.float32)))
+    two_call_vs_plain(g16, e16, specs.F16, "f16 rounding guard")
+    check(not bool(ops.block_stats(g16, e16, spec=specs.F16)[2][0]), "f16 guard: block constant")
+    torch.cuda.synchronize()
+    log("two-call kernels vs plain: block_stats, pack and pack(shift=0) bit-identical to their "
+        "plain versions, and (mu, const, reqlen, shift, nbytes, planes, L) to the fused encode "
+        f"kernel, on the {args.edge}^3 field, 64 MiB f64/f16/bf16 fields, bs 1/3/4096, NaN/inf/"
+        "signed-zero, verbatim, constant and empty inputs, and the f16 guard")
+    return xb, e, stats, launches
+
+
+def time_two_call(xb, e, stats, reps: int):
+    """block_stats and pack (CUDA events) and their plain versions on the
+    512^3 field's blocks, beside the bound from the bytes each moves (every
+    input read once, every output written once) at 3.35 TB/s."""
+    from repro_torch.kernels import block_stats as bsk, ops, pack as pk, specs
+
+    p_e = specs.exact_exponent_of(e)
+    mu, _r, _c, _rq, shift, nbytes = stats
+    nb, bs = xb.shape
+    outs = ops.block_stats(xb, e)
+    st_bytes = xb.numel() * 4 + sum(t.numel() * t.element_size() for t in outs)
+    pk_outs = ops.pack(xb, mu, shift, nbytes)
+    pk_bytes = (xb.numel() * 4 + sum(t.numel() * t.element_size() for t in (mu, shift, nbytes))
+                + sum(t.numel() * t.element_size() for t in pk_outs))
+    del outs, pk_outs
+    rows = []
+    for name, fn, plain, nbytes_moved in (
+            ("block_stats", lambda: ops.block_stats(xb, e),
+             lambda: bsk.block_stats_plain(xb, e, specs.F32, p_e), st_bytes),
+            ("pack", lambda: ops.pack(xb, mu, shift, nbytes),
+             lambda: pk.pack_plain(xb, mu, shift, nbytes, specs.F32), pk_bytes)):
+        ms = cuda_ms(fn, reps)
+        pms = cuda_ms(plain, 3)
+        bound_ms = nbytes_moved / HBM_BYTES_PER_S * 1e3
+        rows.append((name, ms, pms, bound_ms))
+        log(f"time {name} f32 nb={nb} bs={bs}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({nbytes_moved / 1e6:.3f} MB at 3.35 TB/s, "
+            f"{bound_ms / ms * 100:.1f}% of the bound)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 11: training llama3.2-1b at full width and depth
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "llama3.2-1b"         # src/repro/configs/llama3p2_1b.py, full width and depth
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 3
+TRAIN_MODES = (0, 1, 2)            # plain, then compressed at P = 1 and P = 2
+TRAIN_LR = 1e-4
+CKPT_DIR = ROOT / "_smoke_ckpt"    # checkpoints of the restart run; removed after it
+CKPT_STEPS, CKPT_EVERY, CKPT_FAULT = 6, 3, 5   # the fault hits step 5 once: step 4 is replayed
+
+
+def train_batch(ds, step: int):
+    import torch
+
+    return {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch_at(step).items()}
+
+
+def phase_train(args):
+    """Plain and compressed (P = 1, 2) training steps of llama3.2-1b at full
+    width and depth on B 4 x S 2048 SyntheticLM tokens, float32 weights and
+    AdamW state from --seed on the card, compressed modes in a one-rank NCCL
+    group.  Then one Trainer run (compressed P = 1, SZx checkpoints) with a
+    fault after its first checkpoint: the restart restores on the card and
+    replays the lost step.  Returns per-mode step times for the summary."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamW
+    from repro_torch.train import step as step_mod
+
+    cfg = configs.get(TRAIN_ARCH)
+    check(cfg.remat, f"{TRAIN_ARCH} trains with per-layer remat")
+    opt = AdamW(lr=TRAIN_LR)
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    results = {}
+    try:
+        for P in TRAIN_MODES:
+            mode = "plain" if not P else f"compressed P={P}"
+            gen = torch.Generator(device="cuda").manual_seed(args.seed + 8)
+            state, t_init = timed(lambda: step_mod.init_state(cfg, opt, gen, ef_planes=P,
+                                                              device="cuda"))
+            nbytes = sum(t.numel() * t.element_size() for t in pytree.leaves(state))
+            wq0 = state["params"]["layers"][0]["attn"]["wq"][:64, :64].clone()
+            fn = step_mod.make_train_step(cfg, opt, compress_planes=P)
+            torch.cuda.reset_peak_memory_stats()
+            (state, m), t_warm = timed(lambda: fn(state, train_batch(ds, 0)))
+            losses, times = [float(m["loss"])], []
+            before = ops.launch_counts()
+            for s in range(1, TRAIN_STEPS + 1):
+                batch = train_batch(ds, s)
+                (state, m), t = timed(lambda: fn(state, batch))
+                times.append(t)
+                losses.append(float(m["loss"]))
+            after = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            check(all(math.isfinite(v) for v in losses), f"{mode}: losses {losses}")
+            moved = float((state["params"]["layers"][0]["attn"]["wq"][:64, :64] - wq0).abs().max())
+            check(moved > 0, f"{mode}: AdamW did not move the parameters")
+            flash = after["flash_attention"] - before["flash_attention"]
+            check(flash == 2 * cfg.n_layers * TRAIN_STEPS,
+                  f"{mode}: {flash} flash launches in {TRAIN_STEPS} steps (forward + remat)")
+            if P:
+                for k in PLANES_KERNELS:
+                    check(after[k] > before[k], f"{mode}: {k} not launched")
+            results[P] = times
+            log(f"train {TRAIN_ARCH} {mode}: state {nbytes / 1e9:.2f} GB made in {t_init:.2f} s; "
+                f"first step {t_warm * 1e3:.1f} ms; steps "
+                + ", ".join(f"{t * 1e3:.1f}" for t in times)
+                + f" ms ({tokens / (sum(times) / len(times)):.0f} tokens/s); loss curve "
+                + ", ".join(f"{v:.4f}" for v in losses)
+                + f"; max |d wq| after {TRAIN_STEPS + 1} steps {moved:.3e}; peak device memory "
+                f"{peak / 2**30:.2f} GiB; launches {dict((k, after[k] - before[k]) for k in after if after[k] != before[k])}")
+            if P == 1:
+                profile_train(fn, state, train_batch(ds, TRAIN_STEPS + 1), mode)
+            del state, m, wq0
+            torch.cuda.empty_cache()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        try:
+            restart_run(args, cfg, opt, ds)
+        finally:
+            shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    finally:
+        dist.destroy_process_group()
+    return results
+
+
+def profile_train(fn, state, batch, mode: str) -> None:
+    """torch.profiler over one training step: device busy share of its wall
+    time and the top kernels by device time (card activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in evs) / 1e6
+    evs.sort(key=lambda e: -e.self_device_time_total)
+    top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
+                    for e in evs[:10])
+    share = f"{100 * busy / wall:.1f}%" if busy else "not measured: no device events"
+    log(f"profile train {mode} step: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+        f"({share}); top: {top}")
+
+
+def restart_run(args, cfg, opt, ds) -> None:
+    """A Trainer run of CKPT_STEPS compressed (P = 1) steps with SZx
+    checkpoints every CKPT_EVERY steps and a fault once at step CKPT_FAULT:
+    the restart restores the latest checkpoint on the card (the decode
+    kernel) and replays the steps after it.  Every restored leaf is held to
+    the leaf saved at that step (float leaves within the checkpoint's bound,
+    the rest bit for bit); save and restore times, bytes and CR logged."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pytree
+    from repro_torch.core.codec import plan
+    from repro_torch.kernels import ops
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    saved, events = {}, []
+
+    class Checked(CheckpointManager):
+        def save(self, step, tree):
+            # the saved state on the host, to hold the restore to it
+            saved.clear()
+            saved.update({n: t.to("cpu", copy=True) for n, t in pytree.leaf_paths(tree)})
+            before = ops.launch_counts()["encode"]
+            out, t = timed(lambda: super(Checked, self).save(step, tree))
+            st = self.stats(step)
+            events.append(f"save step {step}: {t:.2f} s, {st['raw_bytes']} B -> "
+                          f"{st['stored_bytes']} B (CR {st['ratio']:.4f}), "
+                          f"{ops.launch_counts()['encode'] - before} encode launches")
+            return out
+
+        def restore(self, template, step=None):
+            before = ops.launch_counts()["decode_body"]
+            (tree, got), t = timed(lambda: super(Checked, self).restore(template, step))
+            launched = ops.launch_counts()["decode_body"] - before
+            check(launched > 0, "restore did not launch the decode kernel")
+            worst = 0.0
+            for name, leaf in pytree.leaf_paths(tree):
+                want = saved[name].to(leaf.device)
+                check(leaf.dtype == want.dtype and leaf.shape == want.shape, f"restored {name}")
+                if leaf.is_floating_point() and leaf.numel() >= 1024:
+                    e = plan.resolve_error_bound(want, self.bound)
+                    err = max_abs_diff(leaf, want)
+                    check(err <= e, f"restored {name}: max error {err} > e={e}")
+                    worst = max(worst, err / e if e else 0.0)
+                else:
+                    check(same_bits(leaf, want), f"restored {name} not bit-identical")
+                del want
+            events.append(f"restore step {got}: {t:.2f} s, {launched} decode launches, every "
+                          f"leaf within the bound (max error/bound {worst:.4f})")
+            return tree, got
+
+    faults = []
+
+    def fault(step):
+        if step == CKPT_FAULT and not faults:
+            faults.append(step)
+            raise RuntimeError("injected fault after the first checkpoint")
+
+    ckpt = Checked(str(CKPT_DIR), keep=2, compress=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 9)
+    state = step_mod.init_state(cfg, opt, gen, ef_planes=1, device="cuda")
+    fn = step_mod.make_train_step(cfg, opt, compress_planes=1)
+    tr = Trainer(TrainerConfig(total_steps=CKPT_STEPS, checkpoint_every=CKPT_EVERY),
+                 fn, lambda s: train_batch(ds, s), ckpt, fault_hook=fault)
+    _, t_run = timed(lambda: tr.run(state))
+    steps = [h["step"] for h in tr.history]
+    check(tr.restarts == 1, f"restarts {tr.restarts}")
+    check(steps == [0, 1, 2, 3, 4, 4, 5], f"trainer steps {steps}")
+    check(ckpt.latest_step() == CKPT_STEPS - 1, "final checkpoint")
+    replay = [h["loss"] for h in tr.history if h["step"] == CKPT_FAULT - 1]
+    for ev in events:
+        log(f"train restart run: {ev}")
+    log(f"train restart run {TRAIN_ARCH} (compressed P=1, SZx checkpoints at rel 1e-6, "
+        f"fault at step {CKPT_FAULT}): {t_run:.1f} s, restarts {tr.restarts}, steps {steps}, "
+        f"losses " + ", ".join(f"{h['loss']:.4f}" for h in tr.history)
+        + f"; step {CKPT_FAULT - 1} before and after the restart {replay[0]:.6f} / {replay[1]:.6f}")
+    saved.clear()
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1358,6 +1740,22 @@ def main() -> int:
     del model, runs
     torch.cuda.empty_cache()
     flash_ms, flash_plain_ms, flash_lib_ms, flash_bound_ms = time_flash(gen, max(args.reps // 2, 5))
+    torch.cuda.empty_cache()
+
+    log(f"phase 10 starts {time.perf_counter() - t_start:.1f} s into the run")
+    field = make_field(args.edge, args.seed)            # phase 4's field, made again
+    xb, e, stats, two_call_launches = phase_two_call(field, args)
+    launches.update(two_call_launches)
+    rows += time_two_call(xb, e, stats, args.reps)
+    del field, xb, stats
+    torch.cuda.empty_cache()
+
+    log(f"phase 11 starts {time.perf_counter() - t_start:.1f} s into the run")
+    train_s = phase_train(args)
+    for P, times in train_s.items():
+        log(f"time train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} "
+            f"{'plain' if not P else f'compressed P={P}'} (host clock, synchronized): "
+            + ", ".join(f"{t * 1e3:.1f} ms" for t in times))
 
     kernels = []
     for name, ms, pms, bound_ms in rows:

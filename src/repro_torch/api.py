@@ -12,6 +12,12 @@
   ArrayStore   -- block-addressable compressed N-d array store: ``save`` /
                   ``save_sharded`` / ``open`` -> lazy ``CompressedArray`` with
                   ROI reads and compressed-domain queries on the card
+  TreeCodec    -- nested dicts / lists / NamedTuples of tensors as one
+                  multi-leaf container-v3 stream (leaves encoded on the card)
+  CheckpointManager -- atomic, keep-k, optionally SZx-compressed checkpoints
+                  of trees, byte-identical to the JAX package's
+  block_stats / pack -- the two-call SZx encode (``ops.block_stats``,
+                  ``ops.pack``) whose halves the fused encode runs in one pass
 """
 from repro_torch.core.codec.plan import Bound  # noqa: F401
 from repro_torch.core.codec.planes_codec import PlanesCodec  # noqa: F401
@@ -22,11 +28,18 @@ from repro_torch.core.codec.szx_codec import (  # noqa: F401
     compress_with_stats,
     decompress,
 )
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401
+from repro_torch.core.codec.tree import TreeCodec  # noqa: F401
+from repro_torch.kernels.ops import block_stats, pack  # noqa: F401
 from repro_torch.store import ArrayStore  # noqa: F401
 
 __all__ = [
     "ArrayStore",
     "Bound",
+    "CheckpointManager",
+    "TreeCodec",
+    "block_stats",
+    "pack",
     "PlanesCodec",
     "SZxCodec",
     "CompressionStats",

@@ -12,6 +12,8 @@ Layers:
 Front-end:
   SZxCodec   -- byte-stream codec (monolithic + chunked streaming,
                 f32/f64/f16/bf16), byte-identical to the JAX package's
+  TreeCodec  -- a tree of tensors as one multi-leaf container-v3 stream,
+                byte-identical to the JAX package's
   PlanesCodec -- fixed-shape szx-planes codec (P byte planes per value) for
                 gradient and activation traffic, bit-identical to the JAX
                 package's jax route
@@ -20,6 +22,7 @@ from repro_torch.core.codec import container, device, plan, transform  # noqa: F
 from repro_torch.core.codec.device import DeviceEncoding  # noqa: F401
 from repro_torch.core.codec.plan import DEFAULT_BLOCK_SIZE, Bound  # noqa: F401
 from repro_torch.core.codec.planes_codec import PlanesCodec  # noqa: F401
+from repro_torch.core.codec.tree import TreeCodec  # noqa: F401
 from repro_torch.core.codec.szx_codec import (  # noqa: F401
     DEFAULT_CHUNK_BYTES,
     CompressionStats,

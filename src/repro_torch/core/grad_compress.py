@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.codec import DeviceEncoding, PlanesCodec
+from repro_torch.core.pytree import tree_map
 from repro_torch.kernels import ref
 
 DEFAULT_BLOCK = 64
@@ -49,14 +50,6 @@ def _wire(name: str, a: torch.Tensor) -> torch.Tensor:
 
 def _unwire(name: str, a: torch.Tensor) -> torch.Tensor:
     return a.view(torch.int16) if name == "sexp" else a
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
 
 
 def compressed_psum_mean(grads, group=None, *, num_planes: int = 1,
@@ -94,9 +87,9 @@ def compressed_psum_mean(grads, group=None, *, num_planes: int = 1,
         return mean.to(g.dtype), residual
 
     pairs = []
-    mean = _tree_map(lambda g: pairs.append(leaf(g)) or pairs[-1][0], grads)
+    mean = tree_map(lambda g: pairs.append(leaf(g)) or pairs[-1][0], grads)
     rest = iter(pairs)
-    return mean, _tree_map(lambda g: next(rest)[1], grads)
+    return mean, tree_map(lambda g: next(rest)[1], grads)
 
 
 def _group_rank(group, r: int) -> int:

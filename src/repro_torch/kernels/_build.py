@@ -29,7 +29,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("encode", "decode", "bitshuffle", "unpack", "planes", "flash_attention")
+SOURCES = ("encode", "decode", "bitshuffle", "unpack", "planes", "flash_attention",
+           "block_stats", "pack")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -8,6 +8,14 @@ is :func:`repro_torch.kernels.ref.flash_attention_ref`, the online softmax of
 version for a CPU tensor only; a CUDA tensor launches the kernel or raises.
 The kernel is held to the plain version to a tolerance (its sums run in
 another order), not bit for bit.
+
+Training differentiates through :class:`FlashAttention`, whose forward is
+:func:`flash_attention` and whose backward, :func:`flash_attention_bwd`,
+recomputes the probabilities per chunk of 512 queries from q, k and v with
+torch ops in float32.  The JAX package has no backward kernel either: its
+training differentiates the checkpointed ``lax.scan`` of
+``repro/models/layers.py::flash_attention``, and this backward computes the
+same gradient (a hand-written backward kernel is later work).
 """
 from __future__ import annotations
 
@@ -87,3 +95,90 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed (CUDA error {rc})")
     _count_launch()
     return out
+
+
+NEG_INF = -1e30       # the reference's mask value; s <= NEG_INF / 2 gives p = 0
+BWD_Q_CHUNK = 512     # queries per recompute of the probabilities
+
+
+def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0,
+                        q_chunk: int = BWD_Q_CHUNK):
+    """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the output
+    cotangent ``do``, in the dtypes of q, k, v.
+
+    Per chunk of ``q_chunk`` queries: s = (q k^T) * scale in float32 with
+    the reference's masks (-1e30, then p = 0 where s <= -5e29), p the row
+    softmax, o = p v; then dp = do v^T, ds = p (dp - rowsum(do * o)),
+    dq = ds k * scale, and dk += ds^T q * scale, dv += p^T do summed over
+    the query heads of each kv head (GQA).  Keys that no query of the chunk
+    may see (past the causal diagonal, before the window) are skipped: their
+    p is 0."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    kt = k.to(f32).permute(0, 2, 1, 3)                      # (B, Hkv, Skv, hd)
+    vt = v.to(f32).permute(0, 2, 1, 3)
+    dk = torch.zeros_like(kt)
+    dv = torch.zeros_like(vt)
+    dq = torch.empty((b, sq, hq, hd), dtype=f32, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    for q0 in range(0, sq, q_chunk):
+        c = min(q_chunk, sq - q0)
+        k_lo, k_hi = 0, skv
+        if causal:
+            k_hi = min(skv, q0 + c)
+        if window:
+            k_lo = max(0, q0 - window + 1)
+        if k_hi <= k_lo:
+            dq[:, q0:q0 + c] = 0
+            continue
+
+        def heads(x):      # (B, c, Hq, hd) -> (B, Hkv, g * c, hd), group-major
+            return x.to(f32).reshape(b, c, hkv, g, hd).permute(0, 2, 3, 1, 4) \
+                .reshape(b, hkv, g * c, hd)
+
+        qc, doc = heads(q[:, q0:q0 + c]), heads(do[:, q0:q0 + c])
+        kc, vc = kt[:, :, k_lo:k_hi], vt[:, :, k_lo:k_hi]
+        qpos = (q0 + torch.arange(c, device=q.device)).repeat(g)      # rows are (g, c)
+        kp = kpos[k_lo:k_hi]
+        valid = torch.ones((g * c, k_hi - k_lo), dtype=torch.bool, device=q.device)
+        if causal:
+            valid &= kp[None, :] <= qpos[:, None]
+        if window:
+            valid &= qpos[:, None] - kp[None, :] < window
+        s = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(s > NEG_INF / 2, torch.exp(s - m), 0.0)
+        del s
+        p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        o = torch.matmul(p, vc)
+        delta = (doc * o).sum(dim=-1, keepdim=True)
+        dv[:, :, k_lo:k_hi] += torch.matmul(p.transpose(-1, -2), doc)
+        ds = p * (torch.matmul(doc, vc.transpose(-1, -2)) - delta)
+        del p
+        dqc = torch.matmul(ds, kc) * scale                    # (B, Hkv, g * c, hd)
+        dk[:, :, k_lo:k_hi] += torch.matmul(ds.transpose(-1, -2), qc) * scale
+        dq[:, q0:q0 + c] = dqc.reshape(b, hkv, g, c, hd).permute(0, 3, 1, 2, 4) \
+            .reshape(b, c, hq, hd)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with :func:`flash_attention_bwd` as its
+    gradient; q, k and v are saved, the probabilities recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None

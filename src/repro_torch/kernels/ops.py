@@ -2,8 +2,9 @@
 model's attention.
 
 The route follows the tensor's device: a CUDA tensor goes to the hand-written
-Hopper kernel (``kernels/encode.py``, ``decode.py``, ``bitshuffle.py``,
-``unpack.py``, ``planes.py``, ``flash_attention.py``), a CPU tensor to its
+Hopper kernel (``kernels/encode.py``, ``block_stats.py``, ``pack.py``,
+``decode.py``, ``bitshuffle.py``, ``unpack.py``, ``planes.py``,
+``flash_attention.py``), a CPU tensor to its
 plain PyTorch version (``kernels/ref.py``).  There is no backend knob and no fallback: a CUDA call
 that cannot launch raises.
 
@@ -17,9 +18,28 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bitshuffle as bitshuffle_mod, decode, encode, ref, specs
+from repro_torch.kernels import block_stats as block_stats_mod, pack as pack_mod
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import planes as planes_mod, unpack as unpack_mod
 from repro_torch.kernels.specs import DtypeSpec
+
+
+def block_stats(xb: torch.Tensor, e: float, *, spec: DtypeSpec = specs.F32):
+    """Per-block statistics of (nb, bs) blocks -> (mu, radius, const, reqlen,
+    shift, nbytes), each (nb,): mu in the spec's dtype, radius in its compute
+    dtype, const bool, the rest int32.  ``e`` is the absolute bound."""
+    return block_stats_mod.block_stats(xb.to(spec.dtype).contiguous(), e,
+                                       specs.exact_exponent_of(float(e)), spec=spec)
+
+
+def pack(xb: torch.Tensor, mu, shift, nbytes, *, spec: DtypeSpec = specs.F32):
+    """Normalize, shift by the caller's ``shift``, XOR-lead and split into
+    byte planes -> (planes (nb, itemsize, bs) uint8, L (nb, bs) int32, mid
+    (nb, bs) int32); ``ops.encode_staged`` fuses this with
+    :func:`block_stats`."""
+    return pack_mod.pack(xb.to(spec.dtype).contiguous(), mu.to(spec.dtype).contiguous(),
+                         shift.to(torch.int32).contiguous(),
+                         nbytes.to(torch.int32).contiguous(), spec=spec)
 
 
 def encode_staged(xb: torch.Tensor, e: float, p_e: int, *,
@@ -99,13 +119,15 @@ def planes_decode(mu, sexp, planes):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """GQA attention forward, q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) ->
-    (B, Sq, Hq, hd) in q.dtype."""
-    return flash_mod.flash_attention(q, k, v, causal=causal, window=window)
+    """GQA attention, q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) -> (B, Sq, Hq,
+    hd) in q.dtype; differentiable (the forward kernel, a recomputing
+    backward)."""
+    return flash_mod.FlashAttention.apply(q, k, v, causal, window)
 
 
 def launch_counts() -> dict[str, int]:
     return {"encode": encode.LAUNCHES, "decode_body": decode.LAUNCHES,
+            "block_stats": block_stats_mod.LAUNCHES, "pack": pack_mod.LAUNCHES,
             "bitshuffle": bitshuffle_mod.LAUNCHES,
             "bitshuffle_inverse": bitshuffle_mod.INVERSE_LAUNCHES,
             "unpack": unpack_mod.LAUNCHES, "unpack_dense": unpack_mod.DENSE_LAUNCHES,
@@ -116,6 +138,7 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     encode.LAUNCHES = 0
+    block_stats_mod.LAUNCHES = pack_mod.LAUNCHES = 0
     decode.LAUNCHES = 0
     bitshuffle_mod.LAUNCHES = bitshuffle_mod.INVERSE_LAUNCHES = 0
     unpack_mod.LAUNCHES = unpack_mod.DENSE_LAUNCHES = 0

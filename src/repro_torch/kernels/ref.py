@@ -101,9 +101,13 @@ def block_stats_ref(xb: torch.Tensor, e: float, spec: DtypeSpec, p_e: int):
     mu = (0.5 * (mn + mx)).to(spec.dtype)          # storage-rounded mu
     # a block of zeros only: numpy's min/max end in a scalar pass that keeps
     # the later of two equal values, so both carry the LAST value's sign
-    # (torch's and the card's reductions would pick either zero)
-    mu = torch.where((mn == 0) & (mx == 0), xb[:, -1].to(spec.dtype), mu)
+    # (torch's and the card's reductions would pick either zero), and so
+    # does mu; the radius is then +0
+    zero = (mn == 0) & (mx == 0)
+    mu = torch.where(zero, xb[:, -1].to(spec.dtype), mu)
     mu_w = mu.to(cdt)                              # exact widening
+    mn = torch.where(zero, mu_w, mn)
+    mx = torch.where(zero, mu_w, mx)
     # radius vs the ROUNDED mu: the constant-block test then already covers
     # the mu storage rounding of the narrow dtypes
     radius = torch.maximum(mx - mu_w, mu_w - mn)

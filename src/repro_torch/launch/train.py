@@ -1,0 +1,85 @@
+"""Training launcher: the dense-attention families on synthetic tokens, with
+optional SZx gradient compression and SZx-compressed checkpoints.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+        --reduced --steps 20 --ckpt <dir> --device cpu
+    ... --grad-compress 1      # szx-planes gradient all-reduce, error feedback
+    ... --ckpt-compress        # SZx-compressed checkpoints
+
+Without ``--device`` it runs on the card, and fails without one.  The
+gradient compression averages over the process group; launched alone, the
+launcher makes a one-rank group (gloo on the CPU, NCCL on the card).  The
+MoE, SSM, audio and VLM families raise ``NotImplementedError``; the
+store-backed corpus (``--data-store``) and ``--profile-dir`` come with
+later slices.
+"""
+import argparse
+import socket
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.codec.device import resolve_device
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.train import step as step_mod
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def _one_rank_group(dev: torch.device) -> None:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=configs.ARCH_NAMES)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--reduced", action="store_true", help="tiny same-family config")
+    ap.add_argument("--grad-compress", type=int, default=0, metavar="P",
+                    help="szx-planes planes per gradient value (0: off)")
+    ap.add_argument("--ckpt", required=True, help="checkpoint directory")
+    ap.add_argument("--ckpt-compress", action="store_true")
+    ap.add_argument("--device", default=None, help="default: the card (raises without one)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device, "repro_torch.launch.train")
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    opt = AdamW(lr=warmup_cosine(3e-4, 20, args.steps))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    state = step_mod.init_state(cfg, opt, gen, ef_planes=args.grad_compress, device=dev)
+    own_group = bool(args.grad_compress) and not dist.is_initialized()
+    if own_group:
+        _one_rank_group(dev)
+    try:
+        step_fn = step_mod.make_train_step(cfg, opt, compress_planes=args.grad_compress)
+        ds = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch))
+
+        def batch_fn(s):
+            return {k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(s).items()}
+
+        ckpt = CheckpointManager(args.ckpt, keep=2, compress=args.ckpt_compress, device=dev)
+        tr = Trainer(TrainerConfig(total_steps=args.steps, checkpoint_every=25),
+                     step_fn, batch_fn, ckpt)
+        tr.run(state)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    print(f"arch={args.arch} on {dev}: loss {tr.history[0]['loss']:.3f} -> "
+          f"{tr.history[-1]['loss']:.3f} ({len(tr.history)} steps, "
+          f"{sum(h['dt'] for h in tr.history) / len(tr.history) * 1e3:.1f} ms/step)")
+    return tr
+
+
+if __name__ == "__main__":
+    main()

@@ -12,13 +12,21 @@ compute with the same weights.
 The families this slice carries are the attention-only ones (llama3.2-1b,
 h2o-danube-1.8b, stablelm-3b, yi-6b).  MoE, SSM/hybrid, encoder-decoder and
 VLM configurations raise ``NotImplementedError``: ROADMAP.md queue 1 item 13.
-The loss (``chunked_ce_loss``, ``loss_fn``) comes with the training slice.
+
+Training: :func:`loss_fn` runs :func:`forward_train` (gradients enabled,
+each layer recomputed in the backward where ``cfg.remat`` is set, as the
+reference's ``jax.checkpoint`` of its scan body) and
+:func:`chunked_ce_loss` (512 positions at a time, each chunk's logits
+recomputed in the backward).  :func:`param_tree` gives the parameters as a
+nested dict of tensors (the module's own storage) for the optimizer, the
+gradient and the checkpoint.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.codec.device import resolve_device
@@ -143,6 +151,19 @@ def params_from_jax(tree, cfg: ArchConfig, device=None) -> Transformer:
     return model
 
 
+def param_tree(model: Transformer) -> dict:
+    """The model's tensors as a nested dict (``{"embed", "final_ln",
+    "layers": [{"ln1", "attn": {...}, "mlp": {...}, "ln2"}, ...]}``), sharing
+    the module's storage; the model functions read either form."""
+    def node(mod):
+        out = {name: t.data for name, t in mod._parameters.items()}
+        for name, sub in mod._modules.items():
+            out[name] = [node(m) for m in sub] if isinstance(sub, nn.ModuleList) else node(sub)
+        return out
+
+    return node(model)
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -199,6 +220,22 @@ def forward(params, cfg: ArchConfig, tokens):
     return L.rms_norm(h, params["final_ln"], cfg.norm_eps), aux
 
 
+def forward_train(params, cfg: ArchConfig, tokens):
+    """:func:`forward` with gradients: -> (hidden (B, S, D), aux_loss).
+    With ``cfg.remat`` each layer keeps only its input for the backward and
+    runs again there (``torch.utils.checkpoint``, non-reentrant)."""
+    h = embed_tokens(params, cfg, tokens)
+    aux = 0.0
+    for lp in params["layers"]:
+        if cfg.remat:
+            h, a = checkpoint(lambda x, lp=lp: _block(lp, x, cfg, causal=True)[:2], h,
+                              use_reentrant=False)
+        else:
+            h, a, _caps = _block(lp, h, cfg, causal=True)
+        aux = aux + a
+    return L.rms_norm(h, params["final_ln"], cfg.norm_eps), aux
+
+
 def lm_head_weight(params, cfg):
     if cfg.tie_embeddings:
         return params["embed"].T
@@ -215,3 +252,42 @@ def logits_for(params, cfg, h):
         mask[cfg.vocab_size:] = 1e9
         out = out - mask
     return out
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _ce_chunk(hx, w, lx, vocab: int):
+    """Summed negative log-likelihood and token count of one chunk."""
+    logits = L.dense(hx, w).to(torch.float32)                  # (B, c, V)
+    mask = lx >= 0
+    lse = torch.logsumexp(logits[..., :vocab], dim=-1)
+    gold = torch.gather(logits, -1, lx.clamp(min=0).long()[..., None])[..., 0]
+    nll = torch.where(mask, lse - gold, 0.0)
+    return nll.sum(), mask.sum()
+
+
+def chunked_ce_loss(params, cfg: ArchConfig, h, labels, *, chunk: int = 512):
+    """Cross-entropy without materializing (B, S, V): ``chunk`` positions at
+    a time, each chunk's logits recomputed in the backward.  labels: (B, S),
+    -1 = ignore.  Returns (loss_sum, token_count)."""
+    s = h.shape[1]
+    c = min(chunk, s)
+    w = lm_head_weight(params, cfg)
+    loss = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    for i in range(0, s, c):
+        part, n = checkpoint(_ce_chunk, h[:, i:i + c], w, labels[:, i:i + c],
+                             cfg.vocab_size, use_reentrant=False)
+        loss = loss + part
+        cnt = cnt + n
+    return loss, cnt
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, aux_weight: float = 0.01):
+    """Scalar training loss of a batch dict (``tokens``, ``labels``)."""
+    h, aux = forward_train(params, cfg, batch["tokens"])
+    loss, cnt = chunked_ce_loss(params, cfg, h, batch["labels"])
+    loss = loss / torch.clamp(cnt.to(torch.float32), min=1.0)
+    return loss + aux_weight * aux / max(cfg.n_layers, 1)

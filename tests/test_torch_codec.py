@@ -398,8 +398,9 @@ def test_cpu_codec_launches_no_kernel():
     tops.reset_launch_counts()
     CPU.decompress(CPU.compress(_walk(5000), 1e-3))
     counts = tops.launch_counts()
-    assert {"encode", "decode_body", "bitshuffle", "bitshuffle_inverse", "unpack",
-            "unpack_dense", "planes_encode", "planes_decode", "flash_attention"} == set(counts)
+    assert {"encode", "decode_body", "block_stats", "pack", "bitshuffle",
+            "bitshuffle_inverse", "unpack", "unpack_dense", "planes_encode",
+            "planes_decode", "flash_attention"} == set(counts)
     assert set(counts.values()) == {0}
 
 

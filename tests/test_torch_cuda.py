@@ -491,3 +491,154 @@ def test_serving_launches_the_kernels(card, mode, planes):
     c_cache, _ = E.prefill(cpu, cfg, toks, seq_len=44, kv_mode=mode, num_planes=planes)
     want, _ = E.decode_step(cpu, cfg, c_cache, toks[:, -1:], kv_mode=mode, num_planes=planes)
     assert (logits.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the two-call encode (block_stats + pack) and the training slice
+# ---------------------------------------------------------------------------
+
+STATS = ("mu", "radius", "const", "reqlen", "shift", "nbytes")
+
+
+def _same_stats(a, b, where):
+    for name, x, y in zip(STATS, a, b):
+        if name == "radius":          # NaN bits are the card's; compare positions
+            assert torch.equal(torch.isnan(x), torch.isnan(y)), f"{where}: radius NaN"
+            keep = ~torch.isnan(x)
+            x, y = x[keep], y[keep]
+        assert _same(x, y), f"{where}: {name}"
+
+
+@pytest.mark.parametrize("spec", specs.SPECS, ids=lambda s: s.name)
+def test_two_call_kernels_match_plain_and_fused(card, spec):
+    """block_stats and pack against their plain versions (bs 1, 3, 128,
+    4096; NaN/inf, zeros of both signs, verbatim and constant blocks), the
+    two calls against the fused encode kernel, pack with shift = 0."""
+    from repro_torch.kernels import block_stats as bsk, pack as pk
+
+    zeros = torch.zeros(8 * 128, dtype=spec.dtype)
+    zeros[5::7] = -0.0
+    zeros[-128:] = -0.0
+    cases = [(_with_nonfinite(_walk(nb * bs, spec.dtype, seed=nb, dev=card)).reshape(nb, bs), e)
+             for nb, bs in ((4096, 128), (257, 1), (301, 3), (5, 4096))
+             for e in (1e-3, float(torch.finfo(spec.dtype).tiny))]
+    cases += [(torch.full((9, 128), 2.5, dtype=spec.dtype, device=card), 1e-3),
+              (zeros.reshape(8, 128).to(card), 1e-3),
+              (torch.zeros((0, 128), dtype=spec.dtype, device=card), 1e-3)]
+    for x, e in cases:
+        where = f"{spec.name} {tuple(x.shape)} e={e}"
+        p_e = specs.exact_exponent_of(e)
+        k = ops.block_stats(x, e, spec=spec)
+        _same_stats(k, bsk.block_stats_plain(x, e, spec, p_e), where)
+        mu, _r, const, reqlen, shift, nbytes = k
+        planes, L, mid = ops.pack(x, mu, shift, nbytes, spec=spec)
+        for name, a, b in zip(("planes", "L", "mid"), (planes, L, mid),
+                              pk.pack_plain(x, mu, shift, nbytes, spec)):
+            assert _same(a, b), f"{where}: pack {name}"
+        fused = encode.encode(x, e, p_e, spec=spec)
+        for name, a, b in zip(NAMES, fused, (mu, const, reqlen, shift, nbytes, planes,
+                                             L.to(torch.uint8))):
+            assert _same(a, b), f"{where}: fused {name}"
+        zero = torch.zeros_like(shift)
+        for name, a, b in zip(("planes", "L", "mid"), ops.pack(x, mu, zero, nbytes, spec=spec),
+                              pk.pack_plain(x, mu, zero, nbytes, spec)):
+            assert _same(a, b), f"{where}: pack shift=0 {name}"
+    counts = ops.launch_counts()
+    launched = sum(1 for x, _ in cases if x.shape[0])
+    assert counts["block_stats"] == launched and counts["pack"] == 2 * launched
+
+
+def test_two_call_wrappers_raise_when_a_launch_fails(card, monkeypatch):
+    from repro_torch.kernels import _build, block_stats as bsk, pack as pk
+
+    monkeypatch.setattr(_build, "function", lambda *a, **k: (lambda *args: 1))
+    monkeypatch.setattr(bsk, "block_stats_plain", None)
+    monkeypatch.setattr(pk, "pack_plain", None)
+    x = torch.zeros((4, 8), device=card)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.block_stats(x, 1e-3)
+    z = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops.pack(x, torch.zeros(4, device=card), z, z)
+    with pytest.raises(ValueError):
+        pk.pack(x, torch.zeros(3, device=card), z, z)
+    assert set(ops.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_autograd_on_card_matches_cpu(card, dtype):
+    """The forward kernel under autograd and the recomputing backward on the
+    card against the same on the CPU (the plain forward)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 300, 8, 64), generator=g)
+    k, v = (torch.randn((2, 300, 2, 64), generator=g) for _ in range(2))
+    do = torch.randn((2, 300, 8, 64), generator=g)
+    outs = {}
+    for dev in ("cpu", card):
+        ts = [t.to(dev, dtype).detach().requires_grad_() for t in (q, k, v)]
+        out = fa.FlashAttention.apply(*ts, True, 64)
+        out.backward(do.to(dev, dtype))
+        outs[str(dev)] = [out.detach().float().cpu()] + [t.grad.float().cpu() for t in ts]
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        assert (a - b).abs().max() <= tol * a.abs().max()
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+def test_compressed_train_step_and_checkpoint_round_trip(card, tmp_path):
+    """One compressed (P = 1) step of the reduced llama3.2-1b in a one-rank
+    NCCL group, then an SZx checkpoint of the state saved and restored on the
+    card: the kernels launch, the loss equals the CPU's, and every restored
+    leaf is within the bound (integer leaves exact)."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pytree
+    from repro_torch.core.codec import Bound
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamW
+    from repro_torch.train import step as step_mod
+
+    cfg = configs.get("llama3.2-1b").reduced()
+    opt = AdamW(lr=1e-3)
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 64, 4)).batch_at(0)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        losses = {}
+        for dev, group in (("cpu", dist.new_group([0], backend="gloo")), (card, None)):
+            state = step_mod.init_state(cfg, opt, torch.Generator().manual_seed(0),
+                                        ef_planes=1, device="cpu")
+            state = pytree.tree_map(lambda t: t.to(dev), state)
+            fn = step_mod.make_train_step(cfg, opt, group=group, compress_planes=1)
+            ops.reset_launch_counts()
+            state, m = fn(state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            losses[str(dev)] = float(m["loss"])
+        counts = ops.launch_counts()
+        assert counts["flash_attention"] == cfg.n_layers          # reduced: no remat
+        assert counts["planes_encode"] > 0 and counts["planes_decode"] > 0
+        assert abs(losses["cpu"] - losses[str(card)]) <= 1e-4 * abs(losses["cpu"])
+        bound = Bound.rel(1e-4)
+        ckpt = CheckpointManager(str(tmp_path), compress=True, bound=bound, device=card)
+        ops.reset_launch_counts()
+        ckpt.save(1, state)
+        back, step = ckpt.restore(state)
+        counts = ops.launch_counts()
+        assert step == 1 and counts["encode"] > 0 and counts["decode_body"] > 0
+        for (name, a), b in zip(pytree.leaf_paths(state), pytree.leaves(back)):
+            assert b.device == a.device and b.dtype == a.dtype and b.shape == a.shape, name
+            if not a.is_floating_point() or a.numel() < 1024:
+                assert torch.equal(a, b), name
+            else:
+                af = a.double()
+                e = 1e-4 * float(af.max() - af.min())
+                assert float((af - b.double()).abs().max()) <= e, name
+    finally:
+        dist.destroy_process_group()

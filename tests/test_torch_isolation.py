@@ -36,6 +36,12 @@ def test_import_loads_nothing_of_the_reference():
         "import repro_torch.configs, repro_torch.kernels.flash_attention\n"
         "import repro_torch.models.layers, repro_torch.models.transformer\n"
         "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.block_stats, repro_torch.kernels.pack\n"
+        "import repro_torch.core.pytree, repro_torch.core.codec.tree\n"
+        "import repro_torch.data, repro_torch.data.pipeline, repro_torch.optim\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.manager\n"
+        "import repro_torch.train.step, repro_torch.train.trainer\n"
+        "import repro_torch.launch.train\n"
         "repro_torch.configs.all_configs()\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
         "          and any(m == b or m.startswith(b + '.') for b in %r)]\n"
@@ -149,6 +155,31 @@ def test_model_refuses_to_run_without_a_card(monkeypatch):
         T.params_from_jax({}, cfg)
     model = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert model.embed.device.type == "cpu"
+
+
+def test_training_refuses_to_run_without_a_card(monkeypatch, tmp_path):
+    """The train launcher, the state, the checkpoint manager, the tree codec
+    and the compressed cache run on the card unless ``device``/``--device``
+    asks for the CPU; without a card they raise."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.codec.tree import TreeCodec
+    from repro_torch.data import CompressedInMemoryCache
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW
+    from repro_torch.train import step
+
+    cfg = configs.get("llama3.2-1b").reduced()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: train.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1",
+                                     "--ckpt", str(tmp_path / "c")]),
+                 lambda: step.init_state(cfg, AdamW(lr=1e-3), torch.Generator()),
+                 lambda: CheckpointManager(str(tmp_path / "m")),
+                 lambda: TreeCodec(),
+                 lambda: CompressedInMemoryCache()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert CheckpointManager(str(tmp_path / "m"), device="cpu").device.type == "cpu"
 
 
 def test_building_a_model_leaves_the_matmul_flags_alone():
