@@ -11,7 +11,8 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      started together), printing the build time;
   2. holds each kernel against its plain PyTorch version on the card, for
      f32/f64/f16/bf16, at the main path's frame shape (64 MiB frames,
-     bs=128), the store's chunk shape (2 MiB) and edge shapes (bs=1, bs=100
+     bs=128), the store's chunk shape (2 MiB) and edge shapes (bs=1 with
+     4,096 and 300,007 blocks, bs=100
      with a ragged last block, bs=4096, an all-constant input, a frame with
      every L = 0, verbatim blocks, NaN/inf blocks, blocks of zeros of both
      signs, and lo/rb/rebase block ranges) -- every output bit-identical:
@@ -38,7 +39,8 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      every kernel must have run on the main path;
   6. times each kernel (CUDA events, warmed up, --reps launches) and its
      plain version at the shape the main path launches it at, beside the
-     bound from bytes moved at 3.35 TB/s;
+     bound from bytes moved at 3.35 TB/s; decode_body's two launches (the
+     scan of the stored-byte counts and the gather) also apart;
   7. breaks one 64 MiB frame's compress and decompress into their stages
      (host clock, synchronized around each stage);
   8. drives the szx-planes gradient path at the full width of llama3.2-1b:
@@ -62,7 +64,8 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      the slab shapes; then the prefill and the first decode steps are held
      to forward over the same tokens, and the flash kernel is timed beside
      its plain version, scaled_dot_product_attention (a yardstick the port
-     never calls) and its bound; last, torch.profiler traces one prefill and
+     never calls), its bound and the bf16 route's floor with its 4 products;
+     last, torch.profiler traces one prefill and
      2 decode steps per mode: where the device time goes, and its busy share.
 
  10. drives the two-call encode (ops.block_stats, then ops.pack, then pack
@@ -326,6 +329,8 @@ def phase_kernels(gen):
         kernel_vs_plain(x, e, spec, 128,
                         ranges=((0, 1), (nb_frame // 3, nb_frame // 8), (nb_frame - 5, 5)))
         kernel_vs_plain(walk(4096, spec.dtype, gen), e, spec, 1, ranges=((17, 300),))
+        # bs 1 across many tiles of the decode's scan (2048 blocks a tile)
+        kernel_vs_plain(walk(300_007, spec.dtype, gen), e, spec, 1, ranges=((4095, 4099),))
         kernel_vs_plain(walk(100 * 1000 + 37, spec.dtype, gen), e, spec, 100,
                         ranges=((999, 2), (3, 40)))
         kernel_vs_plain(walk(4096 * 64, spec.dtype, gen, scale=0.1), e, spec, 4096,
@@ -657,6 +662,7 @@ def phase_timing(field, store, reps: int, seed: int):
     dec_ms = cuda_ms(lambda: dec_mod.decode_body(*args, spec=spec, bs=bs, rb=nb), reps)
     dec_plain_ms = cuda_ms(
         lambda: dec_mod.decode_body_plain(*args, spec, bs=bs, rb=nb), max(reps // 10, 3))
+    time_decode_launches(body, nnc, mu, shift, nbytes, rank, spec, nb, bs, reps)
     nbm = (nb + 7) // 8
     needed_body = body.numel() - (nbm + W * nb + nnc)      # L codes + mid bytes
     dec_bytes = needed_body + nb * (W + 12) + nb * bs * W + 8
@@ -703,6 +709,50 @@ def phase_timing(field, store, reps: int, seed: int):
             f"bound {bound_ms:.4f} ms ({nbytes_moved / 1e6:.3f} MB at 3.35 TB/s, "
             f"{bound_ms / ms * 100:.1f}% of the bound)")
     return rows
+
+
+def time_decode_launches(body, nnc, mu, shift, nbytes, rank, spec, nb, bs, reps):
+    """decode_body's two launches timed apart on a copy of the wrapper's call
+    (the same C entry points, arguments and scratch): the scan of the blocks'
+    stored-byte counts, with the zeroing of its tile status, and the gather."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build, decode as dec_mod
+
+    W = spec.itemsize
+    l_off = (nb + 7) // 8 + W * nb + nnc
+    mid_off = l_off + (nnc * bs + 3) // 4
+    c_ll, c_int, c_ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    scan = _build.function("decode", "szx_decode_scan",
+                           [c_ptr, c_ll, c_ll, c_int, c_ll] + [c_ptr] * 6)
+    gather = _build.function("decode", "szx_decode_gather",
+                             [c_int, c_ptr, c_ll, c_int] + [c_ll] * 4 + [c_int] + [c_ptr] * 7)
+    n_status = _build.function("decode", "szx_decode_status_len", dec_mod._STATUS_ARGTYPES)(nb, bs)
+    status = torch.zeros(n_status, dtype=torch.int64, device="cuda")
+    starts = torch.empty(nb, dtype=torch.int64, device="cuda")
+    total = torch.empty(1, dtype=torch.int64, device="cuda")
+    out = torch.empty((nb, bs), dtype=spec.dtype, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def do_scan():
+        status.zero_()
+        check(scan(body.data_ptr(), body.numel(), nb, bs, l_off, nbytes.data_ptr(),
+                   rank.data_ptr(), status.data_ptr(), starts.data_ptr(), total.data_ptr(),
+                   stream) == 0, "decode scan launch")
+
+    def do_gather():
+        check(gather(spec.code, body.data_ptr(), body.numel(), bs, l_off, mid_off, 0, nb, 0,
+                     mu.data_ptr(), shift.data_ptr(), nbytes.data_ptr(), rank.data_ptr(),
+                     starts.data_ptr(), out.data_ptr(), stream) == 0, "decode gather launch")
+
+    scan_ms = cuda_ms(do_scan, reps)
+    gather_ms = cuda_ms(do_gather, reps)
+    want, want_total = dec_mod.decode_body_plain(body, nnc, 0, mu, shift, nbytes, rank, spec,
+                                                 bs=bs, rb=nb)
+    check(same_bits(out, want) and int(total) == int(want_total),
+          "decode scan + gather, called apart, differ from the plain version")
+    log(f"time decode_body launches {spec.name} frame nb={nb} bs={bs}: scan (with its status "
+        f"zeroing) {scan_ms:.4f} ms, gather {gather_ms:.4f} ms")
 
 
 def time_planes(seed: int, reps: int):
@@ -1142,9 +1192,10 @@ def time_flash(gen, reps: int):
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms; "
         f"bound {bound_ms:.4f} ms ({flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16; "
         f"{nbytes / 1e6:.3f} MB at 3.35 TB/s takes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
-        f"{bound_ms / ms * 100:.1f}% of the bound; on the CUDA cores at 67 TFLOP/s float32 "
-        f"p @ v alone takes {flops / 2 / FP32_FLOPS * 1e3:.4f} ms, both products "
-        f"{flops / FP32_FLOPS * 1e3:.4f} ms")
+        f"{bound_ms / ms * 100:.1f}% of the bound; the bf16 route runs 4 products (q.k, and "
+        f"p @ v as three bf16 terms of p), {2 * flops / 1e9:.3f} GFLOP, whose floor at 989 "
+        f"TFLOP/s is {2 * flops / BF16_FLOPS * 1e3:.4f} ms; the float32 route's 2 products on "
+        f"the CUDA cores at 67 TFLOP/s take {flops / FP32_FLOPS * 1e3:.4f} ms")
     return ms, plain_ms, lib_ms, bound_ms
 
 

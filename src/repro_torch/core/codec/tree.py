@@ -44,7 +44,8 @@ STREAM_KIND = "szx-tree"
 _DTYPE_NAMES = {
     torch.float32: "float32", torch.float64: "float64", torch.float16: "float16",
     torch.bfloat16: "bfloat16", torch.int8: "int8", torch.int16: "int16",
-    torch.int32: "int32", torch.int64: "int64", torch.uint8: "uint8", torch.bool: "bool",
+    torch.int32: "int32", torch.int64: "int64", torch.uint8: "uint8", torch.uint16: "uint16",
+    torch.uint32: "uint32", torch.uint64: "uint64", torch.bool: "bool",
     torch.complex64: "complex64", torch.complex128: "complex128",
 }
 _BY_NAME = {v: k for k, v in _DTYPE_NAMES.items()}

@@ -1,12 +1,14 @@
 """Nested containers of tensors ("trees"), walked as the JAX package's
 pytrees are.
 
-A tree is a dict, list, tuple or NamedTuple of trees, or a leaf (a tensor,
-a numpy array or a number).  The walk order is ``jax.tree_util``'s: dict
-entries in sorted key order, sequences and NamedTuple fields in order.  A
-leaf's path names each step as jax's key paths print: a dict key as itself,
-a sequence index as its number, a NamedTuple field as ``.field`` -- so
-:func:`leaf_paths` gives the JAX package's leaf names for the same tree.
+A tree is a dict, list, tuple or NamedTuple of trees, ``None`` (a node with
+no children, as in ``jax.tree_util``: it yields no leaf and is rebuilt as
+``None``), or a leaf (a tensor, a numpy array or a number).  The walk order
+is ``jax.tree_util``'s: dict entries in sorted key order, sequences and
+NamedTuple fields in order.  A leaf's path names each step as jax's key
+paths print: a dict key as itself, a sequence index as its number, a
+NamedTuple field as ``.field`` -- so :func:`leaf_paths` gives the JAX
+package's leaf names for the same tree.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ def _is_namedtuple(x) -> bool:
 
 def _children(tree) -> list[tuple[str, Any]] | None:
     """(key, child) pairs of a container node, None for a leaf."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [(str(k), tree[k]) for k in sorted(tree)]
     if _is_namedtuple(tree):
@@ -31,6 +35,8 @@ def _children(tree) -> list[tuple[str, Any]] | None:
 def _rebuild(tree, children: list):
     """A node like ``tree`` holding ``children`` (in walk order); a dict
     keeps ``tree``'s key order."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         by_key = dict(zip(sorted(tree), children))
         return {k: by_key[k] for k in tree}

@@ -114,19 +114,26 @@ __device__ __forceinline__ U shfl_idx(U v, int src) {
 
 // Index propagation of one byte plane over a 32-value tile: the inclusive
 // running max of the fused key (idx*256 + byte, -1 where the value did not
-// store the plane) across the warp's lanes, then against `carry`, the last
-// key of the block's earlier tiles (updated here).  idx dominates, so the
-// surviving key carries the byte of the nearest preceding stored value.
-// Every lane of the warp must call it.
-__device__ __forceinline__ int max_scan(int key, int lane, int& carry) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int u = __shfl_up_sync(FULL, key, o);
-    if (lane >= o) key = max(key, u);
-  }
-  key = max(key, carry);
+// store the plane) across the lanes of `seg` -- this lane and the lanes below
+// it of the same block -- then against `carry`, the last key of the block's
+// earlier tiles (updated here), where `cont` says that the block began in an
+// earlier tile.  idx dominates, so the surviving key carries the byte of the
+// nearest preceding stored value; and since idx grows with the lane within a
+// block, the running max is the key of the highest lane of `seg` that holds
+// one: one ballot and one shuffle, not a scan.  Every lane of the warp must
+// call it.
+__device__ __forceinline__ int max_scan(int key, unsigned seg, int& carry, bool cont) {
+  const unsigned held = __ballot_sync(FULL, key >= 0) & seg;
+  const int got = __shfl_sync(FULL, key, held ? 31 - __clz(held) : 0);
+  key = held ? got : -1;
+  if (cont) key = max(key, carry);
   carry = __shfl_sync(FULL, key, 31);
   return key;
+}
+
+// The same over a tile that lies within one block: lanes 0..lane.
+__device__ __forceinline__ int max_scan(int key, int lane, int& carry) {
+  return max_scan(key, FULL >> (31 - lane), carry, true);
 }
 
 // A reassembled (shifted) word back to a value: shift back (kept at the

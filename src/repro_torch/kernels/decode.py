@@ -1,7 +1,8 @@
 """Fused SZx stream-body decode: CUDA kernel and its plain version.
 
-The kernel is ``csrc/decode.cu`` (Hopper, ``sm_90a``, three launches: block
-totals, their exclusive scan, gather + propagate + compose), which replaces
+The kernel is ``csrc/decode.cu`` (Hopper, ``sm_90a``, two launches: a
+one-pass scan of the blocks' stored-byte counts with a decoupled look-back
+across tiles, then gather + propagate + compose), which replaces
 the Pallas TPU kernel ``repro/kernels/decode.py::decode_body``.  The plain
 version is :func:`repro_torch.kernels.ref.decode_body_ref`.
 :func:`decode_body` takes the plain version for a CPU tensor only; a CUDA
@@ -25,6 +26,7 @@ _COUNT_LOCK = threading.Lock()
 _ARGTYPES = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
               ctypes.c_int] + [ctypes.c_longlong] * 4 + [ctypes.c_int]
              + [ctypes.c_void_p] * 9)
+_STATUS_ARGTYPES = [ctypes.c_longlong, ctypes.c_int]
 
 
 def _count_launch() -> None:
@@ -60,7 +62,8 @@ def decode_body(body: torch.Tensor, nnc: int, lo: int, mu, shift, nbytes, rank, 
     l_off = nbm + W * nb + nnc
     mid_off = l_off + (nnc * bs + 3) // 4
     dev = body.device
-    counts = torch.empty(nb, dtype=torch.int64, device=dev)
+    n_status = _build.function("decode", "szx_decode_status_len", _STATUS_ARGTYPES)(nb, bs)
+    status = torch.zeros(n_status, dtype=torch.int64, device=dev)   # the scan's tile status
     starts = torch.empty(nb, dtype=torch.int64, device=dev)
     mid_total = torch.empty(1, dtype=torch.int64, device=dev)
     out = torch.empty((rb, bs), dtype=spec.dtype, device=dev)
@@ -68,7 +71,7 @@ def decode_body(body: torch.Tensor, nnc: int, lo: int, mu, shift, nbytes, rank, 
     with torch.cuda.device(dev):
         rc = fn(spec.code, body.data_ptr(), body.numel(), nb, bs, l_off, mid_off,
                 lo, rb, int(rebase), mu.data_ptr(), shift.data_ptr(),
-                nbytes.data_ptr(), rank.data_ptr(), counts.data_ptr(),
+                nbytes.data_ptr(), rank.data_ptr(), status.data_ptr(),
                 starts.data_ptr(), mid_total.data_ptr(), out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc:

@@ -2,7 +2,11 @@
 
 The kernel is ``csrc/flash_attention.cu`` (Hopper, ``sm_90a``), which
 replaces the Pallas TPU kernel
-``repro/kernels/flash_attention.py::flash_attention_fwd``.  The plain version
+``repro/kernels/flash_attention.py::flash_attention_fwd``.  It has two
+routes, chosen here by dtype: bf16 inputs (serving and training) run on the
+tensor cores (``mma.sync`` bf16, p @ v as three bf16 terms of p), float32
+inputs on the CUDA cores (float32 products, which their tolerance needs).
+The plain version
 is :func:`repro_torch.kernels.ref.flash_attention_ref`, the online softmax of
 ``repro/models/layers.py::flash_attention``.  The wrapper takes the plain
 version for a CPU tensor only; a CUDA tensor launches the kernel or raises.
@@ -33,8 +37,10 @@ LAUNCHES = 0          # flash_attention() kernel launches since the last reset
 _COUNT_LOCK = threading.Lock()
 MAX_HEAD_DIM = 128
 MAX_GROUP = 64        # query heads per kv head: a block holds 64 (position, head) rows
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+# the kernel's entry point for each input type: tensor cores or CUDA cores
+_ROUTES = {torch.bfloat16: "szx_flash_attention_fwd_bf16",
+           torch.float32: "szx_flash_attention_fwd_f32"}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
@@ -49,7 +55,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on {q.device}")
-        if t.dtype not in _DTYPES or t.dtype != q.dtype:
+        if t.dtype not in _ROUTES or t.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {t.dtype}; the kernel takes "
                              "float32 or bfloat16, the same for q, k and v")
         if t.dim() != 4:
@@ -85,10 +91,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if b == 0 or sq == 0:                    # a grid of 0 is refused
         return out
-    fn = _build.function("flash_attention", "szx_flash_attention_fwd", _ARGTYPES)
+    fn = _build.function("flash_attention", _ROUTES[q.dtype], _ARGTYPES)
     dev = q.device
     with torch.cuda.device(dev):
-        rc = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, sq, skv, hq, hkv, hd, int(bool(causal)), int(window),
                 1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
     if rc:

@@ -36,7 +36,7 @@ def _one_rank_group(dev: torch.device) -> None:
                             init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=configs.ARCH_NAMES)
     ap.add_argument("--steps", type=int, default=100)
@@ -45,11 +45,15 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true", help="tiny same-family config")
     ap.add_argument("--grad-compress", type=int, default=0, metavar="P",
                     help="szx-planes planes per gradient value (0: off)")
-    ap.add_argument("--ckpt", required=True, help="checkpoint directory")
+    ap.add_argument("--ckpt", default="/tmp/repro_launch_ckpt", help="checkpoint directory")
     ap.add_argument("--ckpt-compress", action="store_true")
     ap.add_argument("--device", default=None, help="default: the card (raises without one)")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     dev = resolve_device(args.device, "repro_torch.launch.train")
     cfg = configs.get(args.arch)

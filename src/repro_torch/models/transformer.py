@@ -11,7 +11,7 @@ compute with the same weights.
 
 The families this slice carries are the attention-only ones (llama3.2-1b,
 h2o-danube-1.8b, stablelm-3b, yi-6b).  MoE, SSM/hybrid, encoder-decoder and
-VLM configurations raise ``NotImplementedError``: ROADMAP.md queue 1 item 13.
+VLM configurations raise ``NotImplementedError``: ROADMAP.md queue 1 item 6.
 
 Training: :func:`loss_fn` runs :func:`forward_train` (gradients enabled,
 each layer recomputed in the backward where ``cfg.remat`` is set, as the
@@ -68,10 +68,10 @@ class Transformer(Params):
             if getattr(cfg, field):
                 raise NotImplementedError(
                     f"{cfg.name}: the {family} family is not ported yet "
-                    "(ROADMAP.md queue 1 item 13)")
+                    "(ROADMAP.md queue 1 item 6)")
         if not cfg.n_heads or cfg.family == "ssm":
             raise NotImplementedError(f"{cfg.name}: attention-free models are not ported yet "
-                                      "(ROADMAP.md queue 1 item 13)")
+                                      "(ROADMAP.md queue 1 item 6)")
         device = resolve_device(device, "Transformer")
         self.cfg = cfg
         dt = param_dtype(cfg)

@@ -33,6 +33,7 @@ class TrainerConfig:
     max_restarts: int = 3
     straggler_factor: float = 3.0
     straggler_window: int = 32
+    log_every: int = 10               # configuration only, as in the reference
 
 
 class Trainer:

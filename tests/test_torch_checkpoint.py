@@ -141,6 +141,31 @@ def test_tree_walk_is_sorted_and_tree_map_keeps_the_callers_order():
         pytree.unflatten(tree, range(7))
 
 
+def test_none_is_an_empty_subtree_as_in_jax():
+    """None is a node with no children: it yields no leaf and is rebuilt."""
+    tree = {"a": 1, "b": None, "c": [None, 2, (None,)]}
+    assert pytree.leaf_paths(tree) == [("a", 1), ("c/1", 2)]
+    assert pytree.leaves(None) == []
+    assert pytree.tree_map(lambda x: 10 * x, tree) == {"a": 10, "b": None, "c": [None, 20, (None,)]}
+    assert pytree.unflatten(tree, [5, 6]) == {"a": 5, "b": None, "c": [None, 6, (None,)]}
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32, np.uint64])
+def test_unsigned_leaves_are_byte_identical(tmp_path, dtype):
+    import io
+
+    port, ref = _codecs()
+    tree = {"u": np.arange(3000).astype(dtype), "w": _tree(0)["w"]}
+    a, b = io.BytesIO(), io.BytesIO()
+    pm = port.compress_tree(tree, a)
+    rm = ref.compress_tree(tree, b)
+    assert a.getvalue() == b.getvalue() and pm == rm
+    b.seek(0)
+    back = port.decompress_tree(b)["u"]
+    assert back.dtype == getattr(torch, np.dtype(dtype).name)
+    assert _same(back, tree["u"])
+
+
 def test_tree_leaves_may_be_tensors():
     import io
 
@@ -182,6 +207,24 @@ def test_checkpoint_files_byte_identical_and_cross_restore(tmp_path, compress):
     assert pm.stats() == rm.stats()
     if compress:
         assert pm.stats()["ratio"] > 1.5
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_checkpoint_of_a_tree_with_none_cross_restores(tmp_path, compress):
+    w = (np.cumsum(np.random.default_rng(5).standard_normal(4096)) * 0.01).astype(np.float32)
+    tree = {"a": w, "b": None}
+    kw = dict(compress=compress, chunk_bytes=1 << 14)
+    pm = CheckpointManager(str(tmp_path / "p"), device="cpu", bound=Bound.rel(1e-3), **kw)
+    rm = RManager(str(tmp_path / "r"), bound=RBound.rel(1e-3), **kw)
+    pm.save(1, tree)
+    rm.save(1, tree)
+    assert (tmp_path / "p" / "step_000000001" / "tree.szt").read_bytes() == \
+        (tmp_path / "r" / "step_000000001" / "tree.szt").read_bytes()
+    mine, step = CheckpointManager(str(tmp_path / "r"), device="cpu").restore(tree)
+    theirs, rstep = RManager(str(tmp_path / "p")).restore(tree)
+    assert step == rstep == 1
+    assert mine["b"] is None and theirs["b"] is None
+    assert _same(mine["a"], theirs["a"])
 
 
 def test_checkpoint_keep_k_latest_and_uncommitted(tmp_path):

@@ -74,18 +74,76 @@ def test_encode_kernel_matches_plain(card, spec):
     assert ops.launch_counts()["encode"] == 2 * len(shapes)
 
 
+def _block_starts(body, nnc, nbytes, rank, bs, itemsize):
+    """Each block's first mid byte and the body's mid section offset, from
+    the L codes as the plain version reads them."""
+    nb = rank.numel()
+    l_off = (nb + 7) // 8 + itemsize * nb + nnc
+    pos = rank.long()[:, None] * bs + torch.arange(bs, device=body.device)
+    code = (body[(l_off + pos // 4).clamp(0, body.numel() - 1)].long() >> ((pos % 4) * 2)) & 3
+    counts = (nbytes.long()[:, None] - torch.where(rank[:, None] >= 0, code, 0)).clamp(min=0)
+    counts = counts.sum(1)
+    return torch.cumsum(counts, 0) - counts, l_off + (nnc * bs + 3) // 4
+
+
+# (n, bs); the last four cross many tiles of the decode's scan (256 blocks of
+# 128, 2048 of 1): the 64 MiB f32 frame's 131,072 blocks, bs 1 with ~300,000
+# blocks, and nb just below and above a tile boundary
+DECODE_SHAPES = ((100_003, 128), (3000, 1), (20_037, 100), (4096 * 9, 4096),
+                 (131_072 * 128, 128), (300_007, 1), (767 * 128, 128), (769 * 128 - 5, 128))
+
+
 @pytest.mark.parametrize("spec", specs.SPECS, ids=lambda s: s.name)
 def test_decode_kernel_matches_plain(card, spec):
-    for n, bs in ((100_003, 128), (3000, 1), (20_037, 100), (4096 * 9, 4096)):
-        buf = SZxCodec(bs, "cpu").compress(_with_nonfinite(_walk(n, spec.dtype, seed=n)), 1e-3)
+    for n, bs in DECODE_SHAPES:
+        x = _with_nonfinite(_walk(n, spec.dtype, seed=n))
+        codec = SZxCodec(bs) if n > 1_000_000 else SZxCodec(bs, "cpu")   # the same bytes
+        buf = codec.compress(x.to(card) if n > 1_000_000 else x, 1e-3)
         nb = -(-n // bs)
         nnc = container.HEADER.unpack_from(buf, 0)[7]
-        body = torch.frombuffer(bytearray(buf[container.HEADER.size:]), dtype=torch.uint8)
-        meta = ref.parse_body_ref(body.to(card), nnc, spec, nb)[1:5]
+        body = torch.frombuffer(bytearray(buf[container.HEADER.size:]), dtype=torch.uint8).to(card)
+        meta = ref.parse_body_ref(body, nnc, spec, nb)[1:5]
+        full = None
         for lo, rb in ((0, nb), (nb // 2, nb - nb // 2), (nb - 1, 1)):
-            kv, kt = decode.decode_body(body.to(card), nnc, lo, *meta, spec=spec, bs=bs, rb=rb)
-            pv, pt = decode.decode_body_plain(body.to(card), nnc, lo, *meta, spec, bs=bs, rb=rb)
+            kv, kt = decode.decode_body(body, nnc, lo, *meta, spec=spec, bs=bs, rb=rb)
+            pv, pt = decode.decode_body_plain(body, nnc, lo, *meta, spec, bs=bs, rb=rb)
             assert _same(kv, pv) and int(kt) == int(pt), (spec.name, n, bs, lo, rb)
+            full = kv if full is None else full
+        # a store ROI read: the body's mid section starts at block lo's first byte
+        starts, mid_off = _block_starts(body, nnc, meta[2], meta[3], bs, spec.itemsize)
+        lo, rb = nb // 3, max(1, nb // 8)
+        a = int(starts[lo])
+        b = int(starts[lo + rb]) if lo + rb < nb else body.numel() - mid_off
+        rbody = torch.cat([body[:mid_off], body[mid_off + a: mid_off + b]])
+        kv, kt = decode.decode_body(rbody, nnc, lo, *meta, spec=spec, bs=bs, rb=rb, rebase=True)
+        pv, pt = decode.decode_body_plain(rbody, nnc, lo, *meta, spec, bs=bs, rb=rb, rebase=True)
+        assert _same(kv, pv) and int(kt) == int(pt), (spec.name, n, bs, "rebase", lo, rb)
+        assert _same(kv, full[lo:lo + rb]), (spec.name, n, bs, "rebase vs full", lo, rb)
+
+
+@pytest.mark.parametrize("spec", specs.SPECS, ids=lambda s: s.name)
+def test_decode_kernel_matches_plain_on_corrupt_bodies(card, spec):
+    """Metadata and L codes that no encoder writes -- stored-byte counts past
+    the dtype width, zeroed L codes that push the mid offsets past the body's
+    end -- decode as the plain version decodes them (every read clamped to
+    the body), and the measured total says so."""
+    n, bs = 20_000, 128
+    buf = SZxCodec(bs, "cpu").compress(_walk(n, spec.dtype, seed=7), 1e-3)
+    nb = -(-n // bs)
+    nnc = container.HEADER.unpack_from(buf, 0)[7]
+    body = torch.frombuffer(bytearray(buf[container.HEADER.size:]), dtype=torch.uint8).to(card)
+    mu, shift, nbytes, rank = ref.parse_body_ref(body, nnc, spec, nb)[1:5]
+    wide = nbytes.clone()
+    wide[3::7] = spec.itemsize + 3                  # more stored bytes than the width
+    l_off = (nb + 7) // 8 + spec.itemsize * nb + nnc
+    zeroed = body.clone()
+    zeroed[l_off: l_off + (nnc * bs + 3) // 4] = 0   # every value stores every byte
+    for bod, nbt in ((body, wide), (zeroed, nbytes), (zeroed, wide)):
+        for lo, rb in ((0, nb), (nb // 3, 9)):
+            kv, kt = decode.decode_body(bod, nnc, lo, mu, shift, nbt, rank, spec=spec, bs=bs, rb=rb)
+            pv, pt = decode.decode_body_plain(bod, nnc, lo, mu, shift, nbt, rank, spec, bs=bs, rb=rb)
+            assert _same(kv, pv) and int(kt) == int(pt), (spec.name, lo, rb)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("workers", [1, 2])
@@ -397,12 +455,14 @@ def test_wrappers_raise_when_a_launch_fails(card, monkeypatch):
 # ---------------------------------------------------------------------------
 
 # (B, Sq, Hq, Hkv, hd, causal, window, Skv): the shapes of tests/test_torch_flash.py,
-# unaligned S, GQA groups 1..6 and 32, and the configs' head dims 64, 80, 128
+# unaligned S, GQA groups 1..6 and 32, the configs' head dims 64, 80, 128, and
+# llama3.2-1b's prefill length (causal and a window of 512)
 FLASH_CASES = [(2, 64, 4, 2, 32, True, 0, 64), (2, 96, 2, 1, 16, True, 16, 96),
                (2, 128, 8, 8, 8, False, 0, 128), (1, 50, 4, 2, 16, True, 0, 50),
                (2, 48, 6, 1, 16, True, 8, 48), (1, 40, 4, 2, 32, False, 0, 77),
                (1, 300, 32, 8, 64, True, 0, 300), (2, 257, 32, 32, 80, True, 0, 257),
-               (1, 333, 32, 4, 128, True, 100, 333), (1, 200, 32, 1, 64, False, 37, 200)]
+               (1, 333, 32, 4, 128, True, 100, 333), (1, 200, 32, 1, 64, False, 37, 200),
+               (1, 2048, 32, 8, 64, True, 0, 2048), (1, 2048, 32, 8, 64, True, 512, 2048)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -434,31 +494,36 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
                 torch.zeros((1, 8, hkv, hd), dtype=dtype, device=card),
                 torch.zeros((1, 8, hkv, hd), dtype=dtype, device=card))
 
-    for hd in (12, 136):
-        with pytest.raises(ValueError, match="head_dim"):
-            fa.flash_attention(*qkv(hd=hd))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.flash_attention(*qkv(dtype=torch.float16))
-    q, k, v = qkv()
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        fa.flash_attention(q, k.float(), v)
-    with pytest.raises(ValueError, match="not contiguous"):
-        fa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
-    with pytest.raises(ValueError, match="kv heads"):
-        fa.flash_attention(*qkv(hq=6, hkv=4))
-    with pytest.raises(ValueError, match="on cpu"):
-        fa.flash_attention(q, k.cpu(), v)
+    for dtype, other in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        for hd in (12, 136):
+            with pytest.raises(ValueError, match="head_dim"):
+                fa.flash_attention(*qkv(hd=hd, dtype=dtype))
+        q, k, v = qkv(dtype=dtype)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            fa.flash_attention(q, k.to(other), v)
+        with pytest.raises(ValueError, match="not contiguous"):
+            fa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
+        with pytest.raises(ValueError, match="kv heads"):
+            fa.flash_attention(*qkv(hq=6, hkv=4, dtype=dtype))
+        with pytest.raises(ValueError, match="on cpu"):
+            fa.flash_attention(q, k.cpu(), v)
     assert ops.launch_counts()["flash_attention"] == 0
 
 
 def test_flash_attention_wrapper_raises_when_a_launch_fails(card, monkeypatch):
     from repro_torch.kernels import _build, flash_attention as fa
 
-    monkeypatch.setattr(_build, "function", lambda *a, **k: (lambda *args: 1))
+    asked = []
+    monkeypatch.setattr(_build, "function",
+                        lambda lib, name, argtypes: asked.append(name) or (lambda *args: 1))
     monkeypatch.setattr(fa, "flash_attention_plain", None)
-    q = torch.zeros((1, 8, 4, 16), device=card)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        fa.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 8, 4, 16), dtype=dtype, device=card)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    assert asked == ["szx_flash_attention_fwd_f32", "szx_flash_attention_fwd_bf16"]
     assert ops.launch_counts()["flash_attention"] == 0
 
 

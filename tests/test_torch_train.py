@@ -398,3 +398,16 @@ def json_manifest(root):
     import json
 
     return json.loads((root / "step_000000002" / "MANIFEST.json").read_text())
+
+
+def test_trainer_config_and_launcher_defaults_match_the_reference():
+    from repro.train.trainer import TrainerConfig as RTrainerConfig
+    from repro_torch.launch import train
+    from repro_torch.train.trainer import TrainerConfig
+
+    cfg = TrainerConfig(total_steps=2, log_every=20)
+    assert cfg.log_every == 20 and TrainerConfig(total_steps=2).log_every == 10
+    assert [(f.name, f.default) for f in dataclasses.fields(TrainerConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(RTrainerConfig)]
+    args = train.build_parser().parse_args(["--arch", "llama3.2-1b"])
+    assert args.ckpt == "/tmp/repro_launch_ckpt"        # the reference's default
