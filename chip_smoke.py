@@ -52,7 +52,7 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      then compressed_ppermute on a ring of one, compressed_all_to_all on
      one rank, and pipeline_apply with compressed shifts on one stage
      (8 microbatches of hidden states).  Launch counters are zeroed just before this phase and read
-     after it: both planes kernels must have run.
+     after it: both planes kernels must have run, on the vector route.
 
   9. serves llama3.2-1b at full width and depth (16 layers, d_model 2048, 32
      query and 8 kv heads of 64, d_ff 8192, vocab 128256; float32 weights
@@ -88,9 +88,13 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      on the card through the decode kernel (every leaf within the bound of
      the saved one) and replays step 4.
 
-Phase 2 also holds the planes kernels against their plain versions (P = 1,
-2, 3; bs 1, 3, 64, 128, 4096; leading dims; nb = 0; edge blocks; random
-records), and phase 6 times them on the embed gradient's shape; the flash
+Phase 2 also holds the planes kernels against their plain versions on both
+routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
+nb = 0; edge blocks; a view one float off and planes one byte off; random
+records with sexp read as int32, int16 and int8), and phase 6 times them on
+the embed gradient's shape at P = 1 and 2, each beside the scalar route, and
+at the serving shapes; phases 8, 9 and 11 check through the per-route
+counters that every planes launch took the vector route; the flash
 kernel is held to its plain version right after (llama3.2-1b's prefill
 shape, a window, unaligned S, hd 80 and 128, float32).
 
@@ -139,6 +143,7 @@ SOURCES = {          # kernel -> (its source, the TPU kernel it replaces)
 CODEC_KERNELS = ("encode", "decode_body", "bitshuffle", "bitshuffle_inverse", "unpack",
                  "unpack_dense")
 PLANES_KERNELS = ("planes_encode", "planes_decode")
+PLANES_BS = (1, 3, 4, 6, 8, 16, 32, 64, 128, 4096)   # phase 2: both routes of the planes kernels
 TWO_CALL_KERNELS = ("block_stats", "pack")
 STORE_CHUNK_BYTES = 2 << 20        # the store's default chunk (store/grid.py)
 
@@ -188,6 +193,29 @@ def walk(n, dtype, gen, scale=0.01):
 
     steps = torch.randn(n, dtype=torch.float64, device="cuda", generator=gen)
     return (torch.cumsum(steps, 0) * scale).to(dtype)
+
+
+def ptxas_registers(log_text: str) -> str:
+    """'kernel<template args>: N (spills S B)' for each entry function in
+    the output of an ``nvcc -Xptxas -v`` build."""
+    import re
+
+    types = {"a": "int8", "s": "int16", "i": "int32"}
+    out, name = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:I((?:Li\d+E|[asi])+)E)?", m.group(1))
+            args = re.findall(r"Li(\d+)E|([asi])", k.group(2) or "") if k else []
+            targs = ",".join(a or types[t] for a, t in args)
+            name = (k.group(1) if k else m.group(1)) + (f"<{targs}>" if targs else "")
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and name:
+            out.append([name, None, int(spill.group(1))])
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and out and out[-1][0] == name and out[-1][1] is None:
+            out[-1][1] = int(regs.group(1))
+    return "; ".join(f"{n}: {r} (spills {sp} B)" for n, r, sp in out)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -757,23 +785,76 @@ def time_decode_launches(body, nnc, mu, shift, nbytes, rank, spec, nb, bs, reps)
 
 def time_planes(seed: int, reps: int):
     """planes_encode / planes_decode at the shape the gradient path launches
-    them on its largest-row leaf: llama3.2-1b's embed gradient (128256 x 2048
-    f32), P = 1, block 64."""
+    them on its largest-row leaf, llama3.2-1b's embed gradient (128256 x 2048
+    f32, block 64), at P = 1 (the kernels line) and P = 2, each beside the
+    scalar route at the same shape (the warp-per-block kernels, called
+    through their C entry points: vector, scalar, vector); then at the
+    serving shapes, as the wrapper is called there: a decode step's K or V
+    encode (4, 8, 64) and cache chunk decodes (4, 2048, 8, 64) and
+    (4, 64, 8, 64) with the cache's int8 sexp."""
     import torch
-    from repro_torch.kernels import planes as pk
+    from repro_torch.kernels import _build, planes as pk, ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows, d = LLAMA_1B_GRADS["embed"]
     xb = (torch.randn((rows, d), device="cuda", generator=gen) * 1e-3).reshape(rows, -1, GRAD_BLOCK)
     n, nb = xb.numel(), xb.numel() // GRAD_BLOCK
-    enc = pk.planes_encode(xb, 1)
-    moved = n * 4 + n * 1 + nb * 8          # f32 values, one plane, mu + int32 sexp
-    where = f"embed gradient {rows}x{d} P=1 block {GRAD_BLOCK}"
+    tab = ref.planes_scale_table("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    enc_scalar = _build.function("planes", "szx_planes_encode_scalar", pk._ENCODE_ARGTYPES)
+    dec_scalar = _build.function("planes", "szx_planes_decode_scalar", pk._DECODE_ARGTYPES)
     out = []
-    for name, fn, plain in (
-            ("planes_encode", lambda: pk.planes_encode(xb, 1), lambda: pk.planes_encode_plain(xb, 1)),
-            ("planes_decode", lambda: pk.planes_decode(*enc), lambda: pk.planes_decode_plain(*enc))):
-        out.append((name, where, cuda_ms(fn, reps), cuda_ms(plain, max(reps // 10, 3)), moved))
+    for P in (1, 2):
+        mu, sexp, planes = enc = pk.planes_encode(xb, P)
+        smu, ssexp, splanes = torch.empty_like(mu), torch.empty_like(sexp), torch.empty_like(planes)
+        sout = torch.empty_like(xb)
+
+        def encode_scalar():
+            check(enc_scalar(xb.data_ptr(), nb, GRAD_BLOCK, P, tab.data_ptr(), smu.data_ptr(),
+                             ssexp.data_ptr(), splanes.data_ptr(), stream) == 0,
+                  "scalar planes encode launch")
+
+        def decode_scalar():
+            check(dec_scalar(mu.data_ptr(), sexp.data_ptr(), 4, planes.data_ptr(), nb,
+                             GRAD_BLOCK, P, tab.data_ptr(), sout.data_ptr(), stream) == 0,
+                  "scalar planes decode launch")
+
+        moved = n * 4 + n * P + nb * 8          # f32 values, P planes, mu + int32 sexp
+        where = f"embed gradient {rows}x{d} P={P} block {GRAD_BLOCK}"
+        check(pk.encode_route(xb) == "vector", f"{where}: not the vector route")
+        for name, fn, plain, scalar in (
+                ("planes_encode", lambda: pk.planes_encode(xb, P),
+                 lambda: pk.planes_encode_plain(xb, P), encode_scalar),
+                ("planes_decode", lambda: pk.planes_decode(*enc),
+                 lambda: pk.planes_decode_plain(*enc), decode_scalar)):
+            ms, scalar_ms, ms_again = cuda_ms(fn, reps), cuda_ms(scalar, reps), cuda_ms(fn, reps)
+            plain_ms = cuda_ms(plain, max(reps // 10, 3))
+            bound_ms = moved / HBM_BYTES_PER_S * 1e3
+            log(f"time {name} {where} by route: vector {ms:.4f} / {ms_again:.4f} ms, scalar "
+                f"{scalar_ms:.4f} ms ({scalar_ms / ms:.2f}x), plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_ms / ms * 100:.1f}% of it)")
+            if P == 1:
+                out.append((name, where, ms, plain_ms, moved))
+        torch.cuda.synchronize()
+        check(same_bits(smu, mu) and same_bits(ssexp, sexp) and same_bits(splanes, planes)
+              and same_bits(sout, pk.planes_decode(*enc)), f"{where}: the routes differ")
+        del enc, mu, sexp, planes, smu, ssexp, splanes, sout
+    del xb
+    for P in (1, 2):
+        x = torch.randn((4, 8, 64), device="cuda", generator=gen)
+        m = x.numel()
+        ms = cuda_ms(lambda: pk.planes_encode(x, P), reps * 4)
+        bound_ms = (m * 4 + m * P + m // 64 * 8) / HBM_BYTES_PER_S * 1e3
+        log(f"time planes_encode serving (4, 8, 64) P={P} (a wrapper call, host included): "
+            f"{ms:.4f} ms, bound {bound_ms:.6f} ms")
+        for shape in ((4, 2048, 8, 64), (4, 64, 8, 64)):
+            mu, sexp, planes = pk.planes_encode(torch.randn(shape, device="cuda", generator=gen), P)
+            s8 = sexp.clamp(-127, 127).to(torch.int8)
+            m = planes[0].numel()
+            ms = cuda_ms(lambda: pk.planes_decode(mu, s8, planes), reps * 4)
+            bound_ms = (m * P + m // 64 * 5 + m * 4) / HBM_BYTES_PER_S * 1e3
+            log(f"time planes_decode serving {shape} P={P} int8 sexp (a wrapper call, host "
+                f"included): {ms:.4f} ms, bound {bound_ms:.6f} ms")
     return out
 
 
@@ -892,6 +973,13 @@ def planes_edge_blocks(bs: int = 8):
     return torch.tensor(rows, dtype=torch.float32, device="cuda")
 
 
+def check_vector_route(path: str, routes: dict) -> None:
+    """Every planes launch of a main path took the vector route."""
+    for k in PLANES_KERNELS:
+        check(routes[f"{k}_vector"] > 0 and routes[f"{k}_scalar"] == 0,
+              f"{path}: {k} launches by route {routes}")
+
+
 def planes_both(x, P):
     """Kernel and plain planes encode of ``x`` and decode of the result;
     asserts bit identity of all four outputs."""
@@ -917,12 +1005,15 @@ def planes_decode_both(mu, sexp, planes):
 
 
 def phase_planes_kernels(gen):
-    """planes_encode / planes_decode against their plain versions."""
+    """planes_encode / planes_decode against their plain versions, on both
+    routes (kernels/planes.py ``route``), with sexp at each stored width."""
     import torch
+    from repro_torch.kernels import ops, planes as pk
 
     t0 = time.perf_counter()
+    before = ops.planes_route_counts()
     cases = []
-    for bs in (1, 3, 64, 128, 4096):
+    for bs in PLANES_BS:
         nb = (1 << 22) // bs
         scale = torch.exp2(torch.randint(-40, 40, (nb, 1), device="cuda", generator=gen).float())
         cases.append(torch.randn((nb, bs), device="cuda", generator=gen) * scale)
@@ -931,10 +1022,20 @@ def phase_planes_kernels(gen):
     cases += [planes_edge_blocks(), planes_edge_blocks(64)]
     base = 1.0 + torch.rand((2000, 1), device="cuda", generator=gen)            # sexp >= 127
     cases.append(base + torch.randint(0, 3, (2000, 16), device="cuda", generator=gen) * 2.0 ** -23 * base)
+    flat = torch.randn((1 << 16) * 64 + 1, device="cuda", generator=gen)
+    off = flat[1:].reshape(-1, 64)                      # one float off 16 bytes
+    check(pk.encode_route(off) == "scalar", "a view one float off takes the scalar route")
+    cases.append(off)
     for x in cases:
         for P in (1, 2, 3):
-            planes_both(x, P)
-    nb, bs = 1 << 16, 64
+            mu, sexp, planes = planes_both(x, P)
+            if x.numel() and x is off:                  # planes one byte off: scalar decode
+                buf = torch.empty(planes.numel() + 1, dtype=torch.uint8, device="cuda")
+                shifted = buf[1:].view(planes.shape)
+                shifted.copy_(planes)
+                check(pk.decode_route(shifted) == "scalar", "planes one byte off: scalar route")
+                planes_decode_both(mu, sexp, shifted)
+    nb = 1 << 16
     mu = torch.randn(nb, device="cuda", generator=gen) * torch.exp2(
         torch.randint(-140, 127, (nb,), device="cuda", generator=gen).float())
     mu[::97], mu[1::101], mu[2::103], mu[3::107] = float("nan"), float("inf"), 1e-40, -0.0
@@ -942,13 +1043,23 @@ def phase_planes_kernels(gen):
     edges = torch.tensor([-128, -127, -126, -125, 125, 126, 127, 128, 0, 2 ** 31 - 1, -2 ** 31],
                          dtype=torch.int32, device="cuda")
     sexp[::5] = edges.repeat(nb // 50 + 1)[: len(sexp[::5])]
-    for P in (1, 2, 3):
-        planes_decode_both(mu, sexp, torch.randint(0, 256, (P, nb, bs), dtype=torch.uint8,
-                                            device="cuda", generator=gen))
+    narrow = {torch.int32: sexp, torch.int16: sexp.clamp(-2 ** 15, 2 ** 15 - 1).to(torch.int16),
+              torch.int8: sexp.clamp(-128, 127).to(torch.int8)}
+    for bs in (64, 3):
+        for P in (1, 2, 3):
+            planes = torch.randint(0, 256, (P, nb, bs), dtype=torch.uint8, device="cuda",
+                                   generator=gen)
+            for s in narrow.values():                   # each width read as stored
+                planes_decode_both(mu, s, planes)
     torch.cuda.synchronize()
-    log(f"planes kernels vs plain: bit-identical for P = 1, 2, 3 at bs = 1, 3, 64, 128, 4096 "
-        f"(2^22 values each), leading dims, nb = 0, edge blocks, and random records with "
-        f"sexp at +-127 and beyond ({time.perf_counter() - t0:.1f} s)")
+    routes = {k: v - before[k] for k, v in ops.planes_route_counts().items()}
+    for k, n in routes.items():
+        check(n > 0, f"phase 2 never launched {k}")
+    log(f"planes kernels vs plain: bit-identical for P = 1, 2, 3 at bs = "
+        f"{', '.join(map(str, PLANES_BS))} (2^22 values each), leading dims, nb = 0, edge "
+        f"blocks, a view one float off and planes one byte off (scalar route), and random "
+        f"records with sexp at +-127 and beyond, read as int32, int16 and int8; launches by "
+        f"route {routes} ({time.perf_counter() - t0:.1f} s)")
 
 
 def free_port() -> int:
@@ -1561,7 +1672,7 @@ def phase_train(args):
             torch.cuda.reset_peak_memory_stats()
             (state, m), t_warm = timed(lambda: fn(state, train_batch(ds, 0)))
             losses, times = [float(m["loss"])], []
-            before = ops.launch_counts()
+            before, routes_before = ops.launch_counts(), ops.planes_route_counts()
             for s in range(1, TRAIN_STEPS + 1):
                 batch = train_batch(ds, s)
                 (state, m), t = timed(lambda: fn(state, batch))
@@ -1578,6 +1689,8 @@ def phase_train(args):
             if P:
                 for k in PLANES_KERNELS:
                     check(after[k] > before[k], f"{mode}: {k} not launched")
+                check_vector_route(f"train {mode}", {
+                    k: v - routes_before[k] for k, v in ops.planes_route_counts().items()})
             results[P] = times
             log(f"train {TRAIN_ARCH} {mode}: state {nbytes / 1e9:.2f} GB made in {t_init:.2f} s; "
                 f"first step {t_warm * 1e3:.1f} ms; steps "
@@ -1740,6 +1853,8 @@ def main() -> int:
     built = _build.build()
     log(f"build: {', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc {' '.join(_build.NVCC_FLAGS)})")
+    if "planes" in _build.LOGS:
+        log(f"planes kernels, registers a thread (ptxas -v): {ptxas_registers(_build.LOGS['planes'])}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernels(gen)
@@ -1763,9 +1878,10 @@ def main() -> int:
     ops.reset_launch_counts()
     step_s = phase_gradient(args)
     grad_launches = {k: v for k, v in ops.launch_counts().items() if k in PLANES_KERNELS}
-    log(f"gradient path launches: {grad_launches}")
+    log(f"gradient path launches: {grad_launches}; by route {ops.planes_route_counts()}")
     for name, n in grad_launches.items():
         check(n > 0, f"kernel {name} was not launched on the gradient path")
+    check_vector_route("gradient path", ops.planes_route_counts())
     launches.update(grad_launches)
     n = sum(math.prod(shape) for _, shape in leaves(LLAMA_1B_GRADS))
     for P, times in step_s.items():
@@ -1781,9 +1897,10 @@ def main() -> int:
     model, cfg, prompts, runs = phase_serve(args)
     serve_launches = {k: v for k, v in ops.launch_counts().items()
                       if k in PLANES_KERNELS + ("flash_attention",)}
-    log(f"serving path launches: {serve_launches}")
+    log(f"serving path launches: {serve_launches}; by route {ops.planes_route_counts()}")
     for name, n in serve_launches.items():
         check(n > 0, f"kernel {name} was not launched on the serving path")
+    check_vector_route("serving path", ops.planes_route_counts())
     launches["flash_attention"] = serve_launches["flash_attention"]
     check_serve(model, cfg, prompts, runs)
     _, t_prof = timed(lambda: profile_serve(model, cfg, prompts))

@@ -10,7 +10,9 @@ Flags: ``sm_90a`` (Hopper); ``--fmad=false`` because the codec's float steps
 must round exactly as numpy does (a fused multiply-add rounds once where the
 reference rounds twice); no ``--use_fast_math``, which would flush the
 subnormals the exponent rule relies on.  ``flash_attention``, held to a
-tolerance, writes its products as explicit ``__fmaf_rn``.
+tolerance, writes its products as explicit ``__fmaf_rn``.  ``-Xptxas -v``
+makes each build report its kernels' registers, shared memory and spills;
+:data:`LOGS` keeps that output per source.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("encode", "decode", "bitshuffle", "unpack", "planes", "flash_attention",
            "block_stats", "pack")
@@ -35,6 +37,7 @@ SOURCES = ("encode", "decode", "bitshuffle", "unpack", "planes", "flash_attentio
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[tuple[str, str], object] = {}
+LOGS: dict[str, str] = {}          # source -> the compiler's output of its last build
 
 
 def nvcc() -> str:
@@ -87,6 +90,7 @@ def _build_locked(names) -> dict[str, float]:
         if proc.returncode:
             errors.append(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{log}")
         else:
+            LOGS[name] = log
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))

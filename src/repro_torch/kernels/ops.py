@@ -113,9 +113,11 @@ def planes_encode(xb, num_planes: int):
 
 def planes_decode(mu, sexp, planes):
     """Inverse of :func:`planes_encode` -> (..., bs) float32 (any integer
-    sexp dtype)."""
-    return planes_mod.planes_decode(mu.to(torch.float32), sexp.to(torch.int32),
-                                    planes.to(torch.uint8))
+    sexp dtype; int8, int16 and int32 go to the kernel as they are, with no
+    cast launch)."""
+    if sexp.dtype not in planes_mod.SEXP_DTYPES:
+        sexp = sexp.to(torch.int32)
+    return planes_mod.planes_decode(mu.to(torch.float32), sexp, planes.to(torch.uint8))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -136,6 +138,13 @@ def launch_counts() -> dict[str, int]:
             "flash_attention": flash_mod.LAUNCHES}
 
 
+def planes_route_counts() -> dict[str, int]:
+    """The planes kernels' launches by route (``planes_encode_vector``,
+    ``planes_encode_scalar``, ``planes_decode_vector``,
+    ``planes_decode_scalar``); zeroed by :func:`reset_launch_counts`."""
+    return {f"planes_{k}": v for k, v in planes_mod.ROUTE_LAUNCHES.items()}
+
+
 def reset_launch_counts() -> None:
     encode.LAUNCHES = 0
     block_stats_mod.LAUNCHES = pack_mod.LAUNCHES = 0
@@ -143,4 +152,5 @@ def reset_launch_counts() -> None:
     bitshuffle_mod.LAUNCHES = bitshuffle_mod.INVERSE_LAUNCHES = 0
     unpack_mod.LAUNCHES = unpack_mod.DENSE_LAUNCHES = 0
     planes_mod.ENCODE_LAUNCHES = planes_mod.DECODE_LAUNCHES = 0
+    planes_mod.ROUTE_LAUNCHES.update(dict.fromkeys(planes_mod.ROUTE_LAUNCHES, 0))
     flash_mod.LAUNCHES = 0

@@ -10,7 +10,13 @@ launches the kernel or raises.
 
 Leading dims are flattened here, so the kernels see (nb, bs) blocks and
 (P, nb, bs) planes; a call with no blocks returns empty outputs without a
-launch.
+launch.  Each kernel has two routes, picked by :func:`route` from the block
+width and the pointers' alignment alone: the vector route (a power-of-two
+block of 4 or more values, float32 data on 16 bytes, planes on min(bs, 16)
+bytes) and the scalar route for every other shape.  A failed launch raises
+on either; nothing falls back to the other route.  The decode reads ``sexp``
+as int8, int16 or int32, the widths the KV cache, the gradient wire and the
+encode store it at.
 """
 from __future__ import annotations
 
@@ -26,23 +32,65 @@ planes_decode_plain = ref.planes_decode_ref
 
 ENCODE_LAUNCHES = 0   # planes_encode() kernel launches since the last reset
 DECODE_LAUNCHES = 0   # planes_decode() kernel launches since the last reset
+# the same launches by route ("encode_vector", "encode_scalar", "decode_vector",
+# "decode_scalar")
+ROUTE_LAUNCHES = dict.fromkeys(("encode_vector", "encode_scalar", "decode_vector",
+                                "decode_scalar"), 0)
 _COUNT_LOCK = threading.Lock()
+SEXP_DTYPES = (torch.int8, torch.int16, torch.int32)   # what the decode kernel reads
 
 _ENCODE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p]
-_DECODE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p]
+_DECODE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _count_launch(decode: bool) -> None:
+def route(bs: int, values_ptr: int, planes_ptr: int) -> str:
+    """``"vector"`` or ``"scalar"``: the kernel route for blocks of ``bs``
+    values whose float32 data (the encode's input, the decode's output)
+    starts at address ``values_ptr`` and whose planes start at ``planes_ptr``.
+
+    The vector route takes a power-of-two ``bs`` of 4 or more (a lane owns
+    min(bs, 16) values, a block is a power-of-two group of lanes, or the
+    whole warp in chunks of 512), float32 data on 16 bytes (float4 accesses)
+    and planes on min(bs, 16) bytes (one store of a lane's bytes of a
+    plane).  Every other shape takes the scalar route."""
+    vec = min(bs, 16)
+    fits = (bs >= 4 and bs & (bs - 1) == 0 and values_ptr % 16 == 0
+            and planes_ptr % vec == 0)
+    return "vector" if fits else "scalar"
+
+
+def encode_route(xb: torch.Tensor) -> str:
+    """The route :func:`planes_encode` takes for ``xb`` on the card (its
+    planes are a fresh allocation, aligned)."""
+    return route(xb.shape[-1], _blocks(xb).data_ptr(), 0)
+
+
+def decode_route(planes: torch.Tensor) -> str:
+    """The route :func:`planes_decode` takes for ``planes`` on the card (its
+    output is a fresh allocation, aligned)."""
+    return route(planes.shape[-1], 0, _plane_blocks(planes).data_ptr())
+
+
+def _blocks(xb: torch.Tensor) -> torch.Tensor:
+    return xb.reshape(-1, xb.shape[-1]).contiguous()
+
+
+def _plane_blocks(planes: torch.Tensor) -> torch.Tensor:
+    return planes.reshape(planes.shape[0], -1, planes.shape[-1]).contiguous()
+
+
+def _count_launch(kind: str, which: str) -> None:
     global ENCODE_LAUNCHES, DECODE_LAUNCHES
     with _COUNT_LOCK:
-        if decode:
+        if kind == "decode":
             DECODE_LAUNCHES += 1
         else:
             ENCODE_LAUNCHES += 1
+        ROUTE_LAUNCHES[f"{kind}_{which}"] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
@@ -69,7 +117,7 @@ def planes_encode(xb: torch.Tensor, num_planes: int):
         return planes_encode_plain(xb, num_planes)
     _check("planes_encode", xb, torch.float32)
     lead, bs = tuple(xb.shape[:-1]), xb.shape[-1]
-    x2 = xb.reshape(-1, bs).contiguous()
+    x2 = _blocks(xb)
     nb = x2.shape[0]
     dev = xb.device
     mu = torch.empty(nb, dtype=torch.float32, device=dev)
@@ -77,16 +125,18 @@ def planes_encode(xb: torch.Tensor, num_planes: int):
     planes = torch.empty((num_planes, nb, bs), dtype=torch.uint8, device=dev)
     if nb and bs:                            # a grid of 0 is refused
         tab = ref.planes_scale_table(dev)
-        _launch("planes_encode", "szx_planes_encode", _ENCODE_ARGTYPES, dev,
+        which = route(bs, x2.data_ptr(), planes.data_ptr())
+        _launch("planes_encode", f"szx_planes_encode_{which}", _ENCODE_ARGTYPES, dev,
                 x2.data_ptr(), nb, bs, num_planes, tab.data_ptr(), mu.data_ptr(),
                 sexp.data_ptr(), planes.data_ptr())
-        _count_launch(False)
+        _count_launch("encode", which)
     return (mu.reshape(lead), sexp.reshape(lead),
             planes.reshape((num_planes,) + lead + (bs,)))
 
 
 def planes_decode(mu: torch.Tensor, sexp: torch.Tensor, planes: torch.Tensor):
-    """Inverse of :func:`planes_encode` -> (..., bs) float32; sexp int32."""
+    """Inverse of :func:`planes_encode` -> (..., bs) float32; sexp int8,
+    int16 or int32, read at its width."""
     num_planes = planes.shape[0]
     if not 1 <= num_planes <= 3:
         raise ValueError("szx-planes supports 1..3 byte planes")
@@ -94,9 +144,11 @@ def planes_decode(mu: torch.Tensor, sexp: torch.Tensor, planes: torch.Tensor):
         return planes_decode_plain(mu, sexp, planes)
     _check("planes_decode", planes, torch.uint8)
     _check("planes_decode", mu, torch.float32)
-    _check("planes_decode", sexp, torch.int32)
+    if sexp.dtype not in SEXP_DTYPES:
+        raise ValueError(f"planes_decode: sexp must be int8, int16 or int32, got {sexp.dtype}")
+    _check("planes_decode", sexp, sexp.dtype)
     lead, bs = tuple(planes.shape[1:-1]), planes.shape[-1]
-    p2 = planes.reshape(num_planes, -1, bs).contiguous()
+    p2 = _plane_blocks(planes)
     nb = p2.shape[1]
     if mu.numel() != nb or sexp.numel() != nb:
         raise ValueError(f"planes_decode: {nb} blocks but mu {tuple(mu.shape)}, "
@@ -106,8 +158,9 @@ def planes_decode(mu: torch.Tensor, sexp: torch.Tensor, planes: torch.Tensor):
     out = torch.empty((nb, bs), dtype=torch.float32, device=dev)
     if nb and bs:
         tab = ref.planes_scale_table(dev)
-        _launch("planes_decode", "szx_planes_decode", _DECODE_ARGTYPES, dev,
-                mu1.data_ptr(), sexp1.data_ptr(), p2.data_ptr(), nb, bs, num_planes,
-                tab.data_ptr(), out.data_ptr())
-        _count_launch(True)
+        which = route(bs, out.data_ptr(), p2.data_ptr())
+        _launch("planes_decode", f"szx_planes_decode_{which}", _DECODE_ARGTYPES, dev,
+                mu1.data_ptr(), sexp1.data_ptr(), sexp1.element_size(), p2.data_ptr(), nb,
+                bs, num_planes, tab.data_ptr(), out.data_ptr())
+        _count_launch("decode", which)
     return out.reshape(lead + (bs,))

@@ -283,11 +283,15 @@ def _planes_edge_blocks(bs: int = 8) -> torch.Tensor:
 
 
 def test_planes_kernels_match_plain(card):
+    """Both routes of both kernels: the vector route for power-of-two blocks
+    of 4 or more values on aligned storage, the scalar route for bs 1, 3, 6
+    and for a view one float off its alignment (planes one byte off for the
+    decode); the launches counted by route."""
     from repro_torch.kernels import planes
 
     g = torch.Generator().manual_seed(5)
     cases = []
-    for bs in (1, 3, 64, 128, 4096):
+    for bs in (1, 3, 4, 6, 8, 16, 32, 64, 128, 4096):
         nb = max(2, (1 << 16) // bs)
         scale = torch.exp2(torch.randint(-40, 40, (nb, 1), generator=g).float())
         cases.append(torch.randn((nb, bs), generator=g) * scale)
@@ -295,16 +299,40 @@ def test_planes_kernels_match_plain(card):
               _planes_edge_blocks(), _planes_edge_blocks(64)]
     base = 1.0 + torch.rand((200, 1), generator=g)
     cases.append(base + torch.randint(0, 3, (200, 16), generator=g) * 2.0 ** -23 * base)
+    routes = dict.fromkeys(("encode_vector", "encode_scalar", "decode_vector",
+                            "decode_scalar"), 0)
     n_enc = n_dec = 0
     for x in cases:
         for P in (1, 2, 3):
-            k = planes.planes_encode(x.to(card), P)
-            p = planes.planes_encode_plain(x.to(card), P)
+            xc = x.to(card)
+            if x.numel():
+                which = planes.encode_route(xc)
+                routes[f"encode_{which}"] += 1
+                routes[f"decode_{which}"] += 1      # the encode's planes: aligned
+            k = planes.planes_encode(xc, P)
+            p = planes.planes_encode_plain(xc, P)
             for name, a, b in zip(("mu", "sexp", "planes"), k, p):
                 assert _same(a, b), (tuple(x.shape), P, name)
             assert _same(planes.planes_decode(*k), planes.planes_decode_plain(*p)), (x.shape, P)
             n_enc += x.numel() > 0
             n_dec += x.numel() > 0
+    # a view one float off 16 bytes, and planes one byte off: the scalar route
+    flat = torch.randn(4096 * 64 + 1, generator=g).to(card)
+    x = flat[1:].reshape(4096, 64)
+    assert planes.encode_route(x) == "scalar"
+    for P in (1, 2, 3):
+        k = planes.planes_encode(x, P)
+        for name, a, b in zip(("mu", "sexp", "planes"), k, planes.planes_encode_plain(x, P)):
+            assert _same(a, b), ("view", P, name)
+        off = torch.empty(k[2].numel() + 1, dtype=torch.uint8, device=card)
+        pv = off[1:].view(k[2].shape)
+        pv.copy_(k[2])
+        assert planes.decode_route(pv) == "scalar"
+        assert _same(planes.planes_decode(k[0], k[1], pv), planes.planes_decode_plain(*k)), P
+        routes["encode_scalar"] += 1
+        routes["decode_scalar"] += 1
+        n_enc += 1
+        n_dec += 1
     nb, bs = 4096, 16
     mu = torch.randn(nb, generator=g) * torch.exp2(torch.randint(-140, 127, (nb,), generator=g).float())
     mu[::97], mu[1::101], mu[2::103], mu[3::107] = float("nan"), float("inf"), 1e-40, -0.0
@@ -316,8 +344,31 @@ def test_planes_kernels_match_plain(card):
         args = (mu.to(card), sexp.to(card), pl.to(card))
         assert _same(planes.planes_decode(*args), planes.planes_decode_plain(*args)), P
         n_dec += 1
+        routes["decode_vector"] += 1
     counts = ops.launch_counts()
     assert counts["planes_encode"] == n_enc and counts["planes_decode"] == n_dec
+    assert ops.planes_route_counts() == {f"planes_{k}": v for k, v in routes.items()}
+    assert min(routes.values()) > 0
+
+
+def test_planes_decode_reads_every_sexp_width(card):
+    """int8 (the KV cache), int16 (the gradient wire) and int32 sexp decode
+    to the same bits on both routes, with no cast launched."""
+    from repro_torch.kernels import planes
+
+    g = torch.Generator().manual_seed(11)
+    for bs in (64, 3):
+        nb = 2000
+        mu = (torch.randn(nb, generator=g) * 10).to(card)
+        sexp = torch.randint(-127, 128, (nb,), generator=g, dtype=torch.int32).to(card)
+        for P in (1, 2, 3):
+            pl = torch.randint(0, 256, (P, nb, bs), generator=g, dtype=torch.uint8).to(card)
+            want = planes.planes_decode_plain(mu, sexp, pl)
+            for dt in (torch.int8, torch.int16, torch.int32):
+                assert _same(planes.planes_decode(mu, sexp.to(dt), pl), want), (bs, P, dt)
+                assert _same(ops.planes_decode(mu, sexp.to(dt), pl), want), (bs, P, dt)
+    counts = ops.planes_route_counts()
+    assert counts["planes_decode_vector"] == counts["planes_decode_scalar"] == 18
 
 
 def test_planes_codec_on_card_matches_cpu_route(card):
