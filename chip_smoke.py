@@ -19,6 +19,8 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      encode, decode_body, unpack and unpack_dense (which must also equal
      decode_body's values), and bitshuffle forward and inverse on random
      tiles (nt = 1, a chunk's and a frame's worth), whose inverse undoes it;
+     unpack, unpack_dense and bitshuffle on both routes (the store chunk's
+     planes, L and tiles also copied one byte off: the scalar route);
   3. reproduces the golden SHA-256 digests of the three f32 golden streams
      that use no transcendental function, through the kernel path;
   4. drives the codec's main path at a size users run: an --edge^3 float32
@@ -36,11 +38,16 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      equal a full decode bit for bit and stay within e; both query tiers;
      one chunk's frame bytes against the plain route, per stage.
      Launch counters are zeroed just before phase 4 and read after phase 5:
-     every kernel must have run on the main path;
+     every kernel must have run on the main path, and unpack, unpack_dense
+     and bitshuffle only on their vector route;
   6. times each kernel (CUDA events, warmed up, --reps launches) and its
      plain version at the shape the main path launches it at, beside the
      bound from bytes moved at 3.35 TB/s; decode_body's two launches (the
-     scan of the stored-byte counts and the gather) also apart;
+     scan of the stored-byte counts and the gather) also apart; unpack,
+     unpack_dense and bitshuffle (both ways) at the store chunk's shape and
+     a 64 MiB frame's, each with its device time (torch.profiler), its
+     wrapper call's time (CUDA events) and its host time apart
+     (``--store-kernels`` runs only this part, after the build);
   7. breaks one 64 MiB frame's compress and decompress into their stages
      (host clock, synchronized around each stage);
   8. drives the szx-planes gradient path at the full width of llama3.2-1b:
@@ -200,13 +207,15 @@ def ptxas_registers(log_text: str) -> str:
     the output of an ``nvcc -Xptxas -v`` build."""
     import re
 
-    types = {"a": "int8", "s": "int16", "i": "int32"}
+    types = {"a": "int8", "s": "int16", "i": "int32", "f": "float", "d": "double",
+             "6__half": "half", "13__nv_bfloat16": "bf16", "Lb0E": "false", "Lb1E": "true"}
+    tok = r"Li\d+E|Lb[01]E|6__half|13__nv_bfloat16|[asifd]"
     out, name = [], None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(?:I((?:Li\d+E|[asi])+)E)?", m.group(1))
-            args = re.findall(r"Li(\d+)E|([asi])", k.group(2) or "") if k else []
+            k = re.search(rf"\d+([a-z_]+_kernel)(?:I((?:{tok})+)E)?", m.group(1))
+            args = re.findall(rf"Li(\d+)E|({tok})", k.group(2) or "") if k else []
             targs = ",".join(a or types[t] for a, t in args)
             name = (k.group(1) if k else m.group(1)) + (f"<{targs}>" if targs else "")
         spill = re.search(r"(\d+) bytes spill stores", line)
@@ -269,44 +278,77 @@ def decode_both(body, nnc, lo, rb, rebase, spec, nb, bs):
     return kv, int(kt)
 
 
-def unpack_both(enc, spec):
+def off_by_one(t):
+    """A contiguous copy of ``t`` that starts one byte past an aligned
+    address (the scalar route of unpack and bitshuffle)."""
+    import torch
+
+    buf = torch.empty(t.numel() * t.element_size() + 1, dtype=torch.uint8, device=t.device)
+    view = buf[1:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def unpack_both(enc, spec, *, misaligned=False):
     """Kernel and plain unpack and unpack_dense of one encoding; asserts bit
-    identity.  Returns the kernel's unpack values."""
+    identity, on the route the shape takes and, with ``misaligned``, on
+    copies of the planes and L one byte off (the scalar route).  Returns
+    the kernel's unpack values."""
     from repro_torch.kernels import unpack as up
 
-    args = (enc.planes, enc.mu, enc.shift, enc.nbytes)
-    k = up.unpack(*args, enc.L, spec=spec)
-    p = up.unpack_plain(*args, enc.L, spec)
-    where = f"unpack {spec.name} {tuple(enc.L.shape)}"
-    check(same_bits(k, p), f"{where}: values differ")
-    MAX_ERR["unpack"] = max(MAX_ERR["unpack"], max_abs_diff(k, p))
-    kd = up.unpack_dense(*args, spec=spec)
-    pd = up.unpack_dense_plain(*args, spec)
-    check(same_bits(kd, pd), f"{where}: dense values differ")
-    MAX_ERR["unpack_dense"] = max(MAX_ERR["unpack_dense"], max_abs_diff(kd, pd))
-    if not bool(enc.L.any()):
-        check(same_bits(k, kd), f"{where}: dense != unpack with every L = 0")
-    return k
+    cases = [(enc.planes, enc.L)]
+    if misaligned:
+        cases.append((off_by_one(enc.planes), off_by_one(enc.L)))
+        check(up.tensor_route(*cases[1]) == "scalar", "planes one byte off: scalar route")
+    outs = []
+    for planes, L in cases:
+        args = (planes, enc.mu, enc.shift, enc.nbytes)
+        k = up.unpack(*args, L, spec=spec)
+        outs.append(k)
+        p = up.unpack_plain(*args, L, spec)
+        where = f"unpack {spec.name} {tuple(L.shape)} {up.tensor_route(planes, L)} route"
+        check(same_bits(k, p), f"{where}: values differ")
+        MAX_ERR["unpack"] = max(MAX_ERR["unpack"], max_abs_diff(k, p))
+        kd = up.unpack_dense(*args, spec=spec)
+        pd = up.unpack_dense_plain(*args, spec)
+        check(same_bits(kd, pd), f"{where}: dense values differ")
+        MAX_ERR["unpack_dense"] = max(MAX_ERR["unpack_dense"], max_abs_diff(kd, pd))
+        if not bool(L.any()):
+            check(same_bits(k, kd), f"{where}: dense != unpack with every L = 0")
+    check(all(same_bits(outs[0], k) for k in outs), "unpack: the two routes differ")
+    return outs[0]
 
 
-def bitshuffle_both(nt, spec, gen):
+def bitshuffle_both(nt, spec, gen, *, misaligned=False):
     """Kernel and plain bitshuffle, forward and inverse, of random tiles;
-    asserts bit identity and that the inverse undoes the forward."""
+    asserts bit identity and that the inverse undoes the forward; with
+    ``misaligned`` also on a copy one byte off (the scalar route)."""
     import torch
     from repro_torch.kernels import bitshuffle as bsh, specs
 
     T = specs.tile_bytes(spec)
     tiles = torch.randint(0, 256, (nt, T), dtype=torch.uint8, device="cuda", generator=gen)
-    for inverse in (False, True):
-        k = bsh.bitshuffle(tiles, spec=spec, inverse=inverse)
-        p = bsh.bitshuffle_plain(tiles, inverse)
-        check(torch.equal(k, p), f"bitshuffle {spec.name} nt={nt} inverse={inverse} differs")
-        MAX_ERR["bitshuffle"] = max(MAX_ERR["bitshuffle"], max_abs_diff(k, p))
-    back = bsh.bitshuffle(bsh.bitshuffle(tiles, spec=spec), spec=spec, inverse=True)
-    check(torch.equal(back, tiles), f"bitshuffle {spec.name} nt={nt}: inverse(forward) != x")
+    cases = [tiles] + ([off_by_one(tiles)] if misaligned else [])
+    for t in cases:
+        for inverse in (False, True):
+            k = bsh.bitshuffle(t, spec=spec, inverse=inverse)
+            p = bsh.bitshuffle_plain(t, inverse)
+            check(torch.equal(k, p), f"bitshuffle {spec.name} nt={nt} inverse={inverse} "
+                                     f"{bsh.route(t.data_ptr())} route differs")
+            MAX_ERR["bitshuffle"] = max(MAX_ERR["bitshuffle"], max_abs_diff(k, p))
+        back = bsh.bitshuffle(bsh.bitshuffle(t, spec=spec), spec=spec, inverse=True)
+        check(torch.equal(back, tiles), f"bitshuffle {spec.name} nt={nt}: inverse(forward) != x")
 
 
-def kernel_vs_plain(x, e, spec, bs, *, ranges=(), expect_all_L0=False):
+def check_store_vector_route(path: str, routes: dict) -> None:
+    """Every unpack, unpack_dense and bitshuffle launch of a main path took
+    the vector route, and each of them ran."""
+    for k in ("unpack", "unpack_dense", "bitshuffle", "bitshuffle_inverse"):
+        check(routes[f"{k}_vector"] > 0 and routes[f"{k}_scalar"] == 0,
+              f"{path}: {k} launches by route {routes}")
+
+
+def kernel_vs_plain(x, e, spec, bs, *, ranges=(), expect_all_L0=False, misaligned=False):
     """Encode x (flat, on the card) both ways, assemble the body, decode it
     both ways (full, plus block ranges with and without rebase)."""
     import torch
@@ -321,7 +363,8 @@ def kernel_vs_plain(x, e, spec, bs, *, ranges=(), expect_all_L0=False):
     nb = p.nblocks
     vals, mid_total = decode_both(body, nnc, 0, nb, False, spec, nb, bs)
     check(mid_total == nmid, f"{spec.name}: decoded mid_total {mid_total} != {nmid}")
-    check(same_bits(unpack_both(enc, spec), vals), f"{spec.name} bs={bs}: unpack != decode_body")
+    check(same_bits(unpack_both(enc, spec, misaligned=misaligned), vals),
+          f"{spec.name} bs={bs}: unpack != decode_body")
     y = vals.reshape(-1)[: p.n]
     fin = torch.isfinite(xt)
     err = max_abs_diff(y[fin], xt[fin])
@@ -347,8 +390,9 @@ def kernel_vs_plain(x, e, spec, bs, *, ranges=(), expect_all_L0=False):
 
 def phase_kernels(gen):
     import torch
-    from repro_torch.kernels import specs
+    from repro_torch.kernels import ops, specs
 
+    before = ops.store_route_counts()
     for spec in specs.SPECS:
         t0 = time.perf_counter()
         e = 1e-3 if spec.itemsize >= 4 else 1e-2
@@ -377,7 +421,7 @@ def phase_kernels(gen):
         kernel_vs_plain(odd, e, spec, 128)
         nb_chunk = STORE_CHUNK_BYTES // (spec.itemsize * 128)   # the store's chunk
         kernel_vs_plain(walk(nb_chunk * 128, spec.dtype, gen), e, spec, 128,
-                        ranges=((0, 256), (100, 7)))
+                        ranges=((0, 256), (100, 7)), misaligned=True)
         zeros = walk(128 * 300, spec.dtype, gen).reshape(300, 128)   # zeros of both signs
         signs = torch.randint(0, 2, (100, 128), device="cuda", generator=gen)
         zeros[1::3] = torch.where(signs == 1, -0.0, 0.0).to(spec.dtype)
@@ -385,11 +429,16 @@ def phase_kernels(gen):
         kernel_vs_plain(zeros.reshape(-1), e, spec, 128)
         T = specs.tile_bytes(spec)
         for nt in (1, STORE_CHUNK_BYTES // T, FRAME_BYTES // T):
-            bitshuffle_both(nt, spec, gen)
+            bitshuffle_both(nt, spec, gen, misaligned=nt == STORE_CHUNK_BYTES // T)
         torch.cuda.synchronize()
         log(f"kernels vs plain {spec.name}: bit-identical at frame nb={nb_frame} bs=128, "
-            f"store chunk nb={nb_chunk} and edge shapes; bitshuffle at nt=1, "
-            f"{STORE_CHUNK_BYTES // T}, {FRAME_BYTES // T} ({time.perf_counter() - t0:.1f} s)")
+            f"store chunk nb={nb_chunk} (also one byte off) and edge shapes; bitshuffle at "
+            f"nt=1, {STORE_CHUNK_BYTES // T} (also one byte off), {FRAME_BYTES // T} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    routes = {k: v - before[k] for k, v in ops.store_route_counts().items()}
+    for k, n in routes.items():
+        check(n > 0, f"phase 2 never launched {k}")
+    log(f"unpack and bitshuffle launches by route in phase 2: {routes}")
 
 
 # ---------------------------------------------------------------------------
@@ -556,26 +605,43 @@ def staged_counts(data: bytes, idx: dict) -> tuple[int, int, int]:
     return frames, staged, segs
 
 
-def phase_store(field, args):
-    """Save the field (with a zeroed and a quiet boundary slab) as stores,
-    read ROIs by both routes, run both query tiers, and hold one chunk's
-    frame bytes per stage to the plain route.  Returns what phase 6 times:
-    the stage-off and rle payloads of one chunk."""
-    import numpy as np
+def store_field(field, seed: int):
+    """Phase 5's array: the field with a zeroed boundary slab (constant
+    blocks, every L = 0) and a two-level (telegraph) one, 1 +- 1.2 e0:
+    non-constant blocks whose stored bytes take two patterns, which
+    bitshuffle + RLE shrinks (on the smooth part of the field RLE never beats
+    the raw bytes)."""
     import torch
-    from repro_torch.core.codec import Bound, container, plan, stage as stage_mod
-    from repro_torch.store import ArrayStore, ChunkGrid
 
     edge = field.shape[0]
     x = field.clone()
     e0 = 1e-3 * float(x.max() - x.min())
-    gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
-    x[: edge // 8] = 0.0                             # constant blocks, every L = 0
-    # a two-level (telegraph) slab, 1 +- 1.2 e0: non-constant blocks whose
-    # stored bytes take two patterns, which bitshuffle + RLE shrinks (on the
-    # smooth part of the field RLE never beats the raw bytes)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    x[: edge // 8] = 0.0
     x[edge - edge // 8:] = 1.0 + 1.2 * e0 * torch.sign(torch.randn(
         (edge // 8, edge, edge), device="cuda", generator=gen))
+    return x
+
+
+def middle_chunk(data: bytes, idx: dict) -> bytes:
+    """The v2 payload of a store file's middle chunk (what phase 6 times)."""
+    from repro_torch.core.codec import container
+
+    off, length, _n = idx["frames"][len(idx["frames"]) // 2]
+    return data[off + container.FRAME_HEADER.size: off + length]
+
+
+def phase_store(field, args):
+    """Save the field (with a zeroed and a quiet boundary slab) as stores,
+    read ROIs by both routes, run both query tiers, and hold one chunk's
+    frame bytes per stage to the plain route.  Returns what phase 6 times:
+    the stage-off store's middle chunk."""
+    import numpy as np
+    from repro_torch.core.codec import Bound, container, plan, stage as stage_mod
+    from repro_torch.store import ArrayStore, ChunkGrid
+
+    edge = field.shape[0]
+    x = store_field(field, args.seed)
     raw = x.numel() * x.element_size()
     bound = Bound.rel(1e-3)
     e = plan.resolve_error_bound(x.reshape(-1), bound)
@@ -650,31 +716,20 @@ def phase_store(field, args):
               f"store {name}: chunk {cid}'s frame differs from the plain route's")
     log(f"store: full decode {raw / t_full / 1e9:.3f} GB/s, max|x-x'| {err:.6g} <= e={e:.6g}; "
         f"every ROI by both routes bit-identical to it; chunk frames match the plain route")
-    cid = len(stores[None][1]["frames"]) // 2
-
-    def payload(name):
-        data, idx = stores[name]
-        off, length, _n = idx["frames"][cid]
-        return data[off + container.FRAME_HEADER.size: off + length]
-
-    return {"chunk": payload(None), "chunk_rle": payload("bitshuffle-rle")}
+    return middle_chunk(*stores[None])
 
 
 # ---------------------------------------------------------------------------
 # phase 6: per-kernel time at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def phase_timing(field, store, reps: int, seed: int):
+def phase_timing(field, store: bytes, reps: int, seed: int):
     import numpy as np
-    import torch
-    from repro_torch.core.codec import container, device, plan
+    from repro_torch.core.codec import container, device
     from repro_torch.kernels import decode as dec_mod, encode as enc_mod, ref, specs
 
     spec = specs.F32
-    per = FRAME_BYTES // 4
-    chunk = field.reshape(-1)[:per]
-    p, xt = plan.make_plan(chunk, plan.Bound.rel(1e-3), device="cuda")
-    xb = plan.to_blocks(xt, p)
+    p, xb = frame_blocks(field)
     e, p_e = p.error_bound, specs.exact_exponent_of(p.error_bound)
     nb, bs, W = p.nblocks, p.block_size, spec.itemsize
     enc_ms = cuda_ms(lambda: enc_mod.encode(xb, e, p_e, spec=spec), reps)
@@ -697,37 +752,6 @@ def phase_timing(field, store, reps: int, seed: int):
     timings = [("encode", f"f32 frame nb={nb} bs={bs}", enc_ms, enc_plain_ms, enc_bytes),
                ("decode_body", f"f32 frame nb={nb} bs={bs}", dec_ms, dec_plain_ms, dec_bytes)]
 
-    # the store path: one 2 MiB chunk of the field, decoded by the host-parse
-    # route (unpack / unpack_dense) and staged by bitshuffle-rle
-    from repro_torch.core.codec import stage as stage_mod
-    from repro_torch.kernels import bitshuffle as bsh, unpack as up
-
-    cp, enc = container.parse_stream(store["chunk"], device="cuda")
-    cnb, cbs = enc.L.shape
-    args = (enc.planes, enc.mu, enc.shift, enc.nbytes)
-    live = int(enc.nbytes.to(torch.int64).sum()) * cbs        # plane bytes read
-    meta = cnb * (W + 4 + 4)                                   # mu, shift, nbytes
-    out = cnb * cbs * W
-    shape = f"f32 store chunk nb={cnb} bs={cbs}"
-    timings.append(("unpack", shape, cuda_ms(lambda: up.unpack(*args, enc.L, spec=spec), reps),
-                    cuda_ms(lambda: up.unpack_plain(*args, enc.L, spec), max(reps // 10, 3)),
-                    live + cnb * cbs + meta + out))
-    timings.append(("unpack_dense", shape, cuda_ms(lambda: up.unpack_dense(*args, spec=spec), reps),
-                    cuda_ms(lambda: up.unpack_dense_plain(*args, spec), max(reps // 10, 3)),
-                    live + meta + out))
-    prefix_len = container.stream_prefix_length(store["chunk"])
-    sec = container.parse_stream_sections(store["chunk"][:prefix_len], device="cuda")
-    T = specs.tile_bytes(spec)
-    nt = sum(-(-(b - a) // T) for a, b in (
-        sec.mid_range(lo, hi) for lo, hi in stage_mod._seg_ranges(cnb, stage_mod.DEFAULT_SEG_BLOCKS)))
-    tiles = torch.randint(0, 256, (nt, T), dtype=torch.uint8, device="cuda")
-    fwd_ms = cuda_ms(lambda: bsh.bitshuffle(tiles, spec=spec), reps)
-    inv_ms = cuda_ms(lambda: bsh.bitshuffle(tiles, spec=spec, inverse=True), reps)
-    fwd_plain = cuda_ms(lambda: bsh.bitshuffle_plain(tiles, False), max(reps // 10, 3))
-    log(f"time bitshuffle inverse f32 store chunk nt={nt}: kernel {inv_ms:.4f} ms, "
-        f"forward {fwd_ms:.4f} ms")
-    timings.append(("bitshuffle", f"f32 store chunk nt={nt} tiles of {T} B (forward)",
-                    fwd_ms, fwd_plain, 2 * nt * T))
     timings += time_planes(seed + 5, reps)
     rows = []
     for name, where, ms, pms, nbytes_moved in timings:
@@ -736,7 +760,208 @@ def phase_timing(field, store, reps: int, seed: int):
         log(f"time {name} {where}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({nbytes_moved / 1e6:.3f} MB at 3.35 TB/s, "
             f"{bound_ms / ms * 100:.1f}% of the bound)")
+    return rows + time_store_kernels(store, stream, reps)
+
+
+def frame_blocks(field):
+    """The first 64 MiB f32 frame of the field as the codec blocks it (rel
+    1e-3, bs 128): (plan, blocks)."""
+    from repro_torch.core.codec import plan
+
+    p, xt = plan.make_plan(field.reshape(-1)[: FRAME_BYTES // 4], plan.Bound.rel(1e-3),
+                           device="cuda")
+    return p, plan.to_blocks(xt, p)
+
+
+def profiled_ms(fn, reps: int, kernel: str) -> tuple[float, int] | None:
+    """Device time of one launch of the kernel whose name holds ``kernel``:
+    torch.profiler (card activity only) over ``reps`` calls of ``fn`` after a
+    warm-up, the kernel's device time over the launches the trace holds
+    (returned beside it: the tracer may miss one at the window's edge), or
+    None when the trace holds fewer than half of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in evs)
+    check(n <= reps, f"profiler: {n} launches of a kernel named *{kernel}* in {reps} calls")
+    return (sum(e.self_device_time_total for e in evs) / n / 1e3, n) if n >= reps // 2 else None
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Time of one call of ``fn`` replayed from a CUDA graph of ``reps``
+    calls (CUDA events around the replay): the launches back to back with
+    no host work between them, so the kernel's device time plus the gap
+    between two kernels of a graph."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host-clock time of one call of ``fn`` over ``reps`` back-to-back calls,
+    without waiting for the card (the enqueue alone)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def time_store_kernels(chunk_payload: bytes, frame_stream: bytes, reps: int):
+    """The store path's kernels -- unpack and unpack_dense (the host-parse
+    route's decode) and bitshuffle both ways (the second stage) -- at the
+    store chunk's shape (what ROI reads and queries launch) and at one
+    64 MiB f32 frame's (nb 131072 through container.parse_stream; 16384
+    tiles).  Each gets its device time (torch.profiler), the wrapper call's
+    time (CUDA events over ``reps`` calls: the host's rate where that is
+    slower than the card), the host time of a call alone, and the bound
+    from the bytes it must move (each input byte it needs read once -- for
+    unpack the stored plane bytes, not the elided ones -- each output
+    written once) at 3.35 TB/s; the plain version at the chunk.  Returns the kernels
+    JSON rows (the chunk's numbers, the frame's beside them)."""
+    import torch
+    from repro_torch.core.codec import container, stage as stage_mod
+    from repro_torch.kernels import bitshuffle as bsh, specs, unpack as up
+
+    spec = specs.F32
+    W, T = spec.itemsize, specs.tile_bytes(spec)
+    plain_reps = max(reps // 10, 3)
+    prefix_len = container.stream_prefix_length(chunk_payload)
+    sec = container.parse_stream_sections(chunk_payload[:prefix_len], device="cuda")
+    nt_chunk = sum(-(-(b - a) // T) for a, b in (
+        sec.mid_range(lo, hi)
+        for lo, hi in stage_mod._seg_ranges(sec.plan.nblocks, stage_mod.DEFAULT_SEG_BLOCKS)))
+    got = {}
+    for shape, payload, nt in (("store chunk", chunk_payload, nt_chunk),
+                               ("frame", frame_stream, FRAME_BYTES // T)):
+        _p, enc = container.parse_stream(payload, device="cuda")
+        nb, bs = enc.L.shape
+        args = (enc.planes, enc.mu, enc.shift, enc.nbytes)
+        # plane bytes each function needs: every live one for unpack_dense;
+        # for unpack only the stored ones, max(nbytes - L, 0) a value (the
+        # stream's mid bytes), since it fills the elided ones from earlier
+        # values
+        nbytes64 = enc.nbytes.to(torch.int64)
+        live = int(nbytes64.sum()) * bs
+        stored = int((nbytes64[:, None] - enc.L.to(torch.int64)).clamp_(min=0).sum())
+        meta_out = nb * (W + 4 + 4) + nb * bs * W                # mu, shift, nbytes; out
+        log(f"store kernels f32 {shape}: {nb * bs} values, plane bytes live {live} "
+            f"({live / (nb * bs):.3f} a value), stored {stored} ({stored / (nb * bs):.3f})")
+        tiles = torch.randint(0, 256, (nt, T), dtype=torch.uint8, device="cuda")
+        cases = (
+            ("unpack", f"nb={nb} bs={bs}", "unpack", lambda: up.unpack(*args, enc.L, spec=spec),
+             lambda: up.unpack_plain(*args, enc.L, spec), stored + nb * bs + meta_out),
+            ("unpack_dense", f"nb={nb} bs={bs}", "unpack", lambda: up.unpack_dense(*args, spec=spec),
+             lambda: up.unpack_dense_plain(*args, spec), live + meta_out),
+            ("bitshuffle", f"nt={nt} tiles of {T} B", "bitshuffle",
+             lambda: bsh.bitshuffle(tiles, spec=spec), lambda: bsh.bitshuffle_plain(tiles, False),
+             2 * nt * T),
+            ("bitshuffle_inverse", f"nt={nt} tiles of {T} B", "bitunshuffle",
+             lambda: bsh.bitshuffle(tiles, spec=spec, inverse=True),
+             lambda: bsh.bitshuffle_plain(tiles, True), 2 * nt * T))
+        for name, where, kernel, fn, plain, moved in cases:
+            # the profiler's trace, taken again where it came back short; a
+            # graph replay of the same calls beside it (and in its place if
+            # every trace came back short)
+            prof = next(filter(None, (profiled_ms(fn, reps, kernel) for _ in range(3))), None)
+            replay = graph_ms(fn, reps)
+            dev_ms, how = ((prof[0], f"torch.profiler, {prof[1]} of {reps} launches traced")
+                           if prof else (replay, "not traced: a CUDA graph's replay"))
+            call = cuda_ms(fn, reps)
+            host = host_ms(fn, reps)
+            plain_ms = cuda_ms(plain, plain_reps) if shape == "store chunk" else None
+            bound_ms = moved / HBM_BYTES_PER_S * 1e3
+            got[name, shape] = (dev_ms, call, host, bound_ms, plain_ms)
+            log(f"time {name} f32 {shape} {where}: device {dev_ms:.4f} ms ({how}; graph "
+                f"replay {replay:.4f} ms), call {call:.4f} ms (CUDA events over {reps} wrapper "
+                f"calls), host {host:.4f} ms a call, bound {bound_ms:.4f} ms ({moved / 1e6:.3f} MB "
+                f"at 3.35 TB/s; {bound_ms / dev_ms * 100:.1f}% of it by the device time)"
+                + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else ""))
+        del enc, args, tiles
+    helper_ms, context_ms = launch_idiom_host_ms(nt_chunk)
+    log(f"launch idiom, host time a call of the bitshuffle C entry point at the store chunk "
+        f"(median of 5 alternating rounds of 200): _build.launch {helper_ms:.4f} ms, device "
+        f"context + current_stream {context_ms:.4f} ms")
+    rows = []
+    for name in ("unpack", "unpack_dense", "bitshuffle"):
+        dev_ms, call, host, bound_ms, plain_ms = got[name, "store chunk"]
+        frame = got[name, "frame"]
+        extra = {"call_ms": call, "host_ms": host, "frame_ms": frame[0],
+                 "frame_call_ms": frame[1], "frame_bound_ms": frame[3]}
+        if name == "bitshuffle":
+            inv, inv_frame = got["bitshuffle_inverse", "store chunk"], got["bitshuffle_inverse", "frame"]
+            extra.update(inverse_ms=inv[0], inverse_call_ms=inv[1], inverse_frame_ms=inv_frame[0],
+                         inverse_frame_call_ms=inv_frame[1])
+        rows.append((name, dev_ms, plain_ms, bound_ms, extra))
     return rows
+
+
+def launch_idiom_host_ms(nt: int, reps: int = 200, rounds: int = 5) -> tuple[float, float]:
+    """Host time of one launch of the bitshuffle C entry point on ``nt``
+    tiles by the wrappers' idiom (``_build.launch``: the raw handle of the
+    current stream, no device context when the card is current) and by the
+    idiom it replaced (a ``torch.cuda.device`` context around the call and
+    ``torch.cuda.current_stream(dev).cuda_stream``), in alternating rounds
+    of ``reps`` calls: the median of the rounds, ms a call, for each."""
+    import statistics
+    import torch
+    from repro_torch.kernels import _build, bitshuffle as bsh, specs
+
+    T = specs.tile_bytes(specs.F32)
+    tiles = torch.zeros((nt, T), dtype=torch.uint8, device="cuda")
+    out = torch.empty_like(tiles)
+    fn = _build.function("bitshuffle", "szx_bitshuffle_vector", bsh._ARGTYPES)
+    args, dev = (tiles.data_ptr(), out.data_ptr(), nt, T, 0), tiles.device
+
+    def helper():
+        return _build.launch(fn, dev, args)
+
+    def context():
+        with torch.cuda.device(dev):
+            return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+    times = {helper: [], context: []}
+    for _ in range(rounds):
+        for f in (helper, context):
+            check(f() == 0, "bitshuffle launch for the launch-idiom timing")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                f()
+            times[f].append((time.perf_counter() - t0) / reps * 1e3)
+            torch.cuda.synchronize()
+    return statistics.median(times[helper]), statistics.median(times[context])
 
 
 def time_decode_launches(body, nnc, mu, shift, nbytes, rank, spec, nb, bs, reps):
@@ -1818,12 +2043,35 @@ def restart_run(args, cfg, opt, ds) -> None:
 # main
 # ---------------------------------------------------------------------------
 
+def store_kernels_only(args) -> int:
+    """``--store-kernels``: phase 6's store-kernel rows alone, on phase 5's
+    middle chunk (the stage-off store of the same array) and phase 4's first
+    frame, so that two trees can be timed in turns in one call."""
+    from repro_torch.core.codec import Bound, device
+    from repro_torch.store import ArrayStore
+
+    field = make_field(args.edge, args.seed)
+    buf = io.BytesIO()
+    idx = ArrayStore.save(buf, store_field(field, args.seed), Bound.rel(1e-3))
+    p, xb = frame_blocks(field)
+    rows = time_store_kernels(middle_chunk(buf.getvalue(), idx), device.encode_to_stream(xb, p),
+                              args.reps)
+    print(json.dumps({"store_kernels": [
+        {"name": name, "ms": ms, "plain_ms": pms, "bound_ms": bound_ms, **extra}
+        for name, ms, pms, bound_ms, extra in rows]}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--edge", type=int, default=512,
                     help="edge of the cubic f32 field on the main path (512 = 512 MiB)")
     ap.add_argument("--reps", type=int, default=50, help="timed launches per kernel")
+    ap.add_argument("--store-kernels", action="store_true",
+                    help="build, time the store path's kernels as phase 6 does (unpack, "
+                         "unpack_dense, bitshuffle both ways at the store chunk's and a 64 MiB "
+                         "frame's shapes), print their rows as JSON and stop")
     args = ap.parse_args()
 
     import torch
@@ -1853,8 +2101,13 @@ def main() -> int:
     built = _build.build()
     log(f"build: {', '.join(f'{k} {v:.1f} s' for k, v in built.items()) or 'cached'} "
         f"(wall {time.perf_counter() - t0:.1f} s, nvcc {' '.join(_build.NVCC_FLAGS)})")
-    if "planes" in _build.LOGS:
-        log(f"planes kernels, registers a thread (ptxas -v): {ptxas_registers(_build.LOGS['planes'])}")
+    for name in ("planes", "unpack", "bitshuffle"):
+        if name in _build.LOGS:
+            log(f"{name} kernels, registers a thread (ptxas -v): "
+                f"{ptxas_registers(_build.LOGS[name])}")
+
+    if args.store_kernels:
+        return store_kernels_only(args)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernels(gen)
@@ -1869,6 +2122,8 @@ def main() -> int:
     log(f"codec and store path launches: {launches}")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the codec and store path")
+    log(f"codec and store path launches by route: {ops.store_route_counts()}")
+    check_store_vector_route("codec and store path", ops.store_route_counts())
 
     rows = phase_timing(field, store, args.reps, args.seed)
     phase_breakdown(field)
@@ -1926,14 +2181,14 @@ def main() -> int:
             + ", ".join(f"{t * 1e3:.1f} ms" for t in times))
 
     kernels = []
-    for name, ms, pms, bound_ms in rows:
+    for name, ms, pms, bound_ms, *extra in rows:
         src, replaces = SOURCES[name]
         n = launches[name] + (launches["bitshuffle_inverse"] if name == "bitshuffle" else 0)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": n, "max_abs_err": MAX_ERR[name],
             "ms": ms, "plain_ms": pms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": None, **(extra[0] if extra else {}),
         })
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"][0],

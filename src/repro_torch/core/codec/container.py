@@ -136,6 +136,7 @@ class StreamSections:
     nmid: int                      # total mid-stream length (header field)
     mid_offset: int                # byte offset of the mid stream in the stream
     block_mid_start: np.ndarray    # (nb,) int64 exclusive cumsum of block mid bytes
+    elided: np.ndarray             # (nb,) bool: blocks with an L > 0 (host)
 
     def mid_range(self, lo: int, hi: int) -> tuple[int, int]:
         """[start, stop) byte offsets WITHIN the mid stream holding the mid
@@ -211,6 +212,8 @@ def parse_stream_sections(prefix, *, device=None) -> StreamSections:
         raise ValueError("corrupt SZx stream (reqlen exceeds dtype width)")
     L = np.zeros((nb, bs), np.uint8)
     L[nc] = L_nc.reshape(nnc, bs)
+    elided = np.zeros(nb, bool)
+    elided[nc] = L_nc.reshape(nnc, bs).any(axis=1)
     # sum_v max(nbytes - L_v, 0) == bs*nbytes - sum_v min(L_v, nbytes)
     block_counts = nbytes_np.astype(np.int64) * bs
     if nnc:
@@ -223,7 +226,7 @@ def parse_stream_sections(prefix, *, device=None) -> StreamSections:
     return StreamSections(
         p, const_t.to(dev), torch.from_numpy(mu).view(spec.dtype).to(dev),
         reqlen_t.to(dev), shift.to(dev), nbytes.to(dev), torch.from_numpy(L).to(dev),
-        int(nmid), off, ends - block_counts,
+        int(nmid), off, ends - block_counts, elided,
     )
 
 
@@ -257,7 +260,7 @@ def extract_block_range(sec: StreamSections, mid, lo: int, hi: int) -> BlockEnco
     counts, start = _mid_plan(L_r, nbytes_r)
     planes = _copy_mid(L_r, counts, start, sec.plan.dtype.itemsize, mid)
     return BlockEncoding(sec.mu[lo:hi], sec.const[lo:hi], sec.reqlen[lo:hi],
-                         sec.shift[lo:hi], nbytes_r, planes, L_r)
+                         sec.shift[lo:hi], nbytes_r, planes, L_r, sec.elided[lo:hi])
 
 
 def build_stream(p: Plan, enc: BlockEncoding) -> bytes:
@@ -286,7 +289,7 @@ def parse_stream(buf: bytes, *, device=None) -> tuple[Plan, BlockEncoding]:
         planes = torch.zeros((0, sec.plan.dtype.itemsize, sec.plan.block_size),
                              dtype=torch.uint8, device=sec.L.device)
         return sec.plan, BlockEncoding(sec.mu, sec.const, sec.reqlen, sec.shift,
-                                       sec.nbytes, planes, sec.L)
+                                       sec.nbytes, planes, sec.L, sec.elided)
     mid = np.frombuffer(buf, np.uint8, sec.nmid, sec.mid_offset)
     return sec.plan, extract_block_range(sec, mid, 0, nb)
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
@@ -28,6 +29,9 @@ class BlockEncoding:
     nbytes: torch.Tensor   # (nb,) int32 -- stored bytes/value before XOR-lead
     planes: torch.Tensor   # (nb, W, bs) uint8 -- byte planes, MSB-first
     L: torch.Tensor        # (nb, bs) uint8 -- identical-leading-byte counts
+    # (nb,) bool on the host -- blocks with an elided byte (any L > 0), where
+    # a host parse knows it; None for encodings made on the device
+    elided: np.ndarray | None = None
 
 
 def derive_layout(reqlen: torch.Tensor, const: torch.Tensor):
@@ -42,9 +46,12 @@ def decode_blocks(enc: BlockEncoding, p) -> torch.Tensor:
     """(nb, bs) values in the plan's dtype, on the encoding's device.
 
     Encodings with no XOR-lead elision anywhere (every L = 0) take the dense
-    path, which skips the index-propagation scan.
+    path, which skips the index-propagation scan.  The choice reads the
+    host's ``enc.elided`` where the encoding has it, and only otherwise asks
+    the device (a reduction of L and a wait for it).
     """
-    if not bool(enc.L.any()):
+    elided = enc.elided.any() if enc.elided is not None else enc.L.any()
+    if not bool(elided):
         return ops.unpack_dense(enc.planes, enc.mu, enc.shift, enc.nbytes, spec=p.dtype)
     return ops.unpack(enc.planes, enc.mu, enc.shift, enc.nbytes, enc.L, spec=p.dtype)
 
@@ -52,4 +59,4 @@ def decode_blocks(enc: BlockEncoding, p) -> torch.Tensor:
 def decode_block_range(enc: BlockEncoding, p, lo: int, hi: int) -> torch.Tensor:
     """Partial decode: blocks [lo, hi) only -> (hi - lo, bs), at O(hi - lo)."""
     return ops.unpack_range(enc.planes, enc.mu, enc.shift, enc.nbytes, enc.L, lo, hi,
-                            spec=p.dtype)
+                            spec=p.dtype, elided=enc.elided)

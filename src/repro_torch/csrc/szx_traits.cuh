@@ -136,6 +136,18 @@ __device__ __forceinline__ int max_scan(int key, int lane, int& carry) {
   return max_scan(key, FULL >> (31 - lane), carry, true);
 }
 
+// 4x4 byte transpose: byte k of b[m] = byte m of a[k] (eight byte permutes).
+__device__ __forceinline__ void transpose_bytes4(uint32_t a0, uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint32_t& b0, uint32_t& b1,
+                                                 uint32_t& b2, uint32_t& b3) {
+  const uint32_t p = __byte_perm(a0, a1, 0x5140), q = __byte_perm(a0, a1, 0x7362);
+  const uint32_t r = __byte_perm(a2, a3, 0x5140), s = __byte_perm(a2, a3, 0x7362);
+  b0 = __byte_perm(p, r, 0x5410);
+  b1 = __byte_perm(p, r, 0x7632);
+  b2 = __byte_perm(q, s, 0x5410);
+  b3 = __byte_perm(q, s, 0x7632);
+}
+
 // A reassembled (shifted) word back to a value: shift back (kept at the
 // word width, no promotion), bitcast, add mu in the compute type and round
 // to storage.  NaN keeps numpy's bits; a constant block (nbytes == 0) is mu.

@@ -99,8 +99,12 @@ def _build_locked(names) -> dict[str, float]:
 
 def function(name: str, symbol: str, argtypes: list):
     """The C entry point ``symbol`` of ``csrc/<name>.cu`` as a ctypes
-    function returning int, building and loading the library at first use."""
+    function returning int, building and loading the library at first use
+    (under the build lock; a loaded function is read without it)."""
     key = (name, symbol)
+    fn = _FUNCS.get(key)
+    if fn is not None:
+        return fn
     with _LOCK:
         fn = _FUNCS.get(key)
         if fn is None:
@@ -113,3 +117,18 @@ def function(name: str, symbol: str, argtypes: list):
             fn.restype = ctypes.c_int
             _FUNCS[key] = fn
     return fn
+
+
+def launch(fn, dev, args) -> int:
+    """``fn(*args, stream)`` with the raw handle of card ``dev``'s current
+    stream, making ``dev`` the current card only when it is not already;
+    returns the C entry point's code.  Every wrapper in ``kernels/``
+    launches through it.  (``torch.cuda.current_stream(dev)`` builds a
+    Stream object a call; the raw handle is the same stream.)"""
+    import torch
+
+    index = dev.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

@@ -6,7 +6,10 @@ Pallas TPU kernel ``repro/kernels/bitshuffle.py::bitshuffle``.  The plain
 version is :func:`repro_torch.kernels.ref.bitshuffle_ref`.
 :func:`bitshuffle` takes the plain version for a CPU tensor only; a CUDA
 tensor launches the kernel or raises.  Forward and inverse launches are
-counted apart, so a run can show that both directions ran.
+counted apart, so a run can show that both directions ran, and by route:
+:func:`route` picks the vector route (64-bit words, 8x8 bit transposes)
+for tiles on 16 bytes and the scalar route (a byte a thread) for any other
+pointer.  Nothing falls back from one route to the other.
 """
 from __future__ import annotations
 
@@ -22,19 +25,33 @@ bitshuffle_plain = ref.bitshuffle_ref
 
 LAUNCHES = 0          # forward kernel launches since the last reset
 INVERSE_LAUNCHES = 0  # inverse kernel launches since the last reset
+# the same launches by route ("bitshuffle_vector", "bitshuffle_scalar",
+# "bitshuffle_inverse_vector", "bitshuffle_inverse_scalar")
+ROUTE_LAUNCHES = dict.fromkeys(("bitshuffle_vector", "bitshuffle_scalar",
+                                "bitshuffle_inverse_vector", "bitshuffle_inverse_scalar"), 0)
 _COUNT_LOCK = threading.Lock()
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p]
 
 
-def _count_launch(inverse: bool) -> None:
+def route(in_ptr: int) -> str:
+    """``"vector"`` or ``"scalar"``: the kernel route for tiles that start at
+    address ``in_ptr`` (the output is a fresh allocation, aligned).  The
+    vector route reads and writes 16 bytes a thread at a time, so it takes
+    tiles on 16 bytes (every tile width is a multiple of 64 bytes, so each
+    tile is then aligned too); any other pointer takes the scalar route."""
+    return "vector" if in_ptr % 16 == 0 else "scalar"
+
+
+def _count_launch(inverse: bool, which: str) -> None:
     global LAUNCHES, INVERSE_LAUNCHES
     with _COUNT_LOCK:
         if inverse:
             INVERSE_LAUNCHES += 1
         else:
             LAUNCHES += 1
+        ROUTE_LAUNCHES[f"bitshuffle{'_inverse' if inverse else ''}_{which}"] += 1
 
 
 def bitshuffle(tiles: torch.Tensor, *, spec: DtypeSpec = specs.F32,
@@ -57,12 +74,11 @@ def bitshuffle(tiles: torch.Tensor, *, spec: DtypeSpec = specs.F32,
     nt = tiles.shape[0]
     out = torch.empty_like(tiles)
     if nt:                                   # a grid of 0 is refused
-        fn = _build.function("bitshuffle", "szx_bitshuffle", _ARGTYPES)
-        dev = tiles.device
-        with torch.cuda.device(dev):
-            rc = fn(tiles.data_ptr(), out.data_ptr(), nt, T, int(inverse),
-                    torch.cuda.current_stream(dev).cuda_stream)
+        which = route(tiles.data_ptr())
+        fn = _build.function("bitshuffle", f"szx_bitshuffle_{which}", _ARGTYPES)
+        rc = _build.launch(fn, tiles.device, (tiles.data_ptr(), out.data_ptr(), nt, T,
+                                              int(inverse)))
         if rc:
-            raise RuntimeError(f"bitshuffle kernel launch failed (CUDA error {rc})")
-        _count_launch(inverse)
+            raise RuntimeError(f"bitshuffle kernel launch failed ({which} route, CUDA error {rc})")
+        _count_launch(inverse, which)
     return out

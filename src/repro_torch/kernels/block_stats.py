@@ -54,11 +54,9 @@ def block_stats(xb: torch.Tensor, e: float, p_e: int, *, spec: DtypeSpec = specs
     reqlen, shift, nbytes = (torch.empty(nb, dtype=torch.int32, device=dev) for _ in range(3))
     if nb:                                   # a grid of 0 is refused
         fn = _build.function("block_stats", "szx_block_stats", _ARGTYPES)
-        with torch.cuda.device(dev):
-            rc = fn(spec.code, xb.data_ptr(), nb, bs, float(e), int(p_e),
-                    mu.data_ptr(), radius.data_ptr(), const.data_ptr(),
-                    reqlen.data_ptr(), shift.data_ptr(), nbytes.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
+        rc = _build.launch(fn, dev, (spec.code, xb.data_ptr(), nb, bs, float(e), int(p_e),
+                                     mu.data_ptr(), radius.data_ptr(), const.data_ptr(),
+                                     reqlen.data_ptr(), shift.data_ptr(), nbytes.data_ptr()))
         if rc:
             raise RuntimeError(f"block_stats kernel launch failed (CUDA error {rc})")
         _count_launch()

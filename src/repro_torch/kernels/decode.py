@@ -68,12 +68,10 @@ def decode_body(body: torch.Tensor, nnc: int, lo: int, mu, shift, nbytes, rank, 
     mid_total = torch.empty(1, dtype=torch.int64, device=dev)
     out = torch.empty((rb, bs), dtype=spec.dtype, device=dev)
     fn = _build.function("decode", "szx_decode", _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(spec.code, body.data_ptr(), body.numel(), nb, bs, l_off, mid_off,
-                lo, rb, int(rebase), mu.data_ptr(), shift.data_ptr(),
-                nbytes.data_ptr(), rank.data_ptr(), status.data_ptr(),
-                starts.data_ptr(), mid_total.data_ptr(), out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(fn, dev, (spec.code, body.data_ptr(), body.numel(), nb, bs, l_off,
+                                 mid_off, lo, rb, int(rebase), mu.data_ptr(), shift.data_ptr(),
+                                 nbytes.data_ptr(), rank.data_ptr(), status.data_ptr(),
+                                 starts.data_ptr(), mid_total.data_ptr(), out.data_ptr()))
     if rc:
         raise RuntimeError(f"decode kernel launch failed (CUDA error {rc})")
     _count_launch()

@@ -57,11 +57,10 @@ def encode(xb: torch.Tensor, e: float, p_e: int, *, spec: DtypeSpec = specs.F32)
     L = torch.empty((nb, bs), dtype=torch.uint8, device=dev)
     if nb:                                   # a grid of 0 is refused
         fn = _build.function("encode", "szx_encode", _ARGTYPES)
-        with torch.cuda.device(dev):
-            rc = fn(spec.code, xb.data_ptr(), nb, bs, float(e), int(p_e),
-                    mu.data_ptr(), const.data_ptr(), reqlen.data_ptr(),
-                    shift.data_ptr(), nbytes.data_ptr(), planes.data_ptr(),
-                    L.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        rc = _build.launch(fn, dev, (spec.code, xb.data_ptr(), nb, bs, float(e), int(p_e),
+                                     mu.data_ptr(), const.data_ptr(), reqlen.data_ptr(),
+                                     shift.data_ptr(), nbytes.data_ptr(), planes.data_ptr(),
+                                     L.data_ptr()))
         if rc:
             raise RuntimeError(f"encode kernel launch failed (CUDA error {rc})")
         _count_launch()

@@ -92,11 +92,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if b == 0 or sq == 0:                    # a grid of 0 is refused
         return out
     fn = _build.function("flash_attention", _ROUTES[q.dtype], _ARGTYPES)
-    dev = q.device
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, sq, skv, hq, hkv, hd, int(bool(causal)), int(window),
-                1.0 / math.sqrt(hd), torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(fn, q.device, (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                      b, sq, skv, hq, hkv, hd, int(bool(causal)), int(window),
+                                      1.0 / math.sqrt(hd)))
     if rc:
         raise RuntimeError(f"flash_attention kernel launch failed (CUDA error {rc})")
     _count_launch()

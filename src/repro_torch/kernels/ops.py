@@ -84,16 +84,18 @@ def unpack_dense(planes, mu, shift, nbytes, *, spec: DtypeSpec = specs.F32):
 
 
 def unpack_range(planes, mu, shift, nbytes, L, lo: int, hi: int, *,
-                 spec: DtypeSpec = specs.F32):
+                 spec: DtypeSpec = specs.F32, elided=None):
     """Partial decode of blocks [lo, hi): ``unpack(...)[lo:hi]`` at O(hi - lo)
-    cost; a range with no XOR-lead elision takes the dense path."""
+    cost; a range with no XOR-lead elision takes the dense path.  ``elided``
+    (nb,) bool on the host, where the caller has it, says which blocks hold
+    an L > 0, so the choice needs no reduction on the device."""
     nb = mu.shape[0]
     if not 0 <= lo < hi <= nb:
         raise ValueError(f"block range [{lo}, {hi}) out of [0, {nb})")
     args = (planes[lo:hi].contiguous(), mu[lo:hi].contiguous(),
             shift[lo:hi].contiguous(), nbytes[lo:hi].contiguous())
     L_r = L[lo:hi]
-    if not bool(L_r.any()):
+    if not bool(elided[lo:hi].any() if elided is not None else L_r.any()):
         return unpack_dense(*args, spec=spec)
     return unpack(*args, L_r, spec=spec)
 
@@ -138,6 +140,15 @@ def launch_counts() -> dict[str, int]:
             "flash_attention": flash_mod.LAUNCHES}
 
 
+def store_route_counts() -> dict[str, int]:
+    """The store path's kernels' launches by route (``unpack_vector``,
+    ``unpack_scalar``, ``unpack_dense_vector``, ``unpack_dense_scalar``,
+    ``bitshuffle_vector``, ``bitshuffle_scalar``,
+    ``bitshuffle_inverse_vector``, ``bitshuffle_inverse_scalar``); zeroed by
+    :func:`reset_launch_counts`."""
+    return {**unpack_mod.ROUTE_LAUNCHES, **bitshuffle_mod.ROUTE_LAUNCHES}
+
+
 def planes_route_counts() -> dict[str, int]:
     """The planes kernels' launches by route (``planes_encode_vector``,
     ``planes_encode_scalar``, ``planes_decode_vector``,
@@ -151,6 +162,8 @@ def reset_launch_counts() -> None:
     decode.LAUNCHES = 0
     bitshuffle_mod.LAUNCHES = bitshuffle_mod.INVERSE_LAUNCHES = 0
     unpack_mod.LAUNCHES = unpack_mod.DENSE_LAUNCHES = 0
+    for counts in (unpack_mod.ROUTE_LAUNCHES, bitshuffle_mod.ROUTE_LAUNCHES):
+        counts.update(dict.fromkeys(counts, 0))
     planes_mod.ENCODE_LAUNCHES = planes_mod.DECODE_LAUNCHES = 0
     planes_mod.ROUTE_LAUNCHES.update(dict.fromkeys(planes_mod.ROUTE_LAUNCHES, 0))
     flash_mod.LAUNCHES = 0

@@ -64,10 +64,9 @@ def pack(xb: torch.Tensor, mu: torch.Tensor, shift: torch.Tensor, nbytes: torch.
     mid = torch.empty((nb, bs), dtype=torch.int32, device=dev)
     if nb:                                   # a grid of 0 is refused
         fn = _build.function("pack", "szx_pack", _ARGTYPES)
-        with torch.cuda.device(dev):
-            rc = fn(spec.code, xb.data_ptr(), nb, bs, mu.data_ptr(), shift.data_ptr(),
-                    nbytes.data_ptr(), planes.data_ptr(), L.data_ptr(), mid.data_ptr(),
-                    torch.cuda.current_stream(dev).cuda_stream)
+        rc = _build.launch(fn, dev, (spec.code, xb.data_ptr(), nb, bs, mu.data_ptr(),
+                                     shift.data_ptr(), nbytes.data_ptr(), planes.data_ptr(),
+                                     L.data_ptr(), mid.data_ptr()))
         if rc:
             raise RuntimeError(f"pack kernel launch failed (CUDA error {rc})")
         _count_launch()

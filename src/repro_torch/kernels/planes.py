@@ -102,8 +102,7 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
 
 def _launch(name: str, symbol: str, argtypes, dev: torch.device, *args) -> None:
     fn = _build.function("planes", symbol, argtypes)
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    rc = _build.launch(fn, dev, args)
     if rc:
         raise RuntimeError(f"{name} kernel launch failed (CUDA error {rc})")
 

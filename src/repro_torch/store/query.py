@@ -200,9 +200,11 @@ def _add_exact_nonconst(acc, f, off, length, seq, const, counts, device) -> None
     payload, _flags = container.read_frame_at(f, off, length, seq, device=device)
     p, enc = container.parse_stream(payload, device=device)
     dev = enc.L.device
-    nc = torch.from_numpy(~const).to(dev)
+    # block indices from the host's bitmap: an index gather, where a boolean
+    # mask would wait on the device for its count
+    nc = torch.from_numpy(np.flatnonzero(~const)).to(dev)
     sub = BlockEncoding(enc.mu[nc], enc.const[nc], enc.reqlen[nc], enc.shift[nc],
-                        enc.nbytes[nc], enc.planes[nc], enc.L[nc])
+                        enc.nbytes[nc], enc.planes[nc], enc.L[nc], enc.elided[~const])
     dec = transform.decode_blocks(sub, p).to(torch.float64)
     # only the stream's last block can be partly padding
     cnt = torch.from_numpy(counts[~const]).to(dev)

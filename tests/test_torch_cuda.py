@@ -195,14 +195,30 @@ def test_one_body_copy_per_frame_on_card(card, monkeypatch):
     assert gets == [n for p in payloads for n in (2, len(p) - container.HEADER.size)]
 
 
+def _off_by_one(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one byte past an aligned address."""
+    buf = torch.empty(t.numel() * t.element_size() + 1, dtype=torch.uint8, device=t.device)
+    view = buf[1:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.parametrize("spec", specs.SPECS, ids=lambda s: s.name)
 def test_bitshuffle_kernel_matches_plain(card, spec):
+    """Both routes: the vector route for tiles on 16 bytes (nt 1, 3, 257 and
+    a 64 MiB frame's worth), the scalar route for tiles one byte off; nt = 0
+    launches nothing; launches counted by route."""
     from repro_torch.kernels import bitshuffle
 
     g = torch.Generator().manual_seed(spec.code)
     T = specs.tile_bytes(spec)
-    for nt in (0, 1, 3, 257):
-        tiles = torch.randint(0, 256, (nt, T), dtype=torch.uint8, generator=g).to(card)
+    cases = [torch.randint(0, 256, (nt, T), dtype=torch.uint8, generator=g).to(card)
+             for nt in (0, 1, 3, 257, (64 << 20) // T)]
+    cases.append(_off_by_one(cases[3]))
+    assert bitshuffle.route(cases[-1].data_ptr()) == "scalar"
+    assert {bitshuffle.route(t.data_ptr()) for t in cases[:-1]} == {"vector"}
+    for tiles in cases:
+        nt = tiles.shape[0]
         fwd = bitshuffle.bitshuffle(tiles, spec=spec)
         assert torch.equal(fwd, bitshuffle.bitshuffle_plain(tiles, False)), (spec.name, nt)
         inv = bitshuffle.bitshuffle(tiles, spec=spec, inverse=True)
@@ -211,28 +227,73 @@ def test_bitshuffle_kernel_matches_plain(card, spec):
     with pytest.raises(ValueError, match="tile width"):
         bitshuffle.bitshuffle(torch.zeros((1, T + 8), dtype=torch.uint8, device=card), spec=spec)
     counts = ops.launch_counts()
-    assert counts["bitshuffle"] == 3 and counts["bitshuffle_inverse"] == 6
+    assert counts["bitshuffle"] == 5 and counts["bitshuffle_inverse"] == 10
+    routes = ops.store_route_counts()
+    assert (routes["bitshuffle_vector"], routes["bitshuffle_scalar"]) == (4, 1)
+    assert (routes["bitshuffle_inverse_vector"], routes["bitshuffle_inverse_scalar"]) == (9, 1)
 
 
 @pytest.mark.parametrize("spec", specs.SPECS, ids=lambda s: s.name)
 def test_unpack_kernels_match_plain(card, spec):
+    """Both routes of both kernels: the vector route for bs 128, 100, 4096
+    and a 64 MiB frame (bs 128), the scalar route for bs 1 and for planes
+    and L one byte off their alignment; nb = 0 launches nothing; launches
+    counted by route."""
     from repro_torch.kernels import unpack
 
-    for nb, bs in ((4096, 128), (257, 1), (97, 100), (5, 4096)):
+    frame_nb = (64 << 20) // (spec.itemsize * 128)
+    want = dict.fromkeys(("unpack_vector", "unpack_scalar", "unpack_dense_vector",
+                          "unpack_dense_scalar"), 0)
+    for nb, bs in ((4096, 128), (257, 1), (97, 100), (5, 4096), (frame_nb, 128)):
         x = _with_nonfinite(_walk(nb * bs, spec.dtype, seed=nb, dev=card)).reshape(nb, bs)
         x[1::3] = 0.0
         x[1::3, ::2] = -0.0                               # blocks of mixed-sign zeros
         for e in (1e-3, float(torch.finfo(spec.dtype).tiny)):
             mu, _c, _r, shift, nbytes, planes, L = encode.encode(
                 x, e, specs.exact_exponent_of(e), spec=spec)
-            k = unpack.unpack(planes, mu, shift, nbytes, L, spec=spec)
-            assert _same(k, unpack.unpack_plain(planes, mu, shift, nbytes, L, spec))
-            kd = unpack.unpack_dense(planes, mu, shift, nbytes, spec=spec)
-            assert _same(kd, unpack.unpack_dense_plain(planes, mu, shift, nbytes, spec))
-            if not bool(L.any()):
-                assert _same(k, kd)
+            cases = [(planes, L)]
+            if bs == 100:                                 # the vector shape, one byte off
+                cases.append((_off_by_one(planes), _off_by_one(L)))
+            for pl, LL in cases:
+                k = unpack.unpack(pl, mu, shift, nbytes, LL, spec=spec)
+                assert _same(k, unpack.unpack_plain(pl, mu, shift, nbytes, LL, spec))
+                kd = unpack.unpack_dense(pl, mu, shift, nbytes, spec=spec)
+                assert _same(kd, unpack.unpack_dense_plain(pl, mu, shift, nbytes, spec))
+                if not bool(LL.any()):
+                    assert _same(k, kd)
+                want[f"unpack_{unpack.tensor_route(pl, LL)}"] += 1
+                want[f"unpack_dense_{unpack.tensor_route(pl)}"] += 1
+    empty = torch.zeros((0, spec.itemsize, 128), dtype=torch.uint8, device=card)
+    none = torch.zeros(0, dtype=torch.int32, device=card)
+    got = unpack.unpack(empty, torch.zeros(0, dtype=spec.dtype, device=card), none, none,
+                        torch.zeros((0, 128), dtype=torch.uint8, device=card), spec=spec)
+    assert got.shape == (0, 128) and got.dtype == spec.dtype
     counts = ops.launch_counts()
-    assert counts["unpack"] == 8 and counts["unpack_dense"] == 8
+    assert counts["unpack"] == 12 and counts["unpack_dense"] == 12
+    routes = {k: v for k, v in ops.store_route_counts().items() if k.startswith("unpack")}
+    assert routes == want and routes["unpack_vector"] == 8 and routes["unpack_scalar"] == 4
+
+
+def test_store_path_takes_the_vector_route(card, tmp_path):
+    """A staged store's save, ROI reads (host parse + unpack) and exact query
+    launch unpack, unpack_dense and bitshuffle both ways, every launch on
+    the vector route."""
+    from repro_torch.store import ArrayStore
+
+    x = _walk(1 << 18, torch.float32, seed=3).reshape(256, 1024)
+    x[:32] = 0.0
+    x[32:40] = torch.linspace(1.0, 2.0, 1024) * torch.tensor([1.0, -1.0]).repeat(512)
+    x[-32:] = 1.0 + 1e-3 * torch.randn((32, 1024), generator=torch.Generator().manual_seed(1))
+    ArrayStore.save(tmp_path / "c.szs", x.to(card), 1e-3, chunk_shape=(64, 1024),
+                    stage="bitshuffle-rle")
+    ca = ArrayStore.open(tmp_path / "c.szs")
+    for key in ((Ellipsis,), (slice(33, 38),), (slice(100, 141), slice(3, 901)), (250, -1)):
+        assert ca[key].device.type == "cuda"
+    assert ca.stats().exact
+    routes = ops.store_route_counts()
+    assert all(routes[k] > 0 for k in ("unpack_vector", "unpack_dense_vector",
+                                       "bitshuffle_vector", "bitshuffle_inverse_vector")), routes
+    assert not any(v for k, v in routes.items() if k.endswith("scalar")), routes
 
 
 @pytest.mark.parametrize("stage", [None, "bitshuffle-rle", "deflate"])
