@@ -95,6 +95,24 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      on the card through the decode kernel (every leaf within the bound of
      the saved one) and replays step 4.
 
+ 12. trains from a compressed store, with telemetry: the codec cell's field
+     as (32768, 4096) rows in chunks of (32, 4096), saved on the card, then a
+     shuffled epoch of (16, 4096) windows, batch 8, 20 steps (~8 % of the
+     store) by both read routes: bytes read through a counting file under
+     20 % of the file, serial and pipelined samples/s with 0, 2 and 4
+     workers, pipelined batches bit-identical to batch_at, unpack on its
+     vector route (decode_body with fused_range=True; launch counters zeroed
+     before each route and read after); then ``launch.train.main`` trains
+     llama3.2-1b at full width (B 4 x S 2048) from phase 5's stage-off store
+     with 2 ingest workers and --profile-dir: a warm-up and 3 steps, finite
+     losses, moving weights, the flash kernel twice a layer a step,
+     trace.json with train.step, ingest.batch and store.read spans, valid
+     metrics.prom lines, the profiler's trace; SteppedBatches seeking back
+     gives the same tokens; last, the same model timed step by step on the
+     store's batches (batch draw + step) beside phase 11's plain step, and
+     one profiled step's device busy share (``--ingest`` runs only this
+     phase, after the build).
+
 Phase 2 also holds the planes kernels against their plain versions on both
 routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
 nb = 0; edge blocks; a view one float off and planes one byte off; random
@@ -115,6 +133,7 @@ import hashlib
 import io
 import json
 import math
+import re
 import struct
 import subprocess
 import sys
@@ -1938,9 +1957,10 @@ def phase_train(args):
     return results
 
 
-def profile_train(fn, state, batch, mode: str) -> None:
+def profile_train(fn, state, batch, mode: str) -> float | None:
     """torch.profiler over one training step: device busy share of its wall
-    time and the top kernels by device time (card activity only)."""
+    time (returned; None without device events) and the top kernels by
+    device time (card activity only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1958,6 +1978,7 @@ def profile_train(fn, state, batch, mode: str) -> None:
     share = f"{100 * busy / wall:.1f}%" if busy else "not measured: no device events"
     log(f"profile train {mode} step: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
         f"({share}); top: {top}")
+    return busy / wall if busy else None
 
 
 def restart_run(args, cfg, opt, ds) -> None:
@@ -2040,6 +2061,323 @@ def restart_run(args, cfg, opt, ds) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: training ingest from a compressed store, with telemetry
+# ---------------------------------------------------------------------------
+
+DATA_DIR = ROOT / "_smoke_data"    # phase 12's store files and traces; removed after it
+INGEST_SHAPE = (32768, 4096)       # the codec cell's 512^3 field as rows of 4096
+INGEST_CHUNK = (32, 4096)          # benchmarks/run.py:532-538, the ingest row's grid
+INGEST_WINDOW, INGEST_BATCH, INGEST_STEPS = (16, 4096), 8, 20   # ~8 % of the store an epoch
+INGEST_SEED = 5                    # benchmarks/run.py's loader seed
+INGEST_WORKERS = (0, 2, 4)
+STORE_TRAIN_STEPS = 4              # the launcher's run: a warm-up and 3 timed steps
+
+
+class CountingFile:
+    """A binary file that counts the bytes read through it."""
+
+    def __init__(self, f):
+        self.f = f
+        self.n = 0
+
+    def read(self, k=-1):
+        b = self.f.read(k)
+        self.n += len(b)
+        return b
+
+    def seek(self, *a):
+        return self.f.seek(*a)
+
+    def tell(self):
+        return self.f.tell()
+
+    def close(self):
+        self.f.close()
+
+
+def ingest_epochs(path: Path, fused: bool) -> tuple[list, dict]:
+    """The serial epoch through a counting file (twice: the first also warms
+    up), then a pipelined epoch with each worker count, every batch held bit
+    for bit to the serial one.  Returns (serial batches, {label: samples/s,
+    the serial one as (samples/s, the first epoch's)})."""
+    import torch
+    from repro_torch.data import StoreLoader
+    from repro_torch.store import ArrayStore
+
+    samples = INGEST_BATCH * INGEST_STEPS
+    rates = {}
+    for rep in range(2):                        # the first epoch also warms up
+        counting = CountingFile(open(path, "rb"))
+        with ArrayStore.open(counting, fused_range=fused) as ca:
+            ld = StoreLoader(ca, INGEST_WINDOW, INGEST_BATCH, seed=INGEST_SEED, workers=0)
+            serial, t = timed(lambda: [ld.batch_at(s).clone() for s in range(INGEST_STEPS)])
+        counting.close()
+        ratio = counting.n / path.stat().st_size
+        rates["serial"] = (samples / t, rates.get("serial", (samples / t,))[0])
+    check(ratio < 0.2, f"ingest fused={fused}: bytes read ratio {ratio:.4f} >= 0.2")
+    for w in INGEST_WORKERS:
+        with StoreLoader(path, INGEST_WINDOW, INGEST_BATCH, seed=INGEST_SEED, workers=w,
+                         lookahead=2, fused_range=fused) as ld:
+            got, t = timed(lambda: [b.clone() for b in ld.batches(steps=INGEST_STEPS)])
+        rates[f"workers={w}"] = samples / t
+        check(len(got) == INGEST_STEPS and all(same_bits(g, r) for g, r in zip(got, serial)),
+              f"ingest fused={fused} workers={w}: pipelined batches differ from batch_at")
+    rates["bytes_read_ratio"] = ratio
+    return serial, rates
+
+
+def phase_ingest(args) -> dict:
+    """Phase 12, part 1: the codec cell's field as (32768, 4096) rows in
+    chunks of (32, 4096), saved on the card; a shuffled epoch of (16, 4096)
+    windows, batch 8, 20 steps (~8 % of the store) by both read routes.
+    Returns the launches of the epochs."""
+    import torch
+    from repro_torch.core.codec import Bound, plan
+    from repro_torch.data import WindowSampler
+    from repro_torch.kernels import ops
+    from repro_torch.store import ArrayStore
+
+    field = make_field(args.edge, args.seed).reshape(INGEST_SHAPE)
+    path = DATA_DIR / "ingest.szs"
+    _, t_save = timed(lambda: ArrayStore.save(path, field, Bound.rel(1e-3),
+                                              chunk_shape=INGEST_CHUNK))
+    raw = field.numel() * 4
+    log(f"ingest store {tuple(field.shape)} f32 chunks {INGEST_CHUNK}: {path.stat().st_size} B "
+        f"(CR {raw / path.stat().st_size:.4f}), saved in {t_save:.3f} s")
+    e = plan.resolve_error_bound(field, Bound.rel(1e-3))
+    launches = {}
+    for fused in (False, True):
+        route = "fused decode_range" if fused else "host parse + unpack"
+        ops.reset_launch_counts()
+        batches, rates = ingest_epochs(path, fused)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        log(f"ingest route={route}: window {INGEST_WINDOW} batch {INGEST_BATCH} x "
+            f"{INGEST_STEPS} steps (e={e:.6g}), bytes read ratio {rates.pop('bytes_read_ratio'):.6f} "
+            f"(< 0.2); samples/s serial {rates['serial'][0]:.1f} (first epoch "
+            f"{rates.pop('serial')[1]:.1f}), pipelined "
+            + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+            + f"; pipelined == batch_at bit for bit; launches {counts}")
+        if fused:
+            check(counts.get("decode_body", 0) > 0, "ingest fused: decode_body not launched")
+            check(all(same_bits(a, b) for a, b in zip(batches, host_batches)),
+                  "ingest: the fused route's batches differ from the host parse's")
+        else:
+            host_batches = batches
+            origins = WindowSampler(INGEST_SHAPE, INGEST_WINDOW, INGEST_BATCH,
+                                    seed=INGEST_SEED).origins_at(0)
+            for wi, (r, c) in enumerate(origins.tolist()):
+                err = max_abs_diff(batches[0][wi], field[r:r + INGEST_WINDOW[0],
+                                                         c:c + INGEST_WINDOW[1]])
+                check(err <= e, f"ingest: window {wi} of step 0 off the field by {err} > e={e}")
+            check(counts.get("unpack", 0) > 0, "ingest host parse: unpack not launched")
+            by_route = ops.store_route_counts()
+            log(f"ingest host parse launches by route: {by_route}")
+            check(by_route["unpack_vector"] > 0, "ingest: unpack not on its vector route")
+            check(not any(v for k, v in by_route.items() if k.endswith("_scalar")),
+                  f"ingest: launches off the vector route {by_route}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    del field, batches, host_batches
+    torch.cuda.empty_cache()
+    ingest_breakdown(path)
+    return launches
+
+
+def ingest_breakdown(path: Path, reps: int = 5) -> None:
+    """Where a batch's time goes: step 0's range reads by stage (host clock,
+    synchronized around each stage; median of reps), then one pipelined
+    epoch (2 workers) with telemetry on, read from its spans."""
+    import statistics
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.codec import container, transform
+    from repro_torch.data import StoreLoader
+    from repro_torch.data.store_loader import _assemble, plan_batch
+    from repro_torch.store import ArrayStore
+
+    ca = ArrayStore.open(path)
+    ld = StoreLoader(ca, INGEST_WINDOW, INGEST_BATCH, seed=INGEST_SEED, workers=0)
+    tasks, placements = plan_batch(ca._grid, ca._block_size, ld.sampler.origins_at(0),
+                                   INGEST_WINDOW)
+    times: dict[str, list[float]] = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[name][-1] += (time.perf_counter() - t0) * 1e3
+        return res
+
+    f = ca._files[0]
+    for _ in range(reps):
+        for name in ("plan", "file reads", "parse prefix", "extract range", "decode kernel",
+                     "assemble", "total batch_at"):
+            times.setdefault(name, []).append(0.0)
+        stage("plan", lambda: plan_batch(ca._grid, ca._block_size, ld.sampler.origins_at(0),
+                                         INGEST_WINDOW))
+        segs = {}
+        for cid, (lo_b, hi_b) in tasks.items():
+            off, length, elements = (int(v) for v in ca._frames[cid])
+
+            def reads():
+                _flags, _plen, sheader = container.read_frame_stream_header_at(f, off, cid)
+                prefix_len = container.stream_prefix_length(sheader)
+                prefix = sheader + container._read_exact(f, prefix_len - container.HEADER.size)
+                return prefix, prefix_len
+
+            prefix, prefix_len = stage("file reads", reads)
+            sec = stage("parse prefix", lambda: container.parse_stream_sections(
+                prefix, device="cuda"))
+            hi = min(hi_b, sec.plan.nblocks)
+            mlo, mhi = sec.mid_range(lo_b, hi)
+
+            def mid_read():
+                f.seek(off + container.FRAME_HEADER.size + prefix_len + mlo)
+                return container._read_exact(f, mhi - mlo)
+
+            mid = stage("file reads", mid_read)
+            enc = stage("extract range", lambda: container.extract_block_range(
+                sec, mid, lo_b, hi))
+            flat = stage("decode kernel", lambda: transform.decode_blocks(
+                enc, sec.plan).reshape(-1))
+            bs = ca._block_size
+            segs[cid] = (flat[: min(hi * bs, elements) - lo_b * bs], lo_b)
+        out = ld._empty()
+        stage("assemble", lambda: _assemble(out, placements, segs, ca._grid, ca._block_size))
+        got = stage("total batch_at", lambda: ld.batch_at(0))
+        check(same_bits(got, out), "ingest breakdown: the staged batch differs from batch_at")
+    med = {k: statistics.median(v) for k, v in times.items()}
+    total = med.pop("total batch_at")
+    log(f"ingest breakdown of one batch ({len(tasks)} range reads, {len(placements)} window "
+        f"pieces; median of {reps}, host clock, synchronized): batch_at {total:.3f} ms; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()))
+    ca.close()
+    obs.reset()
+    obs.enable()
+    try:
+        with StoreLoader(path, INGEST_WINDOW, INGEST_BATCH, seed=INGEST_SEED, workers=2) as ld:
+            _, t = timed(lambda: [b.clone() for b in ld.batches(steps=INGEST_STEPS)])
+        agg = obs.REGISTRY.span_aggregates()
+        snap = obs.REGISTRY.snapshot()["metrics"]
+    finally:
+        obs.disable()
+        obs.reset()
+    hist = {k: v["series"][""] for k, v in snap.items() if v["kind"] == "histogram"}
+    log(f"ingest epoch with telemetry on (2 workers): {INGEST_BATCH * INGEST_STEPS / t:.1f} "
+        f"samples/s; spans " + ", ".join(f"{k} {c} x {tot / c / 1e6:.3f} ms"
+                                         for k, (c, tot) in sorted(agg.items()))
+        + "; " + ", ".join(f"{k} {h['count']} x {h['sum'] / max(h['count'], 1) * 1e3:.3f} ms"
+                           for k, h in sorted(hist.items())))
+
+
+def phase_store_train(args) -> tuple[dict, list, float | None]:
+    """Phase 12, part 2: llama3.2-1b at full width and depth, B 4 x S 2048
+    tokens from phase 5's stage-off 512^3 store (made again).  First the
+    model timed step by step on the store's batches (batch draw + step,
+    synchronized) and one profiled step; then ``launch.train.main`` with 2
+    ingest workers and ``--profile-dir``: finite losses, weights that move,
+    the flash kernel twice a layer a step, a valid trace.json (train.step,
+    ingest.batch, store.read spans), metrics.prom and the profiler's trace;
+    SteppedBatches seeking back gives the same tokens.  Returns (the
+    launcher run's launches, store-fed step seconds, device busy share)."""
+    import shutil
+
+    import torch
+    from repro_torch import configs, obs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.codec import Bound
+    from repro_torch.data import DataConfig, SteppedBatches, StoreLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW
+    from repro_torch.store import ArrayStore
+    from repro_torch.train import step as step_mod
+
+    cfg = configs.get(TRAIN_ARCH)
+    store = DATA_DIR / "store_off.szs"
+    x = store_field(make_field(args.edge, args.seed), args.seed)
+    ArrayStore.save(store, x, Bound.rel(1e-3))
+    del x
+    torch.cuda.empty_cache()
+
+    lm = StoreLM(str(store), DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    with SteppedBatches(lambda s: lm.batches(start_step=s)) as fn:
+        fn(0)
+        one = fn(1)["tokens"].clone()
+        fn(2)
+        check(torch.equal(fn(1)["tokens"], one) and torch.equal(one, lm.batch_at(1)["tokens"]),
+              "SteppedBatches: seeking back to step 1 gave other tokens")
+    opt = AdamW(lr=TRAIN_LR)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 8)
+    state = step_mod.init_state(cfg, opt, gen, device="cuda")
+    step = step_mod.make_train_step(cfg, opt)
+    times, draws = [], []
+    with SteppedBatches(lambda s: lm.batches(start_step=s)) as fn:
+        state, _ = step(state, fn(0))
+        for s in range(1, TRAIN_STEPS + 1):
+            batch, t_draw = timed(lambda: fn(s))
+            (state, m), t = timed(lambda: step(state, batch))
+            draws.append(t_draw)
+            times.append(t_draw + t)
+        busy = profile_train(step, state, fn(TRAIN_STEPS + 1), "store-fed plain")
+    lm.close()
+    log(f"store-fed train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} plain (batch draw + "
+        f"step, host clock, synchronized): " + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + " ms; of which the batch draw " + ", ".join(f"{t * 1e3:.2f}" for t in draws) + " ms")
+    del state, m, batch
+    torch.cuda.empty_cache()
+
+    prof_dir = DATA_DIR / "profile"
+    ops.reset_launch_counts()
+    try:
+        tr, t_run = timed(lambda: train.main([
+            "--arch", TRAIN_ARCH, "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+            "--steps", str(STORE_TRAIN_STEPS), "--data-store", str(store), "--data-workers", "2",
+            "--profile-dir", str(prof_dir), "--ckpt", str(CKPT_DIR), "--seed", str(args.seed)]))
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        losses = [h["loss"] for h in tr.history]
+        check(len(losses) == STORE_TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+              f"store-fed training: losses {losses}")
+        check(launches.get("flash_attention", 0) == 2 * cfg.n_layers * STORE_TRAIN_STEPS,
+              f"store-fed training: {launches.get('flash_attention')} flash launches in "
+              f"{STORE_TRAIN_STEPS} steps")
+        final_ln = CheckpointManager(str(CKPT_DIR), device="cuda").restore_leaves(
+            ["params/final_ln"])["params/final_ln"]
+        moved = float((final_ln - 1.0).abs().max())
+        check(moved > 0, "store-fed training: the weights did not move")
+    finally:
+        obs.disable()
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    trace = json.loads((prof_dir / "trace.json").read_text())
+    spans = {}
+    for ev in trace["traceEvents"]:
+        spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    for name in ("train.step", "ingest.batch", "store.read"):
+        check(name in spans, f"trace.json holds no {name} span")
+    prom = (prof_dir / "metrics.prom").read_text().splitlines()
+    line = re.compile(r'^(# TYPE szx_[a-z0-9_]+ (counter|gauge|histogram)|'
+                      r'szx_[a-z0-9_]+(\{[^}]*\})? [-+0-9.eInf]+)$')
+    bad = [ln for ln in prom if not line.match(ln)]
+    check(prom and not bad, f"metrics.prom: invalid lines {bad[:3]}")
+    drawn = [int(ln.split()[-1]) for ln in prom if ln.startswith("szx_ingest_batches{")]
+    check(sum(drawn) >= STORE_TRAIN_STEPS, f"metrics.prom: ingest.batches {drawn}")
+    torch_trace = json.loads((prof_dir / "torch_trace.json").read_text())
+    kernels = sum(1 for ev in torch_trace["traceEvents"] if ev.get("cat") == "kernel")
+    log(f"store-fed training (launch.train.main, --profile-dir; host clock): {t_run:.1f} s in "
+        f"all; steps " + ", ".join(f"{h['dt'] * 1e3:.1f}" for h in tr.history)
+        + " ms (the first a warm-up; telemetry and torch.profiler on); losses "
+        + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; max |final_ln - 1| {moved:.3e}; launches {launches}; spans (count, mean ms): "
+        + ", ".join(f"{k} {len(v)} {sum(v) / len(v):.3f}" for k, v in sorted(spans.items()))
+        + f"; metrics.prom {len(prom)} lines; torch_trace.json "
+          f"{(prof_dir / 'torch_trace.json').stat().st_size} B, {kernels} kernel events")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    return launches, times, busy
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2072,6 +2410,9 @@ def main() -> int:
                     help="build, time the store path's kernels as phase 6 does (unpack, "
                          "unpack_dense, bitshuffle both ways at the store chunk's and a 64 MiB "
                          "frame's shapes), print their rows as JSON and stop")
+    ap.add_argument("--ingest", action="store_true",
+                    help="build, run phase 12 alone (training ingest from a compressed store, "
+                         "with telemetry) and stop")
     args = ap.parse_args()
 
     import torch
@@ -2108,6 +2449,16 @@ def main() -> int:
 
     if args.store_kernels:
         return store_kernels_only(args)
+    if args.ingest:
+        import shutil
+
+        DATA_DIR.mkdir(exist_ok=True)
+        try:
+            log(f"phase 12 launches: ingest {phase_ingest(args)}, training "
+                f"{phase_store_train(args)[0]}")
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernels(gen)
@@ -2179,6 +2530,26 @@ def main() -> int:
         log(f"time train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} "
             f"{'plain' if not P else f'compressed P={P}'} (host clock, synchronized): "
             + ", ".join(f"{t * 1e3:.1f} ms" for t in times))
+    torch.cuda.empty_cache()
+
+    log(f"phase 12 starts {time.perf_counter() - t_start:.1f} s into the run")
+    import shutil
+
+    DATA_DIR.mkdir(exist_ok=True)
+    try:
+        ingest_launches = phase_ingest(args)
+        store_launches, store_s, busy = phase_store_train(args)
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+    for counts in (ingest_launches, store_launches):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"time train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} plain: store-fed (batch "
+        f"draw + step) " + ", ".join(f"{t * 1e3:.1f}" for t in store_s)
+        + " ms vs synthetic tokens (phase 11, step only) "
+        + ", ".join(f"{t * 1e3:.1f}" for t in train_s[0])
+        + f" ms (host clock, synchronized); device busy in a store-fed step "
+        + (f"{100 * busy:.1f}%" if busy else "not measured"))
 
     kernels = []
     for name, ms, pms, bound_ms, *extra in rows:

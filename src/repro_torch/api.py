@@ -16,6 +16,11 @@
                   multi-leaf container-v3 stream (leaves encoded on the card)
   CheckpointManager -- atomic, keep-k, optionally SZx-compressed checkpoints
                   of trees, byte-identical to the JAX package's
+  StoreLoader  -- streaming training ingest: pipelined shuffled-ROI-window
+                  batches over an ArrayStore (file or shard manifest) on
+                  the card, bytes read proportional to the batch
+  StoreLM      -- StoreLoader windows quantized into LM tokens (the train
+                  launcher's ``--data-store``)
   block_stats / pack -- the two-call SZx encode (``ops.block_stats``,
                   ``ops.pack``) whose halves the fused encode runs in one pass
 """
@@ -30,6 +35,7 @@ from repro_torch.core.codec.szx_codec import (  # noqa: F401
 )
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401
 from repro_torch.core.codec.tree import TreeCodec  # noqa: F401
+from repro_torch.data.store_loader import StoreLM, StoreLoader  # noqa: F401
 from repro_torch.kernels.ops import block_stats, pack  # noqa: F401
 from repro_torch.store import ArrayStore  # noqa: F401
 
@@ -37,6 +43,8 @@ __all__ = [
     "ArrayStore",
     "Bound",
     "CheckpointManager",
+    "StoreLoader",
+    "StoreLM",
     "TreeCodec",
     "block_stats",
     "pack",

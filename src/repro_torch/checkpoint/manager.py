@@ -42,6 +42,7 @@ from typing import Iterable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import pytree
 from repro_torch.core.codec import container
 from repro_torch.core.codec.plan import Bound, as_bound
@@ -99,7 +100,7 @@ class CheckpointManager:
             return self._save_sync(step, tree)
         self.wait()
         buf = io.BytesIO()
-        manifest = self._tree_codec.compress_tree(tree, buf)    # encode now
+        manifest = self._encode(step, tree, buf)                # encode now
 
         def write(f) -> dict:
             f.write(buf.getbuffer())
@@ -124,7 +125,18 @@ class CheckpointManager:
             raise err
 
     def _save_sync(self, step: int, tree) -> dict:
-        return self._commit(step, lambda f: self._tree_codec.compress_tree(tree, f))
+        return self._commit(step, lambda f: self._encode(step, tree, f))
+
+    def _encode(self, step: int, tree, f) -> dict:
+        """``tree`` as one TreeCodec stream into ``f``; returns its manifest.
+        Per-leaf encode time lands as ``tree.leaf_encode`` spans."""
+        with obs.span("checkpoint.save", step=step):
+            stream_manifest = self._tree_codec.compress_tree(tree, f)
+        if obs.enabled():
+            obs.counter("checkpoint.saves").inc()
+            obs.counter("checkpoint.saved_raw_bytes").inc(int(stream_manifest["raw_bytes"]))
+            obs.counter("checkpoint.saved_bytes").inc(int(stream_manifest["stored_bytes"]))
+        return stream_manifest
 
     def _commit(self, step: int, write_stream) -> dict:
         """Write the stream (``write_stream(file)`` returns its manifest)
@@ -196,11 +208,15 @@ class CheckpointManager:
         for name in names:
             if name not in by_name:
                 raise KeyError(f"leaf {name} not in checkpoint step {manifest['step']}")
-        if manifest.get("manifest_version", 1) >= 2:
-            with open(os.path.join(d, manifest["file"]), "rb") as f:
-                arrays = self._tree_codec.decompress_tree(f, select=names)
-        else:
-            arrays = {n: self._restore_leaf_v1(d, by_name[n]) for n in names}
+        # per-leaf decode time lands as tree.leaf_decode spans
+        with obs.span("checkpoint.restore", step=int(manifest["step"])):
+            if manifest.get("manifest_version", 1) >= 2:
+                with open(os.path.join(d, manifest["file"]), "rb") as f:
+                    arrays = self._tree_codec.decompress_tree(f, select=names)
+            else:
+                arrays = {n: self._restore_leaf_v1(d, by_name[n]) for n in names}
+        if obs.enabled():
+            obs.counter("checkpoint.restores").inc()
         return pytree.unflatten(template, [arrays[n] for n in names]), manifest["step"]
 
     def restore_leaves(self, names: Iterable[str], step: Optional[int] = None

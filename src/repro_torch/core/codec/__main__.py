@@ -3,7 +3,7 @@
     python -m repro_torch.core.codec compress   IN.bin OUT.szx --dtype float32 \
         --bound rel:1e-3
     python -m repro_torch.core.codec decompress IN.szx OUT.bin
-    python -m repro_torch.core.codec info       IN.szx [--json]
+    python -m repro_torch.core.codec info       IN.szx [--json] [--stats]
 
 ``--bound`` takes the unified spelling (``1e-3`` = abs, ``abs:1e-3``,
 ``rel:1e-4``); the legacy ``--error-bound``/``--mode`` pair still works.
@@ -14,7 +14,10 @@ adds the negotiated second stage to the compressed frames.
 chunked container-v3 stream (self-delimiting frames + seekable index
 footer; ``--no-index`` emits a footer-less v2 frame sequence).
 ``decompress`` restores the raw binary; ``info`` prints the stream header
-and index without decoding.  Exit code is non-zero on any error.
+and index without decoding, and with ``--stats`` each frame's stream stats
+(``repro_torch.obs.stream_stats``: elements, CR, const-block fraction,
+stage, mid bytes) and its measured decode time.  Exit code is non-zero on
+any error.
 """
 from __future__ import annotations
 
@@ -98,6 +101,61 @@ def _scan_frames(f, container, device):
     return nframes, nraw, total_n, dtype_code, e
 
 
+def _iter_whole_frames(f, container):
+    """Yield (frame bytes incl. header, flags) sequentially until LAST."""
+    while True:
+        head = f.read(container.FRAME_HEADER.size)
+        if len(head) < container.FRAME_HEADER.size:
+            return
+        magic, _v, flags, _seq, ln = container.FRAME_HEADER.unpack_from(head, 0)
+        if magic != container.FRAME_MAGIC:
+            return
+        body = f.read(ln)
+        if len(body) != ln:
+            raise ValueError("truncated SZx frame")
+        yield head + body, flags
+        if flags & container.FLAG_LAST:
+            return
+
+
+def _frame_stats_rows(path: str, container, device) -> list[dict]:
+    """Per-frame ground-truth records (obs.stream_stats) plus a measured
+    decode time per non-raw frame (host clock; the decode ends when its
+    measured scalars are back on the host)."""
+    import time
+
+    from repro_torch.core.codec import SZxCodec
+    from repro_torch.obs import stream_stats
+
+    codec = SZxCodec(device=device)
+    rows = []
+    with open(path, "rb") as f:
+        for frame, flags in _iter_whole_frames(f, container):
+            rec = stream_stats.frame_stats(frame)
+            if not rec.get("raw"):
+                payload, _ = container.destage_frame_payload(
+                    frame[container.FRAME_HEADER.size:], flags, device=device)
+                t0 = time.perf_counter()
+                codec.decompress(payload)
+                rec["decode_ms"] = (time.perf_counter() - t0) * 1e3
+            rows.append(rec)
+    return rows
+
+
+def _print_stats_table(rows: list[dict]) -> None:
+    print(f"{'seq':>5} {'elements':>10} {'frame_B':>10} {'CR':>7} "
+          f"{'const%':>7} {'stage':>15} {'mid raw->staged':>18} {'dec_ms':>8}")
+    for r in rows:
+        if r.get("raw"):
+            print(f"{r['seq']:>5} {'-':>10} {r['frame_bytes']:>10} "
+                  f"{'-':>7} {'-':>7} {'raw-pack':>15} {'-':>18} {'-':>8}")
+            continue
+        mid = f"{r['raw_mid_bytes']}->{r['staged_mid_bytes']}"
+        print(f"{r['seq']:>5} {r['elements']:>10} {r['frame_bytes']:>10} "
+              f"{r['ratio']:>7.2f} {100 * r['const_fraction']:>6.1f}% "
+              f"{r['stage_name']:>15} {mid:>18} {r['decode_ms']:>8.2f}")
+
+
 def _cmd_info(args) -> int:
     import json
 
@@ -122,6 +180,7 @@ def _cmd_info(args) -> int:
                                                           device=args.device)
                 dtype_code, _n, e = container.peek_stream_meta(payload)
     dtype = plan.spec_for_code(dtype_code).name if dtype_code is not None else None
+    stats_rows = _frame_stats_rows(args.input, container, args.device) if args.stats else None
     if args.json:
         info = {
             "frames": nframes,
@@ -133,6 +192,8 @@ def _cmd_info(args) -> int:
             "kind": idx.get("kind") if idx else None,
             "frame_ranges": idx["frames"] if idx else None,
         }
+        if stats_rows is not None:
+            info["frames_stats"] = stats_rows
         print(json.dumps(info, indent=1))
         return 0
     bound = f"{e:g}" if e is not None else "n/a"
@@ -141,6 +202,8 @@ def _cmd_info(args) -> int:
     print(f"index footer: {'v' + str(idx['v']) if idx else 'absent (v2 stream)'}")
     if idx:
         print(f"indexed frames: {len(idx['frames'])}, kind: {idx.get('kind')}")
+    if stats_rows is not None:
+        _print_stats_table(stats_rows)
     return 0
 
 
@@ -184,8 +247,12 @@ def main(argv: list[str] | None = None) -> int:
     i.add_argument("input")
     i.add_argument("--json", action="store_true",
                    help="machine-readable summary incl. per-frame byte ranges")
+    i.add_argument("--stats", action="store_true",
+                   help="per-frame stream stats (elements, CR, const-block "
+                        "fraction, stage, mid bytes, measured decode time)")
     i.add_argument("--device", default="cuda",
-                   help="where staged frames are destaged while walking them")
+                   help="where staged frames are destaged (and, with --stats, "
+                        "decoded) while walking them")
     i.set_defaults(fn=_cmd_info)
 
     args = ap.parse_args(argv)

@@ -310,6 +310,8 @@ def build_frame(payload: bytes, seq: int, last: bool, *, raw: bool = False,
     byte-identical to frames built before the stage existed.
     """
     flags = (FLAG_LAST if last else 0) | (FLAG_RAW if raw else 0)
+    staged_code = 0
+    orig_payload = payload
     if stage is not None and not raw:
         from repro_torch.core.codec import stage as stage_mod
 
@@ -319,7 +321,14 @@ def build_frame(payload: bytes, seq: int, last: bool, *, raw: bool = False,
             if staged is not None:
                 payload = staged
                 flags |= code << FLAG_STAGE_SHIFT
-    return FRAME_HEADER.pack(FRAME_MAGIC, FRAME_VERSION, flags, seq, len(payload)) + payload
+                staged_code = code
+    frame = FRAME_HEADER.pack(FRAME_MAGIC, FRAME_VERSION, flags, seq, len(payload)) + payload
+    if not raw:
+        from repro_torch import obs
+
+        if obs.enabled():
+            obs.stream_stats.record_frame_built(orig_payload, len(frame), seq, staged_code)
+    return frame
 
 
 def destage_frame_payload(payload: bytes, flags: int, *, device=None) -> tuple[bytes, int]:

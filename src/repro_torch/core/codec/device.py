@@ -12,7 +12,12 @@ three measured scalars for validation; the values stay on the device.
 
 Every device-to-host copy goes through :func:`to_host`, every host-to-device
 copy of stream bytes through :func:`to_device`.  Offsets are int64
-throughout, so no size below device memory is sent anywhere else.
+throughout, so no size below device memory is sent anywhere else.  With
+telemetry on, the ``device.put.*``/``device.get.*`` counters count the
+copies of the three stream operations (``encode_stream``,
+``decode_stream``, ``decode_range``) as the port makes them: the decoded
+values stay on the device, so a decode's ``get`` is its three measured
+scalars, where the reference reads the values back.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.codec import container
 from repro_torch.core.codec.plan import Plan, spec_for_code
 from repro_torch.core.codec.transform import BlockEncoding
@@ -100,6 +106,12 @@ def to_device(raw: np.ndarray, device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+def _count_copy(direction: str, op: str, t) -> None:
+    """One host<->device copy of a stream operation (telemetry on)."""
+    obs.counter(f"device.{direction}.calls", op=op).inc()
+    obs.counter(f"device.{direction}.bytes", op=op).inc(int(t.nbytes))
+
+
 # ---------------------------------------------------------------------------
 # encode: the container byte layout as tensor ops on the device
 # ---------------------------------------------------------------------------
@@ -122,7 +134,10 @@ def _assemble_body(spec: DtypeSpec, enc: BlockEncoding):
     nonconst = ~enc.const
     k = torch.arange(W, device=dev)
     mask = (enc.L[:, :, None] <= k) & (k < enc.nbytes[:, None, None])
-    nnc, nmid = to_host(torch.stack([nonconst.sum(), mask.sum()])).tolist()
+    sizes = to_host(torch.stack([nonconst.sum(), mask.sum()]))
+    if obs.enabled():
+        _count_copy("get", "encode_stream", sizes)
+    nnc, nmid = sizes.tolist()
     # const bitmap (np.packbits order: MSB-first within each byte)
     cpad = torch.nn.functional.pad(enc.const.to(torch.int32), (0, nbm * 8 - nb))
     weights = torch.arange(7, -1, -1, device=dev, dtype=torch.int32)
@@ -164,8 +179,11 @@ def to_stream(enc: DeviceEncoding) -> bytes:
         container.MAGIC, container.VERSION, p.dtype.code, p.block_size, p.n,
         p.error_bound, p.nblocks, info["nnc"], info["nmid"],
     )
+    body = to_host(enc["body"])
+    if obs.enabled():
+        _count_copy("get", "encode_stream", body)
     # join copies the pinned body once into the stream object
-    return b"".join((header, to_host(enc["body"]).numpy()))
+    return b"".join((header, body.numpy()))
 
 
 def encode_to_stream(xb: torch.Tensor, p: Plan) -> bytes:
@@ -248,7 +266,11 @@ def decode_stream(buf, *, device, out: torch.Tensor | None = None,
     vals, meas = ops.decode_staged(
         body, nnc, lo, spec=spec, nb=nb, bs=bs, rb=hi - lo, rebase=False
     )
-    _check_measured(to_host(meas), nnc, nmid, spec)
+    meas = to_host(meas)
+    if obs.enabled():
+        _count_copy("put", "decode_stream", body)
+        _count_copy("get", "decode_stream", meas)
+    _check_measured(meas, nnc, nmid, spec)
     flat = vals.reshape(-1)[: min(hi * bs, n) - lo * bs]
     if out is not None:
         out.copy_(flat)
@@ -279,5 +301,9 @@ def decode_range(prefix: bytes, mid, lo: int, hi: int, *, device) -> torch.Tenso
     vals, meas = ops.decode_staged(
         body, nnc, lo, spec=spec, nb=nb, bs=bs, rb=hi - lo, rebase=True
     )
-    _check_measured(to_host(meas), nnc, nmid, spec)
+    meas = to_host(meas)
+    if obs.enabled():
+        _count_copy("put", "decode_range", body)
+        _count_copy("get", "decode_range", meas)
+    _check_measured(meas, nnc, nmid, spec)
     return vals.reshape(-1)

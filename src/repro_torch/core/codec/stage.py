@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.codec import container
+from repro_torch import obs
 from repro_torch.core.codec.device import resolve_device, to_device, to_host
 from repro_torch.kernels import ops
 from repro_torch.kernels.specs import tile_bytes
@@ -295,6 +296,9 @@ def stage_payload(payload, code: int, *, seg_blocks: int = DEFAULT_SEG_BLOCKS,
     if code == NONE:
         return None
     dev = resolve_device(device, "stage_payload")
+    track = obs.enabled()
+    if track:
+        obs.counter("codec.stage.try", stage=name_of(code)).inc()
     if not 0 < seg_blocks <= 0xFFFF:
         raise ValueError(f"seg_blocks {seg_blocks} out of range [1, 65535]")
     buf = bytes(payload) if not isinstance(payload, (bytes, bytearray)) else payload
@@ -302,6 +306,8 @@ def stage_payload(payload, code: int, *, seg_blocks: int = DEFAULT_SEG_BLOCKS,
     sec = container.parse_stream_sections(buf[:prefix_len], device=dev)
     nb = sec.plan.nblocks
     if sec.nmid == 0 or nb == 0:
+        if track:
+            obs.counter("codec.stage.fallback", stage=name_of(code)).inc()
         return None
     mid = np.frombuffer(buf, np.uint8, sec.nmid, prefix_len)
     segs = [mid[slice(*sec.mid_range(lo, hi))] for lo, hi in _seg_ranges(nb, seg_blocks)]
@@ -323,7 +329,17 @@ def stage_payload(payload, code: int, *, seg_blocks: int = DEFAULT_SEG_BLOCKS,
     ).tobytes()
     staged_len = prefix_len + len(table) + sum(len(r) for r in records)
     if staged_len >= len(buf):
+        if track:
+            obs.counter("codec.stage.fallback", stage=name_of(code)).inc()
         return None
+    if track:
+        name = name_of(code)
+        seg_staged = sum(r[0] == 1 for r in records)
+        obs.counter("codec.stage.win", stage=name).inc()
+        obs.counter("codec.stage.segments_staged", stage=name).inc(seg_staged)
+        obs.counter("codec.stage.segments_raw", stage=name).inc(len(records) - seg_staged)
+        obs.counter("codec.stage.mid_bytes_in", stage=name).inc(int(sec.nmid))
+        obs.counter("codec.stage.mid_bytes_out", stage=name).inc(staged_len - prefix_len)
     return b"".join([buf[:prefix_len], table, *records])
 
 
@@ -452,6 +468,9 @@ def read_mid_range(f, table_offset: int, sec, code: int, lo_b: int,
     starts = np.concatenate(([0], np.cumsum(lens)))
     f.seek(table_offset + _TABLE.size + 4 * nseg + int(starts[s_lo]))
     blob = container._read_exact(f, int(starts[s_hi] - starts[s_lo]))
+    if obs.enabled():
+        obs.counter("codec.stage.roi_bytes_read", stage=name_of(code)).inc(
+            _TABLE.size + 4 * nseg + len(blob))
     cuts = starts[s_lo:s_hi + 1] - starts[s_lo]
     records = [blob[int(a):int(b)] for a, b in zip(cuts[:-1], cuts[1:])]
     seg_mid = _destage_records(sec, code, records, s_lo, seg_blocks, dev)

@@ -10,6 +10,7 @@ path inherits every error-bound guarantee of the monolithic one.
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -18,6 +19,7 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.codec import container, device as device_mod, plan as plan_mod
 from repro_torch.core.codec.plan import DEFAULT_BLOCK_SIZE, Bound
 
@@ -36,9 +38,13 @@ def _imap_ordered(fn: Callable, items: Iterable, workers: int) -> Iterator:
         try:
             for item in items:
                 pending.append(pool.submit(fn, item))
+                if obs.enabled():
+                    obs.gauge("codec.pipeline.queue_depth").set(len(pending))
                 if len(pending) >= lookahead:
                     yield pending.popleft().result()
             while pending:
+                if obs.enabled():
+                    obs.gauge("codec.pipeline.queue_depth").set(len(pending))
                 yield pending.popleft().result()
         finally:
             while pending:
@@ -152,21 +158,41 @@ class SZxCodec:
         p, xt = plan_mod.make_plan(
             x, b, block_size=self.block_size, dtype=dtype, device=self.device,
         )
-        return device_mod.encode_to_stream(plan_mod.to_blocks(xt, p), p)
+        if not obs.enabled():
+            return device_mod.encode_to_stream(plan_mod.to_blocks(xt, p), p)
+        t0 = time.perf_counter()
+        with obs.span("codec.compress", n=int(p.n), dtype=p.dtype.name):
+            buf = device_mod.encode_to_stream(plan_mod.to_blocks(xt, p), p)
+        obs.stream_stats.record_compress(buf, time.perf_counter() - t0)
+        return buf
 
     def decompress(self, buf: bytes, *, out: torch.Tensor | None = None) -> torch.Tensor:
         """Decompress one v2 stream -> flat tensor (stream dtype) on the
         codec's device.  With ``out`` (a flat (n,) tensor of the stream
         dtype there) the result is written in place and ``out`` returned."""
-        return device_mod.decode_stream(buf, device=self.device, out=out)
+        if not obs.enabled():
+            return device_mod.decode_stream(buf, device=self.device, out=out)
+        t0 = time.perf_counter()
+        with obs.span("codec.decompress"):
+            res = device_mod.decode_stream(buf, device=self.device, out=out)
+        obs.stream_stats.record_decompress(res.nbytes, time.perf_counter() - t0)
+        return res
 
     def decompress_range(self, buf: bytes, lo_block: int, hi_block: int) -> torch.Tensor:
         """Partial decode of one v2 stream: blocks [lo_block, hi_block) only,
         i.e. elements ``[lo_block * bs, min(hi_block * bs, n))`` of
         ``decompress(buf)``."""
-        return device_mod.decode_stream(
-            buf, device=self.device, block_range=(lo_block, hi_block)
-        )
+        if not obs.enabled():
+            return device_mod.decode_stream(
+                buf, device=self.device, block_range=(lo_block, hi_block)
+            )
+        t0 = time.perf_counter()
+        with obs.span("codec.decompress_range", lo=lo_block, hi=hi_block):
+            res = device_mod.decode_stream(
+                buf, device=self.device, block_range=(lo_block, hi_block)
+            )
+        obs.stream_stats.record_decompress(res.nbytes, time.perf_counter() - t0, kind="range")
+        return res
 
     def compress_with_stats(self, x, bound: Bound | float | None = None,
                             **kw) -> tuple[bytes, CompressionStats]:

@@ -27,6 +27,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import pytree
 from repro_torch.core.codec import container, plan as plan_mod
 from repro_torch.core.codec.plan import Bound
@@ -161,15 +162,17 @@ class TreeCodec:
             lo = seq
             stored = 0
             final_leaf = li == len(big_leaves) - 1
-            for payload, pl_last in self.codec.iter_chunk_payloads(
-                    t, self.bound, chunk_bytes=self.chunk_bytes):
-                frame = container.build_frame(payload, seq, last=final_leaf and pl_last,
-                                              stage=self.codec.stage, device=self.codec.device)
-                manifest["frames"].append([written, len(frame)])
-                fileobj.write(frame)
-                written += len(frame)
-                stored += len(frame)
-                seq += 1
+            with obs.span("tree.leaf_encode", leaf=name, elements=int(t.numel())):
+                for payload, pl_last in self.codec.iter_chunk_payloads(
+                        t, self.bound, chunk_bytes=self.chunk_bytes):
+                    frame = container.build_frame(payload, seq, last=final_leaf and pl_last,
+                                                  stage=self.codec.stage,
+                                                  device=self.codec.device)
+                    manifest["frames"].append([written, len(frame)])
+                    fileobj.write(frame)
+                    written += len(frame)
+                    stored += len(frame)
+                    seq += 1
             manifest["leaves"].append({
                 "name": name,
                 "codec": "szx",
@@ -196,6 +199,12 @@ class TreeCodec:
         return idx
 
     def _restore_leaf(self, fileobj, idx: dict, meta: dict) -> torch.Tensor:
+        if not obs.enabled():
+            return self._restore_leaf_impl(fileobj, idx, meta)
+        with obs.span("tree.leaf_decode", leaf=meta.get("name", "")):
+            return self._restore_leaf_impl(fileobj, idx, meta)
+
+    def _restore_leaf_impl(self, fileobj, idx: dict, meta: dict) -> torch.Tensor:
         dtype = torch_dtype_for(meta["dtype"])
         shape = tuple(meta["shape"])
         dev = self.codec.device

@@ -24,12 +24,26 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core.codec import DeviceEncoding, PlanesCodec
 from repro_torch.core.pytree import tree_map
 from repro_torch.kernels import ref
 
 DEFAULT_BLOCK = 64
 _ARRAYS = ("mu", "sexp", "planes")
+
+
+def _record_wire(op: str, x: torch.Tensor, enc: DeviceEncoding, members: int = 1) -> None:
+    """Wire accounting of one collective call (telemetry on): the bytes of
+    ``x`` and of its encoding, times the members that send one, as the
+    reference counts one traced call."""
+    if not obs.enabled():
+        return
+    raw = x.numel() * x.element_size()
+    wire = sum(enc[k].numel() * enc[k].element_size() for k in _ARRAYS)
+    obs.counter("collective.calls", op=op).inc()
+    obs.counter("collective.raw_bytes", op=op).inc(raw * members)
+    obs.counter("collective.wire_bytes", op=op).inc(wire * members)
 
 
 def _encode_leaf(g: torch.Tensor, num_planes: int, block: int) -> DeviceEncoding:
@@ -66,6 +80,7 @@ def compressed_psum_mean(grads, group=None, *, num_planes: int = 1,
 
     def leaf(g):
         enc = _encode_leaf(g, num_planes, block)
+        _record_wire("psum_mean", g, enc, members=n)
         dec_local = _decode_leaf(enc, g.shape, torch.float32)
         residual = ref.flush(ref.flush(g.to(torch.float32)) - dec_local)
         gathered = {}
@@ -129,6 +144,7 @@ def compressed_ppermute(x: torch.Tensor, group, perm, *, num_planes: int = 1,
     wire moves ``wire_bytes_per_value`` bytes/value instead of 4.0.
     """
     enc = _encode_leaf(x, num_planes, block)
+    _record_wire("ppermute", x, enc)
     moved = enc.replace(**{
         k: _unwire(k, ppermute(_wire(k, enc[k]), group, perm)) for k in _ARRAYS})
     return _decode_leaf(moved, x.shape, x.dtype)
@@ -163,6 +179,7 @@ def compressed_all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: 
         )
     n = dist.get_world_size(group)
     enc = _encode_leaf(x, num_planes, block)
+    _record_wire("all_to_all", x, enc)
     moved = {}
     for k in _ARRAYS:
         lead = 1 if k == "planes" else 0

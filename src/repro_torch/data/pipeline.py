@@ -6,7 +6,7 @@ so a restart at step N resumes the exact stream on either package.
 :class:`CompressedInMemoryCache` keeps float shards SZx-compressed in host
 memory through the port's :class:`SZxCodec` (on the card unless ``device=``
 says otherwise) and decompresses them on demand.  The store-backed loader
-(``StoreLM``, ``SteppedBatches``) comes with a later slice.
+(``StoreLM``, ``SteppedBatches``) is :mod:`repro_torch.data.store_loader`.
 """
 from __future__ import annotations
 

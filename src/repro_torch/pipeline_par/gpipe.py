@@ -16,6 +16,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core import grad_compress
 
 
@@ -51,6 +52,17 @@ def pipeline_apply(
 
     def run(params, xs: torch.Tensor) -> torch.Tensor:
         n_micro = xs.shape[0]
+        if obs.enabled():
+            # bytes a stage shifts per tick, raw vs on the wire when compressed
+            raw = xs[0].numel() * xs.element_size()
+            wire = raw
+            if compress_activations:
+                wire = int(xs[0].numel() * grad_compress.wire_bytes_per_value(
+                    num_planes, compress_block))
+            obs.counter("pipeline.programs").inc()
+            obs.gauge("pipeline.ticks").set(n_micro + n_stages - 1)
+            obs.gauge("pipeline.tick_raw_bytes").set(raw)
+            obs.gauge("pipeline.tick_wire_bytes").set(wire)
         buf = torch.zeros_like(xs[0])
         outs = torch.zeros_like(xs)
         for t in range(n_micro + n_stages - 1):

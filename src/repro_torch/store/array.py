@@ -31,9 +31,9 @@ import math
 import os
 from typing import Iterator
 
-import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.codec import container, device as device_mod, plan as plan_mod
 from repro_torch.core.codec import stage as stage_mod, transform
 from repro_torch.core.codec.szx_codec import SZxCodec, _imap_ordered, _on_worker_streams
@@ -305,6 +305,25 @@ def _chunk_payloads(x: torch.Tensor, grid: ChunkGrid, e: float, *, block_size: i
     return map(payload, cids)
 
 
+def box_of_segment(seg: torch.Tensor, local, cdims, base: int) -> torch.Tensor:
+    """The chunk-local box ``local`` of a decoded segment, as a view.
+
+    ``seg`` holds a chunk's C-order values from flat index ``base`` on (the
+    first value of its first decoded block).  An axis-aligned box inside the
+    chunk is a strided window of that flattening: one ``as_strided`` view
+    with the chunk's C strides gathers it, with no index tensor and no copy
+    to the device."""
+    if all(hi - lo == d for (lo, hi), d in zip(local, cdims)):
+        return seg.reshape(cdims)             # the whole chunk, C order
+    seg = seg.contiguous()
+    strides = [1] * len(cdims)
+    for i in range(len(cdims) - 2, -1, -1):
+        strides[i] = strides[i + 1] * cdims[i + 1]
+    offset = sum(lo * st for (lo, _hi), st in zip(local, strides)) - base
+    return seg.as_strided(tuple(hi - lo for lo, hi in local), strides,
+                          seg.storage_offset() + offset)
+
+
 class CompressedArray:
     """Lazy view of a stored array: ROI reads + compressed-domain queries,
     decoding only what each request touches, on the array's device.
@@ -410,21 +429,26 @@ class CompressedArray:
     def __getitem__(self, key) -> torch.Tensor:
         self._check_open()
         roi = grid_mod.normalize_roi(key, self.shape)
+        if not obs.enabled():
+            return self._read_roi(roi)
+        with obs.span("store.read"):
+            out = self._read_roi(roi)
+        obs.counter("store.roi.reads").inc()
+        obs.counter("store.roi.bytes_out").inc(int(out.nbytes))
+        return out
+
+    def _read_roi(self, roi) -> torch.Tensor:
         out = torch.empty(roi.box_shape, dtype=self.dtype, device=self._device)
         bs = self._block_size
+        track = obs.enabled()
         for cid, local, outr in grid_mod.intersecting_chunks(self._grid, roi):
+            if track:
+                obs.counter("store.roi.chunks").inc()
             cdims = self._grid.chunk_dims(self._grid.chunk_coord(cid))
             lo_b, hi_b = grid_mod.block_range_for_box(local, cdims, bs)
             seg = self._decode_chunk_range(cid, lo_b, hi_b)
-            out_sl = tuple(slice(lo, hi) for lo, hi in outr)
-            if all(hi - lo == d for (lo, hi), d in zip(local, cdims)):
-                # whole chunk requested: the segment IS the chunk, C order
-                out[out_sl] = seg.reshape(cdims)
-            else:
-                idx = np.ravel_multi_index(
-                    np.ix_(*[np.arange(lo, hi) for lo, hi in local]), cdims
-                ) - lo_b * bs
-                out[out_sl] = seg[torch.from_numpy(idx).to(self._device)]
+            out[tuple(slice(lo, hi) for lo, hi in outr)] = box_of_segment(
+                seg, local, cdims, lo_b * bs)
         return out.reshape(roi.out_shape)
 
     def read(self, key=Ellipsis) -> torch.Tensor:
@@ -440,8 +464,16 @@ class CompressedArray:
         key = (self._cache_ns, cid, lo_b, hi_b)
         hit = self._cache.get(key)
         if hit is not None:
+            if obs.enabled():
+                obs.counter("store.cache.hits").inc()
             return hit
+        if obs.enabled():
+            obs.counter("store.cache.misses").inc()
         seg = self._decode_chunk_range_uncached(cid, lo_b, hi_b)
+        if seg.device.type == "cuda":
+            # a cached range is shared with readers on other streams: its
+            # values are complete before anyone can find it
+            torch.cuda.current_stream(seg.device).synchronize()
         self._cache.put(key, seg, seg.numel() * seg.element_size())
         return seg
 
@@ -481,6 +513,14 @@ class CompressedArray:
             else:
                 f.seek(off + container.FRAME_HEADER.size + prefix_len + mlo)
                 mid = container._read_exact(f, mhi - mlo)
+                if obs.enabled():
+                    obs.counter("store.roi.mid_bytes_read").inc(mhi - mlo)
+        if obs.enabled():
+            # staged mid reads are counted (at their size on disk) by
+            # stage.read_mid_range as codec.stage.roi_bytes_read
+            obs.counter("store.roi.prefix_bytes_read").inc(
+                container.FRAME_HEADER.size + prefix_len)
+            obs.counter("store.chunk.decodes").inc()
         if self._fused_range:
             flat = device_mod.decode_range(prefix, mid, lo_b, hi_b, device=self._device)
         else:

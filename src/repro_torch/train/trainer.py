@@ -10,8 +10,9 @@ Counterpart of ``repro/train/trainer.py``:
     median are recorded;
   * the loss / grad-norm history.
 A step ends when its loss is on the host (a synchronize of the loss's
-device).  The ``train.step`` span and counters come with the observability
-slice.
+device, made with telemetry on or off); with telemetry on, the
+``train.step`` span covers the step and that synchronize, and each step
+adds to ``train.steps`` and ``train.step_seconds``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.checkpoint.manager import CheckpointManager
 
 
@@ -77,11 +79,15 @@ class Trainer:
                     self.fault_hook(step)
                 batch = self.batch_fn(step)
                 t0 = time.perf_counter()
-                state, metrics = self.step_fn(state, batch)
-                loss = metrics["loss"]
-                if isinstance(loss, torch.Tensor) and loss.device.type == "cuda":
-                    torch.cuda.synchronize(loss.device)
+                with obs.span("train.step", step=step):
+                    state, metrics = self.step_fn(state, batch)
+                    loss = metrics["loss"]
+                    if isinstance(loss, torch.Tensor) and loss.device.type == "cuda":
+                        torch.cuda.synchronize(loss.device)
                 dt = time.perf_counter() - t0
+                if obs.enabled():
+                    obs.counter("train.steps").inc()
+                    obs.histogram("train.step_seconds").observe(dt)
                 self._maybe_flag_straggler(step, dt)
                 self.step_times.append(dt)
                 rec = {

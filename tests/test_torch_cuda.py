@@ -321,6 +321,48 @@ def test_staged_store_round_trip_on_card(card, stage, tmp_path):
         assert counts["bitshuffle"] > 0 and counts["bitshuffle_inverse"] > 0
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["hostparse", "fused"])
+def test_pipelined_ring_buffer_under_a_busy_consumer(card, fused, tmp_path):
+    """Workers decode on streams of their own and each batch is assembled on
+    the consumer's stream after waiting on their events.  Under a consumer
+    that queues heavy work on each batch (a long spin, then a copy of the
+    batch behind it) with the smallest ring, every pipelined batch equals
+    the serial one bit for bit, and the CPU route's, also with a decoded
+    range cache shared across the workers' streams; StoreLM's tokens on the
+    card equal the CPU route's."""
+    from repro_torch.data import DataConfig, StoreLM, StoreLoader
+    from repro_torch.store import ArrayStore
+
+    x = _walk(1 << 20, torch.float32, seed=4).reshape(512, 2048)
+    path = tmp_path / "c.szs"
+    ArrayStore.save(path, x.to(card), 1e-3, chunk_shape=(32, 2048))
+    class Cache(dict):                               # shared by every worker's handle
+        def put(self, key, value, nbytes):
+            self[key] = value
+
+    ld = StoreLoader(path, (16, 700), 8, seed=1, workers=4, lookahead=3, reuse_slots=2,
+                     fused_range=fused, cache=Cache() if fused else None)
+    seen = []
+    with ld.batches(steps=12) as it:
+        for batch in it:
+            assert batch.device.type == "cuda"
+            torch.cuda._sleep(20_000_000)          # ~10 ms of work queued on the batch
+            seen.append(batch.clone())
+    torch.cuda.synchronize()
+    cpu = StoreLoader(path, (16, 700), 8, seed=1, device="cpu")
+    for step, got in enumerate(seen):
+        assert _same(got, ld.batch_at(step)), step
+        assert _same(got.cpu(), cpu.batch_at(step)), step
+    counts = ops.launch_counts()
+    assert counts["decode_body" if fused else "unpack"] > 0, counts
+    lm = StoreLM(path, DataConfig(128256, 2048, 4), fused_range=fused)
+    want = StoreLM(path, DataConfig(128256, 2048, 4), device="cpu").batch_at(3)
+    got = lm.batch_at(3)
+    assert got["tokens"].device.type == "cuda"
+    assert torch.equal(got["tokens"].cpu(), want["tokens"])
+    assert torch.equal(got["labels"].cpu(), want["labels"])
+
+
 def _f32(bits) -> float:
     return torch.tensor(bits, dtype=torch.int32).view(torch.float32).item()
 

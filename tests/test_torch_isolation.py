@@ -42,6 +42,9 @@ def test_import_loads_nothing_of_the_reference():
         "import repro_torch.checkpoint, repro_torch.checkpoint.manager\n"
         "import repro_torch.train.step, repro_torch.train.trainer\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.obs, repro_torch.obs.registry, repro_torch.obs.export\n"
+        "import repro_torch.obs.stream_stats, repro_torch.data.store_loader\n"
+        "import repro_torch.data.scidata\n"
         "repro_torch.configs.all_configs()\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
         "          and any(m == b or m.startswith(b + '.') for b in %r)]\n"
@@ -180,6 +183,33 @@ def test_training_refuses_to_run_without_a_card(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert CheckpointManager(str(tmp_path / "m"), device="cpu").device.type == "cpu"
+
+
+def test_ingest_refuses_to_run_without_a_card(monkeypatch, tmp_path):
+    """The store loader, StoreLM and the train launcher with --data-store
+    decode on the card unless ``device``/``--device`` asks for the CPU;
+    without a card they raise."""
+    import numpy as np
+
+    from repro_torch.data import DataConfig, StoreLM, StoreLoader
+    from repro_torch.launch import train
+    from repro_torch.store import ArrayStore
+
+    path = str(tmp_path / "corpus.szs")
+    x = np.linspace(0, 1, 64 * 256, dtype=np.float32).reshape(64, 256)
+    ArrayStore.save(path, x, 1e-3, chunk_shape=(16, 256), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: StoreLoader(path, (4, 64), 2),
+                 lambda: StoreLM(path, DataConfig(256, 16, 2)),
+                 lambda: train.main(["--arch", "llama3.2-1b", "--reduced", "--steps", "1",
+                                     "--seq", "16", "--batch", "2", "--data-store", path,
+                                     "--ckpt", str(tmp_path / "c")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with StoreLoader(path, (4, 64), 2, device="cpu") as ld:
+        assert ld.batch_at(0).device.type == "cpu"
+    assert StoreLM(path, DataConfig(256, 16, 2), device="cpu").batch_at(0)["tokens"].shape \
+        == (2, 16)
 
 
 def test_building_a_model_leaves_the_matmul_flags_alone():
