@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch port (repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--edge 512] [--reps 50]
+                          [--store-kernels | --ingest | --service]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It imports nothing of the JAX package.  In order it:
@@ -93,7 +94,9 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      compressed step; then a Trainer run of 6 compressed steps with SZx
      checkpoints every 3 steps and a fault at step 5: the restart restores
      on the card through the decode kernel (every leaf within the bound of
-     the saved one) and replays step 4.
+     the saved one) and replays step 4; then the embedding leaf of the last
+     checkpoint, opened as a store view (``CheckpointManager.leaf_store``),
+     gives three row ranges by both decode routes bit for bit as restored.
 
  12. trains from a compressed store, with telemetry: the codec cell's field
      as (32768, 4096) rows in chunks of (32, 4096), saved on the card, then a
@@ -112,6 +115,26 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      store's batches (batch draw + step) beside phase 11's plain step, and
      one profiled step's device busy share (``--ingest`` runs only this
      phase, after the build).
+
+ 13. serves the stores over HTTP on the card: phase 5's stage-off and
+     bitshuffle-rle stores, a 4-shard manifest of the same field and phase
+     12's ingest store behind ``make_service()`` (host parse + unpack, the
+     256 MiB decoded-chunk cache on the card), and the stage-off store
+     behind a second service with ``fused_range=True``, each an HttpServer
+     on 127.0.0.1 in a thread.  16 client threads read phase 5's ROIs and a
+     (64, 512, 512) slab through ``/v1/stores/{name}/read`` in a cold pass
+     (empty cache) and a hot one: every body bit for bit ``ca[roi]`` read
+     on the card from a handle of its own and within e of the field;
+     requests/s, decoded MB/s, p50/p99 per route, cache hits, misses and
+     evictions.  The protocol: If-None-Match/304, Range/206/416, chunk
+     frames against the file, a URL shard's 307, stats of both tiers
+     against ``ca.stats()``, the ``serve.*`` Prometheus series.  Then phase
+     12's epoch through ``StoreLoader("http://...")`` serially and with 2
+     and 4 workers, every batch bit for bit the local loader's.  Launch
+     counters are zeroed before each service's traffic and read after: the
+     host-parse service must launch unpack (and the inverse bitshuffle),
+     the fused one decode_body (``--service`` runs only this phase, after
+     the build, with its stores made from --seed).
 
 Phase 2 also holds the planes kernels against their plain versions on both
 routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
@@ -2053,11 +2076,44 @@ def restart_run(args, cfg, opt, ds) -> None:
     replay = [h["loss"] for h in tr.history if h["step"] == CKPT_FAULT - 1]
     for ev in events:
         log(f"train restart run: {ev}")
+    leaf_view_check(ckpt)
     log(f"train restart run {TRAIN_ARCH} (compressed P=1, SZx checkpoints at rel 1e-6, "
         f"fault at step {CKPT_FAULT}): {t_run:.1f} s, restarts {tr.restarts}, steps {steps}, "
         f"losses " + ", ".join(f"{h['loss']:.4f}" for h in tr.history)
         + f"; step {CKPT_FAULT - 1} before and after the restart {replay[0]:.6f} / {replay[1]:.6f}")
     saved.clear()
+
+
+LEAF = "params/embed"               # (128256, 2048) f32, the largest leaf of the state
+
+
+def leaf_view_check(ckpt) -> None:
+    """The embedding leaf of the last checkpoint as a store view
+    (``leaf_store``): three row ranges, by both decode routes, bit for bit
+    the restored leaf."""
+    from repro_torch.kernels import ops
+
+    restored, t_restore = timed(lambda: ckpt.restore_leaves([LEAF])[LEAF])
+    nrows, width = restored.shape
+    ranges = ((0, 4), (nrows // 2 - 8, nrows // 2 + 8), (nrows - 6, nrows))
+    before = ops.launch_counts()
+    times = []
+    for fused in (False, True):
+        with ckpt.leaf_store(LEAF, fused_range=fused) as lv:
+            check(lv.shape == (nrows * width,) and lv.attrs["leaf_shape"] == [nrows, width],
+                  f"leaf_store {LEAF}: shape {lv.shape}, attrs {lv.attrs}")
+            for lo, hi in ranges:
+                got, t = timed(lambda: lv[lo * width:hi * width])
+                check(same_bits(got, restored[lo:hi].reshape(-1)),
+                      f"leaf_store {LEAF} rows {lo}:{hi} fused={fused}: differ from the restore")
+                times.append(f"{'fused' if fused else 'host parse'} rows {lo}:{hi} "
+                             f"{t * 1e3:.2f} ms")
+            nchunks = lv.nchunks
+    after = ops.launch_counts()
+    log(f"leaf_store {LEAF} {tuple(restored.shape)} of step {ckpt.latest_step()} ({nchunks} "
+        f"frames; restore_leaves {t_restore:.2f} s): rows {ranges} bit-identical to the "
+        f"restored leaf by both routes; " + ", ".join(times) + "; launches "
+        + str({k: after[k] - before[k] for k in after if after[k] != before[k]}))
 
 
 # ---------------------------------------------------------------------------
@@ -2378,6 +2434,379 @@ def phase_store_train(args) -> tuple[dict, list, float | None]:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the HTTP store service on the card
+# ---------------------------------------------------------------------------
+
+SERVICE_THREADS = 16               # client threads, each request an independent urlopen
+SERVICE_SHARDS = 4
+SERVICE_INGEST_WORKERS = (0, 2, 4)  # 0: the serial batch_at epoch
+CACHE_COUNTERS = ("hits", "misses", "evictions")
+
+
+def service_rois(edge: int) -> dict:
+    """Phase 5's ROIs as the service's text, plus a slab of edge/8 planes
+    (at 512: (64, 512, 512), 64 MiB)."""
+    z, c = edge // 5, min(64, edge // 4)
+    return {"z-slab": f"{z}:{z + 4}",
+            "cube": f"{z - 3}:{z - 3 + c},{edge // 3}:{edge // 3 + c},{edge // 2}:{edge // 2 + c}",
+            "element": f"{edge // 2},{3 * edge // 5},5", "zeroed row": f"5,:{edge // 16}",
+            "slab": f"{edge // 2}:{edge // 2 + edge // 8}"}
+
+
+def host_bytes(t) -> bytes:
+    """A tensor's bytes in C order, as a /read body carries them."""
+    import torch
+    from repro_torch.core.codec.device import to_host
+
+    return to_host(t.contiguous()).reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+_OPENERS: dict = {}
+
+
+def opener(follow: bool = True):
+    """One shared urllib opener that uses no proxy (only 127.0.0.1 is ever
+    asked) and, with ``follow=False``, returns a 3xx instead of following
+    it.  Built once: an opener's HTTPS handler loads the CA store."""
+    import urllib.request
+
+    if follow not in _OPENERS:
+        class NoRedirect(urllib.request.HTTPRedirectHandler):
+            def redirect_request(self, *a, **kw):
+                return None
+
+        handlers = [urllib.request.ProxyHandler({})] + ([] if follow else [NoRedirect])
+        _OPENERS[follow] = urllib.request.build_opener(*handlers)
+    return _OPENERS[follow]
+
+
+def http_get(url: str, headers: dict | None = None, follow: bool = True):
+    """(status, headers, body) of one GET, whatever the status."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, headers=headers or {})
+    try:
+        with opener(follow).open(req, timeout=300) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as err:
+        return err.code, dict(err.headers), err.read()
+
+
+class Served:
+    """An HttpServer on 127.0.0.1, an OS-chosen port, in a thread."""
+
+    def __init__(self, service):
+        import threading
+        from repro_torch.serve.service import HttpServer
+
+        self.service = service
+        self.srv = HttpServer(service, "127.0.0.1", 0)
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.srv.server_address[1]}"
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(30)
+
+
+def roi_traffic(served: Served, name: str, rois: dict, want: dict) -> dict:
+    """One pass: SERVICE_THREADS client threads, each reading every ROI once
+    (in its own rotation), every body held bit for bit to ``want``."""
+    import urllib.parse
+    from concurrent.futures import ThreadPoolExecutor
+
+    items = list(rois.items())
+
+    def client(i: int):
+        n = nbytes = 0
+        for rname, text in items[i % len(items):] + items[: i % len(items)]:
+            status, _h, body = http_get(
+                f"{served.base}/v1/stores/{name}/read?roi={urllib.parse.quote(text)}")
+            check(status == 200 and body == want[rname],
+                  f"service {name} {rname}: status {status}, body differs from ca[roi]")
+            n += 1
+            nbytes += len(body)
+        return n, nbytes
+
+    before = served.service.cache.stats()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVICE_THREADS) as pool:
+        done = list(pool.map(client, range(SERVICE_THREADS)))
+    wall = time.perf_counter() - t0
+    after = served.service.cache.stats()
+    n, nbytes = sum(d[0] for d in done), sum(d[1] for d in done)
+    return {"requests": n, "bytes": nbytes, "s": wall, "req_s": n / wall,
+            "MB_s": nbytes / wall / 1e6,
+            **{k: after[k] - before[k] for k in CACHE_COUNTERS}}
+
+
+def service_breakdown(served: Served, name: str, rois: dict, *, cold: bool = False,
+                      reps: int = 5) -> None:
+    """Where one request's time goes, one request at a time (median of
+    reps, host clock): the request core in process (``handle``: the ROI
+    assembled on the card from the cache -- emptied before each request if
+    ``cold``, so the ranges decode first --, its copy to the host, the
+    body's bytes) against the same request over the socket."""
+    import statistics
+    import urllib.parse
+
+    parts = []
+    for rname, text in rois.items():
+        target = f"/v1/stores/{name}/read?roi={urllib.parse.quote(text)}"
+        core, wire = [], []
+        for _ in range(reps):
+            if cold:
+                served.service.cache.clear()
+            t0 = time.perf_counter()
+            resp = served.service.handle("GET", target, {})
+            core.append(time.perf_counter() - t0)
+            if cold:
+                served.service.cache.clear()
+            t0 = time.perf_counter()
+            status, _h, body = http_get(served.base + target)
+            wire.append(time.perf_counter() - t0)
+            check(resp.status == status == 200 and resp.body == body,
+                  f"service breakdown {rname}: handle and the socket differ")
+        parts.append(f"{rname} ({len(body)} B) handle {statistics.median(core) * 1e3:.3f} ms, "
+                     f"over the socket {statistics.median(wire) * 1e3:.3f} ms")
+    log(f"service {'cold' if cold else 'hot'} request breakdown, {name}, one at a time "
+        f"(median of {reps}, host clock): " + "; ".join(parts))
+
+
+def route_latencies(served: Served) -> str:
+    status, _h, body = http_get(served.base + "/v1/metrics")
+    check(status == 200, "/v1/metrics")
+    lat = json.loads(body)["latency"]
+    return "; ".join(f"{route} n={v['count']} p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms"
+                     for route, v in sorted(lat.items()))
+
+
+def service_protocol(served: Served, paths: dict, cas: dict, stats: dict) -> None:
+    """If-None-Match/304, Range/206/416, chunk bytes, the URL shard's 307,
+    stats of both tiers, the Prometheus text with telemetry on."""
+    from repro_torch import obs
+
+    base = served.base + "/v1/stores"
+    status, h, _ = http_get(f"{base}/off/info")
+    etag = h["ETag"]
+    for route in ("info", "read?roi=5,7,9", "chunk/0"):
+        status, h, body = http_get(f"{base}/off/{route}", {"If-None-Match": etag})
+        check(status == 304 and body == b"" and h["ETag"] == etag,
+              f"service If-None-Match on {route}: {status}")
+    raw = paths["off"].read_bytes()
+    size = len(raw)
+    status, h, body = http_get(f"{base}/off/raw", {"Range": "bytes=100-1099"})
+    check(status == 206 and h["Content-Range"] == f"bytes 100-1099/{size}"
+          and body == raw[100:1100], f"service Range: {status} {h.get('Content-Range')}")
+    status, h, _ = http_get(f"{base}/off/raw", {"Range": f"bytes={size}-"})
+    check(status == 416 and h["Content-Range"] == f"bytes */{size}", f"service 416: {status}")
+    for name in ("off", "rle", "sharded"):
+        ca = cas[name]
+        for cid in (0, ca.nchunks // 2, ca.nchunks - 1):
+            off, length, _n = (int(v) for v in ca._frames[cid])
+            f = ca._src(cid)
+            f.seek(off)
+            want = f.read(length)
+            status, _h, body = http_get(f"{base}/{name}/chunk/{cid}")
+            check(status == 200 and body == want, f"service {name} chunk {cid}: frame bytes")
+        for header_only in (False, True):
+            q = "?header_only=1" if header_only else ""
+            status, _h, body = http_get(f"{base}/{name}/stats{q}")
+            check(status == 200 and json.loads(body) == stats[name, header_only],
+                  f"service {name} stats header_only={header_only} differ from ca.stats()")
+    man = json.loads(paths["sharded_url"].read_text())
+    sh = man["shards"][-1]
+    lo = sh["chunks"][0]
+    off, length, _n = sh["frames"][0]
+    status, h, _ = http_get(f"{base}/sharded_url/chunk/{lo}", follow=False)
+    check(status == 307 and h["Location"] == sh["file"]
+          and (int(h["X-Chunk-Offset"]), int(h["X-Chunk-Length"])) == (off, length),
+          f"service URL shard: {status} {h}")
+    obs.reset()
+    obs.enable()
+    try:
+        http_get(f"{base}/off/read?roi=1,2,3")
+        status, h, body = http_get(served.base + "/v1/metrics", {"Accept": "text/plain"})
+    finally:
+        obs.disable()
+        obs.reset()
+    text = body.decode()
+    series = ("szx_serve_requests", "szx_serve_responses", "szx_serve_bytes_sent",
+              "szx_serve_request_seconds", "szx_serve_cache")
+    check(status == 200 and h["Content-Type"].startswith("text/plain")
+          and all(s in text for s in series), "/v1/metrics text/plain lacks the serve series")
+    log(f"service protocol: 304 on info/read/chunk, Range 206 and 416, chunk frames == file "
+        f"bytes (off, rle, sharded), URL shard 307 with X-Chunk-Offset/Length, stats of both "
+        f"tiers == ca.stats(), {len(text.splitlines())} lines of Prometheus text with the serve "
+        f"series")
+
+
+def save_service_stores(x, field) -> dict:
+    """The stores phase 13 serves, under DATA_DIR (those phase 12 left there
+    are taken as they are): phase 5's stage-off and bitshuffle-rle stores,
+    a 4-shard manifest of the same field, one copy of that manifest with its
+    last shard at a URL, and phase 12's ingest store."""
+    from repro_torch.core.codec import Bound
+    from repro_torch.store import ArrayStore
+
+    paths = {"off": DATA_DIR / "store_off.szs", "rle": DATA_DIR / "store_rle.szs",
+             "sharded": DATA_DIR / "sharded.json", "ingest": DATA_DIR / "ingest.szs",
+             "sharded_url": DATA_DIR / "sharded_url.json"}
+    bound = Bound.rel(1e-3)
+    t0 = time.perf_counter()
+    if not paths["off"].exists():
+        ArrayStore.save(paths["off"], x, bound)
+    ArrayStore.save(paths["rle"], x, bound, stage="bitshuffle-rle")
+    ArrayStore.save_sharded(paths["sharded"], x, bound, nshards=SERVICE_SHARDS)
+    if not paths["ingest"].exists():
+        ArrayStore.save(paths["ingest"], field.reshape(INGEST_SHAPE), bound,
+                        chunk_shape=INGEST_CHUNK)
+    man = json.loads(paths["sharded"].read_text())
+    man["shards"][-1]["file"] = "http://127.0.0.1:9/sharded.shard-remote.szs"   # never fetched
+    paths["sharded_url"].write_text(json.dumps(man))
+    log(f"service stores saved in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {p.stat().st_size} B" for k, p in paths.items()))
+    return paths
+
+
+def phase_service(args) -> dict:
+    """Phase 13: phase 5's 512^3 stores (stage-off, bitshuffle-rle, 4
+    shards) and phase 12's (32768, 4096) ingest store served on the card by
+    make_service() (host parse + unpack, 256 MiB cache) and a second
+    service with fused_range=True over the stage-off store, each an
+    HttpServer on 127.0.0.1 in a thread.  ROI traffic from 16 client
+    threads, a cold and a hot pass; the protocol; phase 12's epoch through
+    StoreLoader over HTTP.  Every body is held bit for bit to ca[roi] on the
+    card and within e of the field; every batch to the local loader's
+    batch_at.  Returns the launches of the served traffic."""
+    import torch
+    from repro_torch.core.codec import Bound, plan
+    from repro_torch.data import StoreLoader, WindowSampler
+    from repro_torch.kernels import ops
+    from repro_torch.serve.store_service import make_service
+    from repro_torch.store import ArrayStore
+    from repro_torch.store.grid import parse_roi
+
+    import os
+
+    # the loader's client (urlopen) asks only 127.0.0.1: never through a proxy
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
+    field = make_field(args.edge, args.seed)
+    x = store_field(field, args.seed)
+    e = plan.resolve_error_bound(x.reshape(-1), Bound.rel(1e-3))
+    paths = save_service_stores(x, field)
+    del field
+    rois = service_rois(args.edge)
+
+    # references, outside the counted run: each ROI read on the card from a
+    # handle of its own (by the route of the service that serves it)
+    cas = {name: ArrayStore.open(paths[name]) for name in ("off", "rle", "sharded")}
+    fused_ca = ArrayStore.open(paths["off"], fused_range=True)
+    want = {}
+    for name, ca in list(cas.items()) + [("fused", fused_ca)]:
+        want[name] = {}
+        for rname, text in rois.items():
+            key = parse_roi(text)
+            got = ca[key]
+            err = max_abs_diff(got, x[key])
+            check(err <= e, f"service reference {name} {rname}: max error {err} > e={e}")
+            want[name][rname] = host_bytes(got)
+    for rname in rois:
+        check(all(want[n][rname] == want["off"][rname] for n in want),
+              f"service references of {rname} differ across stores and routes")
+    stats = {(name, h): json.loads(json.dumps(ca.stats(header_only=h).to_dict()))
+             for name, ca in cas.items() for h in (False, True)}
+    local = StoreLoader(paths["ingest"], INGEST_WINDOW, INGEST_BATCH, seed=INGEST_SEED,
+                        workers=0)
+    samples = INGEST_BATCH * INGEST_STEPS
+    local_batches, t_local = timed(lambda: [local.batch_at(s).clone()
+                                            for s in range(INGEST_STEPS)])
+    local_rates = {"serial": samples / t_local}
+    for w in SERVICE_INGEST_WORKERS[1:]:
+        with StoreLoader(paths["ingest"], INGEST_WINDOW, INGEST_BATCH, seed=INGEST_SEED,
+                         workers=w) as ld:
+            _, t = timed(lambda: [b.clone() for b in ld.batches(steps=INGEST_STEPS)])
+        local_rates[f"workers={w}"] = samples / t
+    del x
+    torch.cuda.empty_cache()
+
+    svc = make_service()
+    for name in ("off", "rle", "sharded", "ingest", "sharded_url"):
+        svc.add_store(name, paths[name])
+    fsvc = make_service(fused_range=True)
+    fsvc.add_store("off", paths["off"])
+    host, fused = Served(svc), Served(fsvc)
+    launches = {}
+    try:
+        ops.reset_launch_counts()
+        for name in ("off", "rle", "sharded"):
+            svc.cache.clear()
+            for label in ("cold", "hot"):
+                r = roi_traffic(host, name, rois, want[name])
+                log(f"service host parse {name} {label} pass: {r['requests']} requests in "
+                    f"{r['s']:.3f} s, {r['req_s']:.1f} requests/s, {r['MB_s']:.1f} MB/s decoded "
+                    f"on the wire; cache hits {r['hits']}, misses {r['misses']}, evictions "
+                    f"{r['evictions']}")
+        service_breakdown(host, "off", rois)
+        w0 = WindowSampler(INGEST_SHAPE, INGEST_WINDOW, INGEST_BATCH,
+                           seed=INGEST_SEED).origins_at(0)[0].tolist()
+        service_breakdown(host, "ingest", {"window": ",".join(
+            f"{o}:{o + w}" for o, w in zip(w0, INGEST_WINDOW))}, cold=True)
+        service_protocol(host, paths, cas, stats)
+        url = f"{host.base}/v1/stores/ingest"
+        rates = {}
+        for w in SERVICE_INGEST_WORKERS:
+            svc.cache.clear()
+            with StoreLoader(url, INGEST_WINDOW, INGEST_BATCH, seed=INGEST_SEED,
+                             workers=w) as ld:
+                check(ld.source.granularity == "window", "ingest over HTTP: not the URL source")
+                if w == 0:
+                    got, t = timed(lambda: [ld.batch_at(s).clone() for s in range(INGEST_STEPS)])
+                else:
+                    got, t = timed(lambda: [b.clone() for b in ld.batches(steps=INGEST_STEPS)])
+            check(len(got) == INGEST_STEPS and all(same_bits(g, r) for g, r in
+                                                   zip(got, local_batches)),
+                  f"ingest over HTTP workers={w}: batches differ from the local batch_at")
+            rates["serial" if w == 0 else f"workers={w}"] = samples / t
+        log(f"ingest over HTTP: window {INGEST_WINDOW} batch {INGEST_BATCH} x {INGEST_STEPS} "
+            f"steps, every batch == the local batch_at bit for bit; samples/s over HTTP "
+            + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()) + "; local (this phase) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in local_rates.items()))
+        host_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        host_routes = {k: v for k, v in ops.store_route_counts().items() if v}
+        log(f"service host parse metrics: {route_latencies(host)}; cache {svc.cache.stats()}")
+
+        ops.reset_launch_counts()
+        fsvc.cache.clear()
+        for label in ("cold", "hot"):
+            r = roi_traffic(fused, "off", rois, want["fused"])
+            log(f"service fused range off {label} pass: {r['requests']} requests in "
+                f"{r['s']:.3f} s, {r['req_s']:.1f} requests/s, {r['MB_s']:.1f} MB/s decoded on "
+                f"the wire; cache hits {r['hits']}, misses {r['misses']}, evictions "
+                f"{r['evictions']}")
+        fused_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        log(f"service fused range metrics: {route_latencies(fused)}; cache {fsvc.cache.stats()}")
+    finally:
+        host.close()
+        fused.close()
+        for ca in list(cas.values()) + [fused_ca]:
+            ca.close()
+    log(f"phase 13 launches: host-parse service {host_counts} (by route {host_routes}); "
+        f"fused-range service {fused_counts}")
+    check(host_counts.get("unpack", 0) > 0, "the host-parse service launched no unpack")
+    check(host_counts.get("bitshuffle_inverse", 0) > 0,
+          "the host-parse service launched no inverse bitshuffle on the rle store")
+    check(fused_counts.get("decode_body", 0) > 0, "the fused-range service launched no decode_body")
+    for counts in (host_counts, fused_counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2413,6 +2842,9 @@ def main() -> int:
     ap.add_argument("--ingest", action="store_true",
                     help="build, run phase 12 alone (training ingest from a compressed store, "
                          "with telemetry) and stop")
+    ap.add_argument("--service", action="store_true",
+                    help="build, run phase 13 alone (the HTTP store service on the card, its "
+                         "stores made from --seed) and stop")
     args = ap.parse_args()
 
     import torch
@@ -2456,6 +2888,15 @@ def main() -> int:
         try:
             log(f"phase 12 launches: ingest {phase_ingest(args)}, training "
                 f"{phase_store_train(args)[0]}")
+        finally:
+            shutil.rmtree(DATA_DIR, ignore_errors=True)
+        return 0
+    if args.service:
+        import shutil
+
+        DATA_DIR.mkdir(exist_ok=True)
+        try:
+            phase_service(args)
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
         return 0
@@ -2539,9 +2980,11 @@ def main() -> int:
     try:
         ingest_launches = phase_ingest(args)
         store_launches, store_s, busy = phase_store_train(args)
+        log(f"phase 13 starts {time.perf_counter() - t_start:.1f} s into the run")
+        service_launches = phase_service(args)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
-    for counts in (ingest_launches, store_launches):
+    for counts in (ingest_launches, store_launches, service_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     log(f"time train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} plain: store-fed (batch "

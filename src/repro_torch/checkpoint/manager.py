@@ -25,15 +25,16 @@ checkpoints:
     leaves' byte ranges, ``restore_leaf_slice`` only the frames (and SZx
     blocks) of a leading-axis slice;
   * stores: ``save_store``/``open_store``/``restore_store``/``stores``
-    keep ``ArrayStore`` corpora under ``<root>/stores``.
-v1 checkpoints (one file per leaf) restore as well.  ``leaf_store`` (a
-checkpoint leaf as a store view, which needs ``seq_base`` frame rebasing)
-comes with a later slice.
+    keep ``ArrayStore`` corpora under ``<root>/stores``, and ``leaf_store``
+    opens one SZx leaf of a checkpoint as a lazy 1-d store view (ROI reads
+    and ``StoreLoader`` windows over its frames in ``tree.szt``).
+v1 checkpoints (one file per leaf) restore as well.
 """
 from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import shutil
 import threading
@@ -378,6 +379,71 @@ class CheckpointManager:
         if not os.path.isdir(d):
             return []
         return sorted(fn[:-4] for fn in os.listdir(d) if fn.endswith(".szs"))
+
+    def leaf_store(self, name: str, step: Optional[int] = None, *, device=None,
+                   fused_range: bool = False):
+        """Open ONE SZx-compressed checkpoint leaf as a lazy store view.
+
+        Synthesizes a 1-d block-grid index over the leaf's chunk frames in
+        ``tree.szt`` (same container, same per-chunk SZx streams as an
+        ArrayStore file, just with GLOBAL frame sequence numbers -- hence
+        ``seq_base``), so the leaf is ROI/window-queryable through
+        ``CompressedArray`` and ``StoreLoader`` with bytes read ∝ ROI.
+        The view is 1-d over the leaf's C-order flattening; its ``attrs``
+        carry the logical ``leaf_shape``.  ``device`` (default: the
+        manager's) and ``fused_range`` are ``ArrayStore.open``'s.
+        """
+        from repro_torch.core.codec import device as device_mod, plan
+        from repro_torch.store import format as format_mod
+        from repro_torch.store.array import CompressedArray
+        from repro_torch.store.grid import ChunkGrid
+
+        d, manifest = self._step_dir(step)
+        if manifest.get("manifest_version", 1) < 2:
+            raise ValueError("leaf_store needs a v2 (tree-stream) checkpoint")
+        by_name = {m["name"]: m for m in manifest["leaves"]}
+        if name not in by_name:
+            raise KeyError(f"leaf {name} not in checkpoint step {manifest['step']}")
+        meta = by_name[name]
+        if meta["codec"] != "szx":
+            raise ValueError(
+                f"leaf {name} is stored {meta['codec']!r}; only szx-compressed leaves "
+                "are store-viewable (raw-pack leaves restore via restore_leaves)"
+            )
+        shape = tuple(int(s) for s in meta["shape"]) or (1,)
+        n = math.prod(shape)
+        lo_f, hi_f = (int(v) for v in meta["frames"])
+        frames_all = manifest["frames"]
+        spec = plan.spec_for(torch_dtype_for(meta["dtype"]))
+        dev = self.device if device is None else device_mod.resolve_device(
+            device, "CheckpointManager.leaf_store")
+        f = open(os.path.join(d, manifest["file"]), "rb")
+        try:
+            off0 = int(frames_all[lo_f][0])
+            _flags, _plen, sheader = container.read_frame_stream_header_at(f, off0, lo_f)
+            _m, _v, _dt, bs, n0, e, _nb, _nnc, _nmid = container.HEADER.unpack_from(sheader, 0)
+            # tree chunking is uniform except the tail, so the first frame's
+            # element count IS the chunk size of a 1-d grid over the leaf
+            per = n if hi_f - lo_f == 1 else int(n0)
+            grid = ChunkGrid((n,), (min(per, n),))
+            if grid.nchunks != hi_f - lo_f:
+                raise ValueError(
+                    f"leaf {name}: {hi_f - lo_f} frames do not form a uniform chunk "
+                    f"grid ({per} elements/frame over {n})"
+                )
+            frames = []
+            for i in range(lo_f, hi_f):
+                off, length = (int(v) for v in frames_all[i][:2])
+                frames.append([off, length, grid.chunk_elements(grid.chunk_coord(i - lo_f))])
+            idx = format_mod.build_store_index(
+                grid, spec.code, int(bs), float(e), frames,
+                {"leaf": name, "leaf_shape": list(shape), "step": manifest["step"]},
+            )
+            return CompressedArray(f, idx, device=dev, fused_range=fused_range,
+                                   own_file=True, seq_base=lo_f)
+        except BaseException:
+            f.close()
+            raise
 
     def stats(self, step: Optional[int] = None) -> dict:
         _, manifest = self._step_dir(step)

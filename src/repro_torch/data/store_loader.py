@@ -26,10 +26,15 @@ piece gathered as one strided view of its decoded segment.  Worker
 exceptions propagate to the consumer on ``__next__`` and ``close()``
 reclaims the pool -- the same contract as ``data.pipeline.Prefetcher``.
 
+A store-service URL (``http(s)://``, a server of either package) becomes
+an :class:`HttpStoreSource`: reads are window-granular ``/read?roi=``
+requests, coalesced and cached server-side; each worker copies its window
+to the card on its own stream, and the batch is assembled on the
+consumer's stream after those copies, as for range reads.
+
 ``StoreLM`` adapts a loader into the LM batch interface (quantized window
 values as token streams, computed on the device) so ``launch/train.py
---data-store`` trains straight from a compressed corpus.  Service URLs
-(``http(s)://``) wait for the port of the HTTP serve tier.
+--data-store`` trains straight from a compressed corpus, local or served.
 """
 from __future__ import annotations
 
@@ -308,18 +313,50 @@ class StoreSource:
             ca.close()
 
 
-def make_source(store, *, device=None, fused_range: bool = False, cache=None):
+class HttpStoreSource:
+    """Window reader over a running store service (either package's).
+
+    Reads are window-granular (``/read?roi=``): coalescing and the decoded
+    chunk cache live SERVER-side, so the wire carries exactly the decoded
+    window bytes and repeated-chunk decode cost is amortized by the
+    service's LRU.  One client serves all worker threads (each request is
+    an independent connection).  Each window comes back as a tensor on
+    ``device`` (``None``: the card, which must be there), copied there on
+    the calling thread's current stream.
+    """
+
+    granularity = "window"
+
+    def __init__(self, url: str, *, timeout: float = 60.0, device=None):
+        from repro_torch.serve.client import RemoteStore
+
+        self.remote = RemoteStore(url, timeout=timeout, device=device)
+        self.device = self.remote.device
+        self.shape = self.remote.shape
+        self.dtype = self.remote.dtype
+
+    def read_window(self, origin, window_shape) -> torch.Tensor:
+        from repro_torch.serve.client import body_tensor
+
+        roi = ",".join(f"{int(o)}:{int(o) + int(w)}" for o, w in zip(origin, window_shape))
+        _headers, body = self.remote.read_bytes(roi)
+        return body_tensor(body, self.dtype, tuple(int(w) for w in window_shape),
+                           self.device)
+
+    def close(self) -> None:
+        pass
+
+
+def make_source(store, *, device=None, fused_range: bool = False, cache=None,
+                timeout: float = 60.0):
     """Normalize a loader target into a source: an existing source passes
-    through; a path, shard-manifest path, manifest dict or open
-    ``CompressedArray`` becomes a :class:`StoreSource`.  Store-service URLs
-    need the HTTP serve tier, not ported yet."""
+    through, ``http(s)://`` URLs become :class:`HttpStoreSource`, everything
+    else (path, shard-manifest path, manifest dict, open
+    ``CompressedArray``) becomes a :class:`StoreSource`."""
     if hasattr(store, "granularity"):
         return store
     if isinstance(store, str) and store.startswith(("http://", "https://")):
-        raise NotImplementedError(
-            f"{store}: reading a store service needs the HTTP serve tier and "
-            "HttpStoreSource, not ported yet (ROADMAP.md queue 1, item 3)"
-        )
+        return HttpStoreSource(store, timeout=timeout, device=device)
     return StoreSource(store, device=device, fused_range=fused_range, cache=cache)
 
 
@@ -393,9 +430,13 @@ class StoreLoader:
     def _batch_at_impl(self, step: int, *, out: torch.Tensor | None = None) -> torch.Tensor:
         if out is None:
             out = self._empty()
+        origins = self.sampler.origins_at(step)
+        if self.source.granularity == "window":
+            for wi, org in enumerate(origins):
+                out[wi] = self.source.read_window(org, self.window_shape)
+            return out
         tasks, placements = plan_batch(
-            self.source.grid, self.source.block_size, self.sampler.origins_at(step),
-            self.window_shape,
+            self.source.grid, self.source.block_size, origins, self.window_shape,
         )
         segs = {
             cid: (self.source.read_range(cid, lo_b, hi_b), lo_b)
@@ -424,12 +465,13 @@ class StoreLoader:
 class PipelinedBatches:
     """Ordered pipelined batch iterator (the loader's hot path).
 
-    Chunk tasks for up to ``lookahead + 1`` upcoming batches are in flight
-    on the pool at once; batches yield strictly in step order.  On the card
-    each worker thread decodes on a CUDA stream of its own and records an
-    event after its range's kernels; ``__next__`` makes the consumer's
-    current stream wait on those events (no device-wide synchronize) and
-    assembles the batch there.  Consumer contract matches ``Prefetcher``: a
+    Chunk tasks (or, from a service, window reads) for up to ``lookahead +
+    1`` upcoming batches are in flight on the pool at once; batches yield
+    strictly in step order.  On the card each worker thread decodes (or
+    copies its window to the card) on a CUDA stream of its own and records
+    an event after that work; ``__next__`` makes the consumer's current
+    stream wait on those events (no device-wide synchronize) and assembles
+    the batch there.  Consumer contract matches ``Prefetcher``: a
     worker exception re-raises from ``__next__`` (after which the iterator
     is closed), ``close()`` cancels pending work and reclaims the pool, and
     the iterator is a context manager.  With telemetry on, each batch drawn
@@ -458,19 +500,20 @@ class PipelinedBatches:
         ]
         self._closed = False
 
-    def _read(self, cid: int, lo_b: int, hi_b: int):
-        """Worker: ``(segment, event recorded after its kernels or None)``."""
+    def _on_stream(self, read, *args):
+        """Worker: ``(read(*args), event recorded after its work or None)``;
+        on the card ``read`` runs on this thread's own stream."""
         dev = self._ld.device
         if dev.type != "cuda":
-            return self._ld.source.read_range(cid, lo_b, hi_b), None
+            return read(*args), None
         stream = getattr(self._tl, "stream", None)
         if stream is None:
             stream = self._tl.stream = torch.cuda.Stream(dev)
         with torch.cuda.stream(stream):
-            seg = self._ld.source.read_range(cid, lo_b, hi_b)
+            res = read(*args)
         done = torch.cuda.Event()
         done.record(stream)
-        return seg, done
+        return res, done
 
     def _submit_one(self) -> bool:
         step = self._next_step
@@ -479,15 +522,22 @@ class PipelinedBatches:
         ld = self._ld
         track = obs.enabled()
         t0 = time.perf_counter() if track else 0.0
-        tasks, placements = plan_batch(
-            ld.source.grid, ld.source.block_size, ld.sampler.origins_at(step),
-            ld.window_shape,
-        )
-        futs = {
-            cid: self._pool.submit(self._read, cid, lo_b, hi_b)
-            for cid, (lo_b, hi_b) in tasks.items()
-        }
-        self._pending.append((step, futs, tasks, placements))
+        origins = ld.sampler.origins_at(step)
+        if ld.source.granularity == "window":
+            futs = {
+                wi: self._pool.submit(self._on_stream, ld.source.read_window, org, ld.window_shape)
+                for wi, org in enumerate(origins)
+            }
+            self._pending.append((step, futs, None))
+        else:
+            tasks, placements = plan_batch(
+                ld.source.grid, ld.source.block_size, origins, ld.window_shape,
+            )
+            futs = {
+                cid: self._pool.submit(self._on_stream, ld.source.read_range, cid, lo_b, hi_b)
+                for cid, (lo_b, hi_b) in tasks.items()
+            }
+            self._pending.append((step, futs, (tasks, placements)))
         if track:
             obs.histogram("ingest.plan_seconds").observe(time.perf_counter() - t0)
             obs.gauge("ingest.lookahead").set(len(self._pending))
@@ -505,7 +555,7 @@ class PipelinedBatches:
         if not self._pending:
             self.close()
             raise StopIteration
-        step, futs, tasks, placements = self._pending.popleft()
+        step, futs, plan = self._pending.popleft()
         track = obs.enabled()
         if track:
             obs.gauge("ingest.lookahead").set(len(self._pending))
@@ -514,10 +564,10 @@ class PipelinedBatches:
         t0 = time.perf_counter() if track else 0.0
         try:
             if not track:
-                self._gather(out, futs, tasks, placements)
+                self._gather(out, futs, plan)
             else:
                 with obs.span("ingest.batch", step=step):
-                    self._gather(out, futs, tasks, placements)
+                    self._gather(out, futs, plan)
         except BaseException:
             self.close()
             raise
@@ -527,17 +577,26 @@ class PipelinedBatches:
             obs.counter("ingest.bytes_out").inc(int(out.nbytes))
         return out
 
-    def _gather(self, out: torch.Tensor, futs: dict, tasks: dict, placements) -> None:
-        """Wait for a batch's range reads and assemble it into ``out`` on
-        the consumer's current stream."""
-        segs = {}
-        for cid, fut in futs.items():
-            seg, done = fut.result()
-            if done is not None:
-                consumer = torch.cuda.current_stream(seg.device)
-                consumer.wait_event(done)
-                seg.record_stream(consumer)      # freed only after the consumer's reads
-            segs[cid] = (seg, tasks[cid][0])
+    @staticmethod
+    def _ready(t: torch.Tensor, done) -> torch.Tensor:
+        """A worker's result, usable on the consumer's current stream once
+        the worker's event has passed."""
+        if done is not None:
+            consumer = torch.cuda.current_stream(t.device)
+            consumer.wait_event(done)
+            t.record_stream(consumer)      # freed only after the consumer's reads
+        return t
+
+    def _gather(self, out: torch.Tensor, futs: dict, plan) -> None:
+        """Wait for a batch's reads and assemble it into ``out`` on the
+        consumer's current stream: windows (``plan`` None) row by row,
+        range reads through ``plan = (tasks, placements)``."""
+        if plan is None:
+            for wi, fut in futs.items():
+                out[wi] = self._ready(*fut.result())
+            return
+        tasks, placements = plan
+        segs = {cid: (self._ready(*fut.result()), tasks[cid][0]) for cid, fut in futs.items()}
         _assemble(out, placements, segs, self._ld.source.grid, self._ld.source.block_size)
 
     def close(self) -> None:

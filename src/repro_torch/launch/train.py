@@ -7,8 +7,9 @@ SZx-compressed checkpoints and telemetry.
     ... --grad-compress 1      # szx-planes gradient all-reduce, error feedback
     ... --ckpt-compress        # SZx-compressed checkpoints
     ... --data-store STORE     # tokens from quantized ROI windows of an
-                               # ArrayStore (path or shard-manifest .json),
-                               # decoded on the device as each batch needs them
+                               # ArrayStore (path, shard-manifest .json or a
+                               # store-service URL), on the device as each
+                               # batch needs them
     ... --data-workers N       # ingest worker threads (default 2)
     ... --profile-dir DIR      # telemetry on: DIR/trace.json (Chrome trace of
                                # the obs spans), DIR/metrics.prom, and
@@ -17,8 +18,7 @@ SZx-compressed checkpoints and telemetry.
 Without ``--device`` it runs on the card, and fails without one.  The
 gradient compression averages over the process group; launched alone, the
 launcher makes a one-rank group (gloo on the CPU, NCCL on the card).  The
-MoE, SSM, audio and VLM families raise ``NotImplementedError``, and so does
-a store-service URL for ``--data-store``.
+MoE, SSM, audio and VLM families raise ``NotImplementedError``.
 """
 import argparse
 import os
@@ -56,9 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt", default="/tmp/repro_launch_ckpt", help="checkpoint directory")
     ap.add_argument("--ckpt-compress", action="store_true")
     ap.add_argument("--data-store", default=None,
-                    help="train from a compressed ArrayStore corpus (store path or "
-                         "shard-manifest .json) instead of the synthetic stream; tokens "
-                         "are quantized ROI windows decoded on the device")
+                    help="train from a compressed ArrayStore corpus (store path, "
+                         "shard-manifest .json or http(s):// store-service URL) instead "
+                         "of the synthetic stream; tokens are quantized ROI windows on "
+                         "the device")
     ap.add_argument("--data-workers", type=int, default=2,
                     help="ingest worker threads for --data-store")
     ap.add_argument("--profile-dir", default=None,

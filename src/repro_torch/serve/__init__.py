@@ -1,1 +1,2 @@
-"""Serving: prefill + decode with dense and SZx-planes KV caches (``engine``)."""
+"""Serving: prefill + decode with dense and SZx-planes KV caches (``engine``),
+and the HTTP store service (``service``, ``store_service``, ``client``)."""

@@ -13,7 +13,7 @@ footer is the block-grid index), and ``ArrayStore.open`` returns a lazy
   from block headers wherever blocks are constant, decoding only what is
   not (``repro_torch.store.query``).
 
-CLI: ``python -m repro_torch.store {create,info,read,query}``.
+CLI: ``python -m repro_torch.store {create,info,read,query,serve}``.
 """
 from repro_torch.store.array import ArrayStore, CompressedArray  # noqa: F401
 from repro_torch.store.grid import ChunkGrid  # noqa: F401

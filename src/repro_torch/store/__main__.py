@@ -5,11 +5,13 @@
     python -m repro_torch.store info   STORE.szs [--json]
     python -m repro_torch.store read   STORE.szs OUT.bin --roi "0:16,:,3"
     python -m repro_torch.store query  STORE.szs [--roi ...] [--header-only] [--json]
+    python -m repro_torch.store serve  STORE.szs [--port 8117] [--fused-range]
 
 ``create`` writes a chunk-grid store from a raw little-endian binary array;
 ``read`` decodes only the requested ROI; ``query`` runs the
-compressed-domain stats scan.  ``--device`` picks where the codec runs
-(default ``cuda``).  Exit code is non-zero on any error.
+compressed-domain stats scan; ``serve`` starts the HTTP slice/query service
+(:mod:`repro_torch.serve.store_service`).  ``--device`` picks where the
+codec runs (default ``cuda``).  Exit code is non-zero on any error.
 """
 from __future__ import annotations
 
@@ -138,6 +140,14 @@ def _cmd_query(args) -> int:
     return 0
 
 
+def _cmd_serve(args) -> int:
+    from repro_torch.serve.store_service import serve_store
+
+    serve_store(args.input, host=args.host, port=args.port, device=args.device,
+                fused_range=args.fused_range)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.store", description=__doc__.splitlines()[0]
@@ -187,7 +197,16 @@ def main(argv: list[str] | None = None) -> int:
     q.add_argument("--json", action="store_true")
     q.set_defaults(fn=_cmd_query)
 
-    for p in (c, i, r, q):
+    s = sub.add_parser("serve", help="HTTP slice/query service")
+    s.add_argument("input")
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8117)
+    s.add_argument("--fused-range", action="store_true",
+                   help="decode ROIs by the fused range decode instead of the host "
+                        "parse and the unpack kernels")
+    s.set_defaults(fn=_cmd_serve)
+
+    for p in (c, i, r, q, s):
         p.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     try:

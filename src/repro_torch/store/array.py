@@ -263,8 +263,9 @@ class ArrayStore:
                 loc = sh["file"]
                 if "://" in str(loc):
                     raise ValueError(
-                        f"shard {si} lives at {loc!r}: ArrayStore.open needs "
-                        "local shard files"
+                        f"shard {si} lives at {loc!r}: remote shards are served by the "
+                        "store service (which proxies or redirects); ArrayStore.open "
+                        "needs local files"
                     )
                 files.append(open(os.path.join(base, str(loc)), "rb"))
                 frames.extend(sh["frames"])
@@ -338,7 +339,8 @@ class CompressedArray:
 
     def __init__(self, fileobj, idx: dict, *, device, fused_range: bool = False,
                  own_file: bool = False, shard_files: list | None = None,
-                 frame_src: list[int] | None = None, cache=None, cache_ns: str = ""):
+                 frame_src: list[int] | None = None, cache=None, cache_ns: str = "",
+                 seq_base: int = 0):
         grid, spec, block_size, e = format_mod.validate_store_index(idx)
         self._f = fileobj
         self._files = list(shard_files) if shard_files is not None else [fileobj]
@@ -354,6 +356,11 @@ class CompressedArray:
         self._closed = False
         self._cache = cache
         self._cache_ns = cache_ns
+        # frame seq numbers are validated as seq_base + chunk_id: a view over
+        # a SLICE of a larger container's frame sequence (a checkpoint leaf's
+        # chunk frames inside tree.szt, which carry global seqs --
+        # CheckpointManager.leaf_store) sets it to the first frame's seq
+        self._seq_base = int(seq_base)
         self.attrs = dict(idx.get("attrs") or {})
         # advisory writer-side stage name (per-chunk truth is in frame flags)
         self.stage = idx.get("stage")
@@ -484,7 +491,7 @@ class CompressedArray:
         off, length, elements = (int(v) for v in self._frames[cid])
         f = self._src(cid)
         flags, plen, sheader = container.read_frame_stream_header_at(
-            f, off, cid
+            f, off, cid + self._seq_base
         )
         if container.FRAME_HEADER.size + plen != length:
             raise ValueError("corrupt store index (frame length mismatch)")
@@ -540,9 +547,9 @@ class CompressedArray:
         """
         self._check_open()
         locs = None
-        if self._frame_src is not None:
+        if self._frame_src is not None or self._seq_base:
             locs = [
-                (self._src(seq), seq, int(fr[0]), int(fr[1]), int(fr[2]))
+                (self._src(seq), seq + self._seq_base, int(fr[0]), int(fr[1]), int(fr[2]))
                 for seq, fr in enumerate(self._frames)
             ]
         return query_mod.scan_frames(

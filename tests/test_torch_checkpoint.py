@@ -371,6 +371,113 @@ def test_stores_under_the_manager(tmp_path):
         m.store_path("../x")
 
 
+LEAVES = ["w", "layers/0/a", "layers/0/b", "layers/1/a"]     # f32, f64, bf16, f16
+LEAF_SHAPES = {"w": [500, 100], "layers/0/a": [3000], "layers/0/b": [2000], "layers/1/a": [5000]}
+LEAF_KEYS = [np.s_[...], np.s_[7], np.s_[100:1141], np.s_[-300:], np.s_[1999:2000],
+             np.s_[5:5]]
+
+
+def _leaf_checkpoints(tmp_path):
+    kw = dict(keep=1, compress=True, chunk_bytes=1 << 12)
+    m = CheckpointManager(str(tmp_path / "p"), device="cpu", bound=Bound.rel(1e-4), **kw)
+    r = RManager(str(tmp_path / "r"), bound=RBound.rel(1e-4), **kw)
+    tree = _tree(5)
+    m.save(3, tree)
+    r.save(3, tree)
+    return m, r
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("writer", ["port", "reference"])
+@pytest.mark.parametrize("leaf", LEAVES)
+def test_leaf_store_matches_the_reference(tmp_path, leaf, writer, fused):
+    """A leaf view of the port's checkpoint and of the reference's (each
+    package opens both) gives the reference's leaf_store values on the same
+    files, bit for bit, and its geometry, attrs and header-tier stats."""
+    m, r = _leaf_checkpoints(tmp_path)
+    root = str(tmp_path / ("p" if writer == "port" else "r"))
+    mine = CheckpointManager(root, device="cpu").leaf_store(leaf, fused_range=fused)
+    theirs = RManager(root).leaf_store(leaf, 3)
+    try:
+        assert mine.shape == theirs.shape and mine.nchunks == theirs.nchunks
+        assert mine.nchunks >= (1 if leaf == "layers/0/b" else 2)
+        assert mine.attrs == theirs.attrs
+        assert mine.attrs["leaf_shape"] == LEAF_SHAPES[leaf]
+        assert mine._seq_base == theirs._seq_base > 0
+        assert mine.error_bound == theirs.error_bound
+        for key in LEAF_KEYS:
+            assert _same(mine[key], theirs[key]), key
+        assert mine.stats(header_only=True).to_dict() == \
+            theirs.stats(header_only=True).to_dict()
+        st, rst = mine.stats(), theirs.stats()
+        assert (st.count, st.min, st.max) == (rst.count, rst.min, rst.max)
+        assert abs(st.sum[0] - rst.sum[0]) <= 1e-12 * max(abs(rst.sum[0]), 1.0)
+        # and it holds the leaf: within the bound of the saved values
+        want = m.restore_leaves([leaf])[leaf].reshape(-1)
+        assert _same(mine[...], want)
+    finally:
+        mine.close()
+        theirs.close()
+
+
+def test_leaf_store_refuses_what_is_not_a_szx_leaf(tmp_path):
+    m, r = _leaf_checkpoints(tmp_path)
+    for mgr in (m, r):
+        with pytest.raises(ValueError, match="store-viewable"):
+            mgr.leaf_store("step")
+        with pytest.raises(KeyError):
+            mgr.leaf_store("nope")
+
+
+def test_seq_base_mismatch_raises_as_in_the_reference(tmp_path):
+    """Frames are validated as seq_base + chunk id, by ROI reads and both
+    query tiers: a view over a leaf's frames with the wrong base raises,
+    with the reference's message."""
+    from repro.store.array import CompressedArray as RArray
+    from repro_torch.store import format as format_mod
+    from repro_torch.store.array import CompressedArray
+
+    m, _r = _leaf_checkpoints(tmp_path)
+    lv = m.leaf_store("w")
+    idx = format_mod.build_store_index(lv._grid, lv._spec.code, lv._block_size, lv._e,
+                                       lv._frames, lv.attrs)
+    path = os.path.join(str(tmp_path / "p"), "step_000000003", "tree.szt")
+    for base in (0, lv._seq_base + 1):
+        mine = CompressedArray(open(path, "rb"), idx, device="cpu", own_file=True,
+                               seq_base=base)
+        theirs = RArray(open(path, "rb"), idx, own_file=True, seq_base=base)
+        for read in (lambda a: a[0:10], lambda a: a.stats(), lambda a: a.stats(header_only=True)):
+            with pytest.raises(ValueError) as got:
+                read(mine)
+            with pytest.raises(ValueError) as want:
+                read(theirs)
+            assert str(got.value) == str(want.value)
+        mine.close()
+        theirs.close()
+    assert _same(lv[0:10], m.restore_leaf_slice("w", slice(0, 1)).reshape(-1)[:10])
+    lv.close()
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_store_loader_over_a_leaf_view(tmp_path, workers):
+    """A checkpoint leaf streams through the same loader: the port's batches
+    over its leaf view equal the reference loader's over the reference's
+    view of the same file, serial and pipelined."""
+    from repro.data import StoreLoader as RLoader
+    from repro_torch.data import StoreLoader
+
+    m, r = _leaf_checkpoints(tmp_path)
+    lv, rv = m.leaf_store("w"), r.leaf_store("w")
+    with StoreLoader(lv, (512,), 4, seed=2, workers=workers) as ld, \
+            RLoader(rv, (512,), 4, seed=2, workers=workers) as rld:
+        piped = [b.clone() for b in ld.batches(steps=3)]
+        for s in range(3):
+            want = rld.batch_at(s)
+            assert _same(ld.batch_at(s), want) and _same(piped[s], want), s
+    lv.close()
+    rv.close()
+
+
 # ---------------------------------------------------------------------------
 # Trainer (tests/test_substrate.py's toy model, on the port's optimizer)
 # ---------------------------------------------------------------------------

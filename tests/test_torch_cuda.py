@@ -363,6 +363,54 @@ def test_pipelined_ring_buffer_under_a_busy_consumer(card, fused, tmp_path):
     assert torch.equal(got["labels"].cpu(), want["labels"])
 
 
+@pytest.mark.parametrize("fused", [False, True], ids=["hostparse", "fused"])
+def test_store_service_on_card_over_a_socket(card, fused, tmp_path):
+    """The service decodes on the card: over a socket, every /read body is
+    bit-identical to ``ca[roi]`` read on the card from a handle of its own,
+    RemoteStore gives that tensor on the card, and a pipelined HTTP loader
+    (windows copied to the card on the workers' streams) equals batch_at
+    and the local loader."""
+    import threading
+
+    from repro_torch.data import StoreLoader
+    from repro_torch.serve.client import RemoteStore
+    from repro_torch.serve.service import HttpServer
+    from repro_torch.serve.store_service import make_service
+    from repro_torch.store import ArrayStore
+
+    x = _walk(1 << 20, torch.float32, seed=6).reshape(512, 2048)
+    path = tmp_path / "c.szs"
+    ArrayStore.save(path, x.to(card), 1e-3, chunk_shape=(32, 2048))
+    svc = make_service(str(path), fused_range=fused)
+    assert svc.device.type == "cuda"
+    srv = HttpServer(svc)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        ca = ArrayStore.open(path)
+        remote = RemoteStore(base + "/v1/stores/default")
+        for key in ((Ellipsis,), (slice(5, 70),), (slice(100, 141), slice(3, 901)), (250, -1),
+                    (7,)):
+            got = remote[key]
+            assert got.device.type == "cuda" and _same(got, ca[key]), key
+        ld = StoreLoader(base, (16, 700), 8, seed=1, workers=4, lookahead=3, reuse_slots=2)
+        local = StoreLoader(path, (16, 700), 8, seed=1, workers=0)
+        seen = []
+        with ld.batches(steps=8) as it:
+            for batch in it:
+                assert batch.device.type == "cuda"
+                torch.cuda._sleep(20_000_000)      # a consumer busy with each batch
+                seen.append(batch.clone())
+        for step, got in enumerate(seen):
+            assert _same(got, ld.batch_at(step)) and _same(got, local.batch_at(step)), step
+        counts = ops.launch_counts()
+        assert counts["decode_body" if fused else "unpack"] > 0, counts
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
 def _f32(bits) -> float:
     return torch.tensor(bits, dtype=torch.int32).view(torch.float32).item()
 

@@ -44,7 +44,8 @@ def test_import_loads_nothing_of_the_reference():
         "import repro_torch.launch.train\n"
         "import repro_torch.obs, repro_torch.obs.registry, repro_torch.obs.export\n"
         "import repro_torch.obs.stream_stats, repro_torch.data.store_loader\n"
-        "import repro_torch.data.scidata\n"
+        "import repro_torch.data.scidata, repro_torch.serve.service\n"
+        "import repro_torch.serve.store_service, repro_torch.serve.client\n"
         "repro_torch.configs.all_configs()\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
         "          and any(m == b or m.startswith(b + '.') for b in %r)]\n"
@@ -210,6 +211,42 @@ def test_ingest_refuses_to_run_without_a_card(monkeypatch, tmp_path):
         assert ld.batch_at(0).device.type == "cpu"
     assert StoreLM(path, DataConfig(256, 16, 2), device="cpu").batch_at(0)["tokens"].shape \
         == (2, 16)
+
+
+def test_store_service_refuses_to_run_without_a_card(monkeypatch, tmp_path):
+    """The store service, its server, the remote client, the loader's URL
+    source and a checkpoint leaf view decode on (or copy to) the card unless
+    ``device``/``--device`` asks for the CPU; without a card they raise
+    before any request is made."""
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import StoreLoader
+    from repro_torch.data.store_loader import HttpStoreSource
+    from repro_torch.serve.client import RemoteStore
+    from repro_torch.serve.service import StoreService
+    from repro_torch.serve.store_service import make_server, make_service
+    from repro_torch.store import ArrayStore
+    from repro_torch.store.__main__ import main as store_main
+
+    path = str(tmp_path / "a.szs")
+    ArrayStore.save(path, np.linspace(0, 1, 4096, dtype=np.float32).reshape(64, 64), 1e-3,
+                    device="cpu")
+    ckpt = CheckpointManager(str(tmp_path / "c"), compress=True, device="cpu")
+    ckpt.save(0, {"w": np.linspace(0, 1, 4096, dtype=np.float32)})
+    url = "http://127.0.0.1:9/v1/stores/a"       # never contacted: the check comes first
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: StoreService(), lambda: make_service(path), lambda: make_server(path),
+                 lambda: RemoteStore(url), lambda: HttpStoreSource(url),
+                 lambda: StoreLoader(url, (4, 4), 2),
+                 lambda: ckpt.leaf_store("w", device="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert store_main(["serve", path, "--port", "0"]) == 1
+    assert StoreService(device="cpu").device.type == "cpu"
+    assert RemoteStore(url, device="cpu").device.type == "cpu"
+    with ckpt.leaf_store("w") as lv:
+        assert lv[0:3].device.type == "cpu"
 
 
 def test_building_a_model_leaves_the_matmul_flags_alone():

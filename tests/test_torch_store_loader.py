@@ -394,10 +394,32 @@ def test_loader_epochs_stop_at_num_steps_and_urls_wait(tmp_path):
             assert sum(1 for _ in it) == 16
         with ld.batches(start_step=14, steps=100) as it:
             assert sum(1 for _ in it) == 2
-    with pytest.raises(NotImplementedError, match="serve tier"):
-        make_source("http://localhost:1/store")
-    with pytest.raises(NotImplementedError, match="serve tier"):
-        StoreLoader("https://localhost:1/store", (1,), 1)
+    # a service URL is a window-granular source; a dead one raises
+    import threading
+
+    from repro_torch.data.store_loader import HttpStoreSource
+    from repro_torch.serve.store_service import make_server
+
+    srv = make_server(path, device="cpu")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        src = make_source(url, device="cpu")
+        assert isinstance(src, HttpStoreSource) and src.granularity == "window"
+        assert src.shape == (64, 64) and src.dtype == torch.float32
+        with StoreLoader(url, (8, 8), 4, seed=3, workers=2, epochs=1, device="cpu") as ld, \
+                StoreLoader(path, (8, 8), 4, seed=3, epochs=1, device="cpu") as local:
+            assert ld.sampler.num_steps == 16
+            with ld.batches(start_step=14, steps=100) as it:
+                got = [b.clone() for b in it]
+            assert len(got) == 2 and all(torch.equal(g, local.batch_at(14 + i))
+                                         for i, g in enumerate(got))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    with pytest.raises(OSError):                 # nothing listens there
+        make_source("http://127.0.0.1:1/store", device="cpu", timeout=5)
 
 
 @pytest.mark.parametrize("app", ["CESM", "QMCPack"])
