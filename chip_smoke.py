@@ -2,7 +2,7 @@
 """Chip smoke test of the PyTorch port (repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--edge 512] [--reps 50]
-                          [--store-kernels | --ingest | --service]
+                          [--store-kernels | --ingest | --service | --families]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It imports nothing of the JAX package.  In order it:
@@ -136,6 +136,25 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      the fused one decode_body (``--service`` runs only this phase, after
      the build, with its stores made from --seed).
 
+ 14. serves the MoE, SSM and hybrid families at full width and depth:
+     mamba2-1.3b (48 layers, attention-free), hymba-1.5b (32 layers, 25
+     query heads over 5 kv heads beside a Mamba2 mixer, a 2048-token window)
+     and deepseek-moe-16b (28 layers, 64 experts top-6 and 2 shared, 16.88 B
+     float32 weights, 67.5 GB, last, on a card the earlier phases freed);
+     weights from --seed on the card, bf16 compute, 4 prompts of 2048 tokens
+     and 64 greedy steps with a dense cache and, where there is attention,
+     SZx-planes caches at P = 1 and 2.  Launch counters are zeroed just
+     before and read after: the flash kernel once per attention layer a
+     prefill and never in decode, the planes kernels as in phase 9 (vector
+     route); the cache bytes equal the slabs' shapes, SSM state included;
+     the logits are finite; decode is held to forward over the same tokens
+     (deepseek drop-free, capacity_factor = n_experts / top_k, in float32
+     compute on as many prompts as fit; in bf16 measured beside the share
+     of tokens that take another expert set in the two forms); the peak
+     memory and a profile of a dense prefill and 2 steps per model
+     (``--families`` runs this phase alone, after the flash kernel's checks
+     at its two prefill shapes, then times the kernel at them).
+
 Phase 2 also holds the planes kernels against their plain versions on both
 routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
 nb = 0; edge blocks; a view one float off and planes one byte off; random
@@ -144,7 +163,9 @@ the embed gradient's shape at P = 1 and 2, each beside the scalar route, and
 at the serving shapes; phases 8, 9 and 11 check through the per-route
 counters that every planes launch took the vector route; the flash
 kernel is held to its plain version right after (llama3.2-1b's prefill
-shape, a window, unaligned S, hd 80 and 128, float32).
+shape, a window, unaligned S, hd 80 and 128, float32, and phase 14's
+prefills: hymba's G = 5 with a window equal to S, deepseek's G = 1 at hd
+128), and timed at llama3.2-1b's and phase 14's prefill shapes.
 
 Any failed check raises, so the exit code is non-zero.  The last two lines
 are the kernels JSON and the result JSON.
@@ -173,6 +194,7 @@ GOLDEN_SHA256 = {                  # tests/test_codec.py, the f32 golden streams
 }
 
 
+MAX_ERR_CASES = {}                 # flash_attention: max |kernel - plain| per case
 MAX_ERR = {"encode": 0.0, "decode_body": 0.0, "bitshuffle": 0.0, "unpack": 0.0,
            "unpack_dense": 0.0, "planes_encode": 0.0, "planes_decode": 0.0,
            "flash_attention": 0.0, "block_stats": 0.0, "pack": 0.0}  # kernel vs plain, this run
@@ -1502,6 +1524,11 @@ TEACHER_STEPS = 4                  # decode steps held to forward over the same 
 # figure and the reference's own compressed limit (0.06)
 TEACHER_TOL = {"dense": 0.03, "compressed": 0.06}
 PROFILE_STEPS = 2                  # decode steps in each traced run
+# phase 14's prefill shapes (B, S, Hq, Hkv, hd, causal, window): hymba's
+# 25 query heads over 5 kv heads with its 2048-token window, deepseek's 16
+# heads of 128 (configs/hymba_1p5b.py, configs/deepseek_moe_16b.py)
+FAMILY_FLASH = {"hymba-1.5b": (4, 2048, 25, 5, 64, True, 2048),
+                "deepseek-moe-16b": (4, 2048, 16, 16, 128, True, 0)}
 FLASH_CASES = (                    # (B, S, Hq, Hkv, hd, causal, window, dtype name)
     (4, 2048, 32, 8, 64, True, 0, "bfloat16"),      # llama3.2-1b's prefill, the main path
     (4, 2048, 32, 8, 64, True, 512, "bfloat16"),    # a sliding window
@@ -1509,6 +1536,8 @@ FLASH_CASES = (                    # (B, S, Hq, Hkv, hd, causal, window, dtype n
     (2, 1024, 32, 32, 80, True, 0, "bfloat16"),     # hd 80 (stablelm-3b)
     (2, 1024, 32, 4, 128, True, 0, "bfloat16"),     # hd 128 (yi-6b)
     (2, 1024, 32, 8, 64, True, 0, "float32"),
+    FAMILY_FLASH["hymba-1.5b"] + ("bfloat16",),      # G = 5, window = S (phase 14)
+    FAMILY_FLASH["deepseek-moe-16b"] + ("bfloat16",),  # G = 1, hd 128 (phase 14)
 )
 
 
@@ -1519,7 +1548,7 @@ def flash_inputs(gen, b, s, hq, hkv, hd, dtype):
                  for shape in ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
 
 
-def phase_flash_kernel(gen):
+def phase_flash_kernel(gen, cases=FLASH_CASES):
     """The flash-attention kernel against its plain version on the card.
     Tolerance: float32 sums in another order (|d| <= 1e-5 |ref| + 1e-6);
     bf16 outputs are one rounding of a float32 result in both, so they may
@@ -1528,7 +1557,7 @@ def phase_flash_kernel(gen):
     from repro_torch.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
-    for b, s, hq, hkv, hd, causal, window, dname in FLASH_CASES:
+    for b, s, hq, hkv, hd, causal, window, dname in cases:
         dtype = getattr(torch, dname)
         q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, dtype)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -1539,26 +1568,32 @@ def phase_flash_kernel(gen):
               f"flash_attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} window={window} {dname}: "
               f"max |kernel - plain| {float(d.max())}")
         MAX_ERR["flash_attention"] = max(MAX_ERR["flash_attention"], float(d.max()))
+        MAX_ERR_CASES[(b, s, hq, hkv, hd, causal, window)] = float(d.max())
         log(f"flash_attention vs plain B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} causal={causal} "
             f"window={window} {dname}: max |d| {float(d.max()):.3e} (tolerance "
             f"{'2^-7' if rtol > 1e-5 else '1e-5'} |ref| + 1e-6)")
     torch.cuda.synchronize()
-    log(f"flash kernel vs plain: {len(FLASH_CASES)} cases within tolerance "
+    log(f"flash kernel vs plain: {len(cases)} cases within tolerance "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
-def time_flash(gen, reps: int):
+def time_flash(gen, reps: int, shape=(SERVE_BATCH, SERVE_PROMPT, 32, 8, 64, True, 0)):
     """The kernel, its plain version and scaled_dot_product_attention (the
-    yardstick; the port never calls it) at llama3.2-1b's prefill shape,
-    beside the bound from this input's bytes and causal operations."""
+    yardstick; the port never calls it) at a prefill shape (default
+    llama3.2-1b's), beside the bound from this input's bytes and the
+    operations of its unmasked (q, k) pairs.  A window no shorter than S
+    masks nothing the causal mask keeps, so SDPA's is_causal computes the
+    same function there."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
-    b, s, hq, hkv, hd = SERVE_BATCH, SERVE_PROMPT, 32, 8, 64
+    b, s, hq, hkv, hd, causal, window = shape
+    check(causal and (not window or window >= s), f"time_flash: SDPA has no window < S {shape}")
     q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, torch.bfloat16)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), max(reps // 10, 3))
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window), reps)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal, window=window),
+                       max(reps // 10, 3))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                             enable_gqa=True), reps)
@@ -1566,9 +1601,9 @@ def time_flash(gen, reps: int):
     pairs = s * (s + 1) // 2                       # (q, k) pairs under the causal mask
     flops = b * hq * pairs * hd * 4                # q.k and p @ v, 2 flops a multiply-add
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    log(f"time flash_attention bf16 B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} causal: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms; "
-        f"bound {bound_ms:.4f} ms ({flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16; "
+    log(f"time flash_attention bf16 B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} causal window={window}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} "
+        f"ms; bound {bound_ms:.4f} ms ({flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16; "
         f"{nbytes / 1e6:.3f} MB at 3.35 TB/s takes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
         f"{bound_ms / ms * 100:.1f}% of the bound; the bf16 route runs 4 products (q.k, and "
         f"p @ v as three bf16 terms of p), {2 * flops / 1e9:.3f} GFLOP, whose floor at 989 "
@@ -1584,7 +1619,6 @@ def phase_serve(args):
     checks after the path need."""
     import torch
     from repro_torch import configs
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine as E
 
@@ -1599,84 +1633,131 @@ def phase_serve(args):
     log(f"serve {SERVE_ARCH}: {nparams} parameters (f32) made on the card in {t_init:.2f} s; "
         f"{SERVE_BATCH} prompts of {SERVE_PROMPT} tokens, {SERVE_STEPS} greedy steps")
     seq = SERVE_PROMPT + SERVE_STEPS
-    hd, hkv, nl = cfg.resolved_head_dim, cfg.n_kv_heads, cfg.n_layers
     _, t_first = timed(lambda: E.prefill(model, cfg, prompts, seq_len=seq))
     log(f"serve {SERVE_ARCH}: first prefill (allocator and cuBLAS warm-up) {t_first * 1e3:.1f} ms")
     runs = {}
     for mode, P in SERVE_MODES:
-        before = ops.launch_counts()
-        (cache, logits), t_pre = timed(lambda: E.prefill(model, cfg, prompts, seq_len=seq,
-                                                         kv_mode=mode, num_planes=P))
-        after = ops.launch_counts()
-        check(after["flash_attention"] - before["flash_attention"] == nl,
-              f"{mode} P={P}: prefill launched flash_attention "
-              f"{after['flash_attention'] - before['flash_attention']} times, not {nl}")
-        if mode == "compressed":
-            check(after["planes_encode"] - before["planes_encode"] == 2,
-                  f"compressed P={P}: prefill's K and V encodes")
-        per = hd * T.compute_dtype(cfg).itemsize if mode == "dense" else 4 + 1 + P * hd
-        want_bytes = 2 * nl * SERVE_BATCH * seq * hkv * per
-        check(E.cache_nbytes(cache) == want_bytes,
-              f"{mode} P={P}: cache {E.cache_nbytes(cache)} B != slab shapes {want_bytes} B")
-        first = [logits[:, -1].float()]
-        gen_tokens = []
-        tok = torch.argmax(logits[:, -1:], -1)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        before = ops.launch_counts()
-        for step in range(SERVE_STEPS):
-            gen_tokens.append(tok)
-            logits, cache = E.decode_step(model, cfg, cache, tok, kv_mode=mode, num_planes=P)
-            if step < TEACHER_STEPS:
-                first.append(logits[:, -1].float())
-            tok = torch.argmax(logits, -1)
-        torch.cuda.synchronize()
-        t_dec = time.perf_counter() - t0
-        after = ops.launch_counts()
-        check(after["flash_attention"] == before["flash_attention"], "decode launched flash")
-        if mode == "compressed":
-            nchunks = -(-seq // E.DECODE_CHUNK)
-            for k, n in (("planes_encode", 2 * nl * SERVE_STEPS),
-                         ("planes_decode", 2 * nl * nchunks * SERVE_STEPS)):
-                check(after[k] - before[k] == n,
-                      f"compressed P={P}: {after[k] - before[k]} {k} launches in "
-                      f"{SERVE_STEPS} steps, not {n}")
-        check(bool(torch.isfinite(logits).all()), f"{mode} P={P}: decode logits not finite")
-        toks = torch.cat(gen_tokens, dim=1)
-        runs[(mode, P)] = (toks, torch.stack(first, dim=1))
+        cache, toks, dec, t_pre, t_dec = serve_and_check(model, cfg, prompts, mode, P,
+                                                         SERVE_STEPS, TEACHER_STEPS)
+        runs[(mode, P)] = (toks, dec)
         log(f"serve {SERVE_ARCH} kv={mode} P={P}: prefill {t_pre * 1e3:.1f} ms "
             f"({SERVE_BATCH * SERVE_PROMPT / t_pre:.0f} tok/s), decode {SERVE_STEPS} steps in "
             f"{t_dec:.3f} s = {SERVE_BATCH * SERVE_STEPS / t_dec:.1f} tok/s "
-            f"({t_dec / SERVE_STEPS * 1e3:.2f} ms a step), cache {want_bytes} B "
+            f"({t_dec / SERVE_STEPS * 1e3:.2f} ms a step), cache {E.cache_nbytes(cache)} B "
             f"({E.cache_nbytes(cache) / 2**20:.1f} MiB), sample row "
             f"{toks[0, :8].tolist()}")
-        del cache, logits
+        del cache
     return model, cfg, prompts, runs
+
+
+def cache_bytes(cfg, mode: str, P: int, batch: int, seq: int) -> int:
+    """The cache slabs' bytes from their shapes: K/V (dense in the compute
+    dtype, or mu, sexp and P planes a head_dim block) and the SSM's float32
+    state and conv tail in the compute dtype."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    per_layer, item = 0, T.compute_dtype(cfg).itemsize
+    if T.has_attention(cfg):
+        w, hd = E.cache_window(cfg, seq), cfg.resolved_head_dim
+        per = hd * item if mode == "dense" else 4 + 1 + P * hd
+        per_layer += 2 * batch * w * cfg.n_kv_heads * per
+    if T.has_ssm(cfg):
+        per_layer += batch * (4 * cfg.ssm_n_heads * cfg.ssm_state * cfg.ssm_head_dim
+                              + item * (cfg.ssm_conv_width - 1) * L.ssm_conv_channels(cfg))
+    return cfg.n_layers * per_layer
+
+
+def serve_and_check(model, cfg, prompts, mode: str, P: int, steps: int, record: int):
+    """Prefill, then ``steps`` greedy decode steps; checks the launch
+    counts (the flash kernel once per attention layer a prefill and never
+    in decode, the planes kernels once per K and V a prefill and per layer
+    and chunk a step), the cache bytes and finite logits.  Returns (cache, generated tokens (B,
+    steps), logits of the prefill and the first ``record`` steps (B, record
+    + 1, V), prefill s, decode s)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    b, s = prompts.shape
+    seq = s + steps
+    nl = cfg.n_layers
+    attn = T.has_attention(cfg)
+    before = ops.launch_counts()
+    (cache, logits), t_pre = timed(lambda: E.prefill(model, cfg, prompts, seq_len=seq,
+                                                     kv_mode=mode, num_planes=P))
+    after = ops.launch_counts()
+    n = after["flash_attention"] - before["flash_attention"]
+    check(n == (nl if attn else 0), f"{cfg.name} {mode} P={P}: prefill launched flash {n} times")
+    if mode == "compressed":
+        check(after["planes_encode"] - before["planes_encode"] == 2,
+              f"{cfg.name} P={P}: prefill's K and V encodes")
+    want = cache_bytes(cfg, mode, P, b, seq)
+    check(E.cache_nbytes(cache) == want,
+          f"{cfg.name} {mode} P={P}: cache {E.cache_nbytes(cache)} B != slab shapes {want} B")
+    first = [logits[:, -1].float()]
+    gen_tokens = []
+    tok = torch.argmax(logits[:, -1:], -1)
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(steps):
+        gen_tokens.append(tok)
+        logits, cache = E.decode_step(model, cfg, cache, tok, kv_mode=mode, num_planes=P)
+        if step < record:
+            first.append(logits[:, -1].float())
+        tok = torch.argmax(logits, -1)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    after = ops.launch_counts()
+    check(after["flash_attention"] == before["flash_attention"],
+          f"{cfg.name}: decode launched flash")
+    if mode == "compressed":
+        nchunks = -(-E.cache_window(cfg, seq) // E.DECODE_CHUNK)
+        for k, n in (("planes_encode", 2 * nl * steps),
+                     ("planes_decode", 2 * nl * nchunks * steps)):
+            check(after[k] - before[k] == n,
+                  f"{cfg.name} P={P}: {after[k] - before[k]} {k} launches in {steps} steps, "
+                  f"not {n}")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name} {mode} P={P}: decode logits not finite")
+    return cache, torch.cat(gen_tokens, dim=1), torch.stack(first, dim=1), t_pre, t_dec
+
+
+def forward_logits(model, cfg, prompts, toks):
+    """``forward`` over the prompts and the first TEACHER_STEPS generated
+    tokens: the logits (B, TEACHER_STEPS + 1, V) at the positions the
+    prefill and those steps predict from."""
+    import torch
+    from repro_torch.models import transformer as T
+
+    h, _ = T.forward(model, cfg, torch.cat([prompts, toks[:, :TEACHER_STEPS]], dim=1))
+    return T.logits_for(model, cfg, h[:, prompts.shape[1] - 1:]).float()
+
+
+def teacher_rel(full, dec, vocab: int) -> list:
+    """max |forward - decode| / max |forward| per position, over the real
+    vocabulary (the padding columns hold -1e9)."""
+    return [float((full[:, i, :vocab] - dec[:, i, :vocab]).abs().max()
+                  / full[:, i, :vocab].abs().max()) for i in range(full.shape[1])]
 
 
 def check_serve(model, cfg, prompts, runs) -> None:
     """Decode logits after teacher-forced steps against ``forward`` over the
     same tokens on the card (tests/test_models.py's criterion)."""
-    import torch
-    from repro_torch.models import transformer as T
-
     dense_toks = runs[("dense", 1)][0]
     for (mode, P), (toks, dec) in runs.items():
-        full_toks = torch.cat([prompts, toks[:, :TEACHER_STEPS]], dim=1)
-        h, _ = T.forward(model, cfg, full_toks)
-        full = T.logits_for(model, cfg, h[:, SERVE_PROMPT - 1:]).float()   # (B, steps + 1, V)
-        rel = [float((full[:, i] - dec[:, i]).abs().max() / full[:, i].abs().max())
-               for i in range(TEACHER_STEPS + 1)]
+        rel = teacher_rel(forward_logits(model, cfg, prompts, toks), dec, cfg.vocab_size)
         check(max(rel) < TEACHER_TOL[mode], f"{mode} P={P}: decode vs forward {rel}")
         agree = float((toks == dense_toks).float().mean())
         log(f"serve check kv={mode} P={P}: prefill and {TEACHER_STEPS} decode steps vs forward "
             f"over the same tokens, max |d| / max |logit| = "
             + ", ".join(f"{r:.5f}" for r in rel)
             + f" (tolerance {TEACHER_TOL[mode]}); greedy tokens equal to dense's: {agree:.3f}")
-        del h, full
 
 
-def profile_serve(model, cfg, prompts) -> None:
+def profile_serve(model, cfg, prompts, modes=SERVE_MODES) -> None:
     """torch.profiler over one prefill and the PROFILE_STEPS decode steps
     after it, per mode: device time by kernel and the device's busy share of
     the wall time (kernels run on one stream, so their times add up without
@@ -1686,7 +1767,7 @@ def profile_serve(model, cfg, prompts) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import engine as E
 
-    seq = SERVE_PROMPT + SERVE_STEPS
+    seq = prompts.shape[1] + SERVE_STEPS
 
     def traced(fn):
         torch.cuda.synchronize()
@@ -1704,7 +1785,7 @@ def profile_serve(model, cfg, prompts) -> None:
             tok = torch.argmax(logits, -1)
         return cache
 
-    for mode, P in SERVE_MODES:
+    for mode, P in modes:
         (cache, logits), wall_pre, evs_pre = traced(
             lambda: E.prefill(model, cfg, prompts, seq_len=seq, kv_mode=mode, num_planes=P))
         tok = torch.argmax(logits[:, -1:], -1)
@@ -1716,7 +1797,7 @@ def profile_serve(model, cfg, prompts) -> None:
             top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms "
                             f"x{e.count}" for e in evs[:8])
             share = f"{100 * busy / wall:.1f}%" if busy else "not measured: no device events"
-            log(f"profile kv={mode} P={P} {what}: wall {wall * 1e3:.1f} ms, device busy "
+            log(f"profile {cfg.name} kv={mode} P={P} {what}: wall {wall * 1e3:.1f} ms, device busy "
                 f"{busy * 1e3:.1f} ms ({share}); top: {top}")
         del cache, logits
 
@@ -2810,6 +2891,278 @@ def phase_service(args) -> dict:
 # main
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE, SSM and hybrid families at full width and depth
+# ---------------------------------------------------------------------------
+
+# smallest first; deepseek-moe-16b's 16.88 B f32 weights (67.5 GB) last, on
+# a card the earlier phases have freed (configs/*.py, full width and depth)
+FAMILY_ARCHS = ("mamba2-1.3b", "hymba-1.5b", "deepseek-moe-16b")
+TEACHER_PROMPTS = (4, 3, 2, 1)     # the float32 checks take as many as fit
+
+
+def family_modes(cfg):
+    from repro_torch.models import transformer as T
+
+    return SERVE_MODES if T.has_attention(cfg) else SERVE_MODES[:1]
+
+
+def family_flash_rows(gen, reps: int, launches: dict) -> list:
+    """The flash kernel timed at phase 14's prefill shapes (``time_flash``),
+    as entries of the kernels JSON's flash row, each with its max |kernel -
+    plain| from the kernel-vs-plain cases and ``launches[arch]``, its flash
+    launches in phase 14."""
+    rows = []
+    for arch, shape in FAMILY_FLASH.items():
+        ms, plain_ms, lib_ms, bound_ms = time_flash(gen, reps, shape)
+        rows.append({"arch": arch, "shape": list(shape), "launches": launches.get(arch),
+                     "max_abs_err": MAX_ERR_CASES.get(shape), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms})
+    return rows
+
+
+def routes(fn, force=None):
+    """``fn()`` with ``layers.moe_route`` recording the top-k experts (B,
+    S, K) each call chooses; with ``force`` (one (B, S, K) a call, in call
+    order) each call dispatches to those experts instead.  Returns (fn's
+    result, the recorded choices)."""
+    from repro_torch.models import layers as L
+
+    seen, route = [], L.moe_route
+
+    def hooked(x, router, cfg):
+        out = route(x, router, cfg)
+        seen.append(out[1])
+        return out if force is None else L.dispatch(out[0], force[len(seen) - 1], cfg)
+
+    L.moe_route = hooked
+    try:
+        return fn(), seen
+    finally:
+        L.moe_route = route
+
+
+def moe_teacher(model, cfg, prompts, mode: str, P: int) -> tuple:
+    """The MoE model's prefill and TEACHER_STEPS decode steps against
+    forward over the same tokens, twice: as forward routes them, and with
+    every token dispatched to the experts the serving form chose for it (so
+    that only the cache and the rounding differ).  Returns (rel, rel with
+    the serving form's routes, per layer the share of tokens forward routes
+    to another expert set)."""
+    import torch
+
+    nl = cfg.n_layers
+    (toks, dec), seen = routes(
+        lambda: serve_and_check(model, cfg, prompts, mode, P, TEACHER_STEPS, TEACHER_STEPS)[1:3])
+    # per layer: the prefill's choices, then one a decode step
+    served = [torch.cat([seen[i]] + seen[nl + i::nl], dim=1) for i in range(nl)]
+    del seen
+    full, own = routes(lambda: forward_logits(model, cfg, prompts, toks))
+    flips = [float((a.sort(-1).values != b.sort(-1).values).any(-1).float().mean())
+             for a, b in zip(served, own)]
+    forced, _ = routes(lambda: forward_logits(model, cfg, prompts, toks), force=served)
+    return (teacher_rel(full, dec, cfg.vocab_size), teacher_rel(forced, dec, cfg.vocab_size),
+            flips)
+
+
+def fit_prompts(arch: str, what: str, fn):
+    """``fn(nb)`` on the most prompts of TEACHER_PROMPTS that fit the card.
+    Returns (nb, its result)."""
+    import torch
+
+    for nb in TEACHER_PROMPTS:
+        torch.cuda.empty_cache()          # outside the handler: its frames hold tensors
+        try:
+            return nb, fn(nb)
+        except torch.cuda.OutOfMemoryError:
+            log(f"families {arch}: {what} does not fit with {nb} prompts")
+    check(False, f"{arch}: {what} fits no prompt")
+
+
+def layer_divergence(model, cfg, tokens, s: int) -> list:
+    """Per layer, max |h_a - h_b| / max |h_b| over the first ``s``
+    positions, where h_a runs the layers over ``tokens[:, :s]`` and h_b over
+    all of ``tokens``: the train form at two lengths computes one function
+    on those positions, but the SSD's chunks, the MoE's capacity and the
+    products' tiles differ, so this is how far rounding alone moves the
+    hidden state, layer by layer."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    out = []
+    with torch.no_grad(), L.exact_matmuls():
+        ha = T.embed_tokens(model, cfg, tokens[:, :s])
+        hb = T.embed_tokens(model, cfg, tokens)
+        for lp in model["layers"]:
+            ha = T._block(lp, ha, cfg, causal=True)[0]
+            hb = T._block(lp, hb, cfg, causal=True)[0]
+            ref = hb[:, :s].float()
+            out.append(float((ha.float() - ref).abs().max() / ref.abs().max()))
+    return out
+
+
+def family_teacher_checks(model, cfg, prompts, runs: dict) -> dict:
+    """Decode vs forward over the same tokens for one model of phase 14.
+    In bf16, as served, measured (from ``runs`` where the model has no
+    experts), with ``layer_divergence`` beside it: rounding at other places
+    in the two forms grows with depth.  In float32 compute (exact products),
+    on as many prompts as fit, held to TEACHER_TOL.  The MoE runs drop-free
+    (capacity_factor = n_experts / top_k, so cap = S): capacity drops make
+    the two forms differ by design (tests/test_models.py:180-183).  A token
+    whose k-th and (k+1)-th expert scores lie closer than what the forms
+    differ by (rounding, or the compressed cache's quantization) takes
+    another expert, so the MoE's check is held with forward dispatching each
+    token to the experts the serving form chose (``moe_teacher``); the
+    share of such tokens is printed.  Returns {(mode, P): (rel, what)} of
+    the float32 checks."""
+    import dataclasses
+
+    import torch
+
+    arch = cfg.name
+    served = cfg
+    if cfg.n_experts:
+        served = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        s = SERVE_PROMPT + TEACHER_STEPS
+        cap = min(s, max(8, int(s * cfg.top_k / cfg.n_experts * served.capacity_factor)))
+        check(cap == s, f"{arch}: drop-free capacity {cap} != {s}")
+    f32 = dataclasses.replace(served, compute_dtype="float32")
+    drop = (f"drop-free (capacity_factor {served.capacity_factor:.4f}, cap = S), "
+            if cfg.n_experts else "")
+
+    def checks(c, nb):
+        if c.n_experts:
+            return {key: moe_teacher(model, c, prompts[:nb], *key) for key in family_modes(c)}
+        out = {}
+        for key in family_modes(c):
+            cache, toks, dec, _, _ = serve_and_check(model, c, prompts[:nb], *key, TEACHER_STEPS,
+                                                  TEACHER_STEPS)
+            del cache
+            out[key] = (teacher_rel(forward_logits(model, c, prompts[:nb], toks), dec,
+                                    c.vocab_size), None, None)
+        return out
+
+    def report(c, nb, res, held: bool) -> dict:
+        what = f"{drop}{c.compute_dtype}, {nb} prompts"
+        for (mode, P), (rel, rel_routed, flips) in res.items():
+            if flips is not None:
+                log(f"families {arch} kv={mode} P={P} {c.compute_dtype}: tokens forward routes "
+                    f"to another expert set than the serving form, per layer: max "
+                    f"{max(flips):.4f}, mean {sum(flips) / len(flips):.4f}, layers with any "
+                    f"{sum(f > 0 for f in flips)} of {len(flips)}; decode vs forward as forward "
+                    "routes: " + ", ".join(f"{r:.5f}" for r in rel))
+            if not held:
+                log(f"families measure {arch} kv={mode} P={P}: prefill and {TEACHER_STEPS} "
+                    f"decode steps vs forward over the same tokens, {what}"
+                    + (", forward on the served routes" if flips else "")
+                    + ": max |d| / max |logit| = "
+                    + ", ".join(f"{r:.5f}" for r in (rel_routed or rel)) + " (measured)")
+        return {key: (rel_routed or rel, what + (", forward on the served routes"
+                                                 if flips else ""))
+                for key, (rel, rel_routed, flips) in res.items()}
+
+    if cfg.n_experts:
+        nb, res = fit_prompts(arch, f"the check in {cfg.compute_dtype}",
+                              lambda nb: checks(served, nb))
+    else:           # the served runs' own tokens and logits
+        nb = SERVE_BATCH
+        res = {key: (teacher_rel(forward_logits(model, cfg, prompts, toks), dec, cfg.vocab_size),
+                     None, None) for key, (toks, dec) in runs.items()}
+    report(served, nb, res, held=False)
+    toks = torch.cat([prompts[:1], runs[("dense", 1)][0][:1, :TEACHER_STEPS]], dim=1)
+    for c in (served, f32):
+        div = layer_divergence(model, c, toks, SERVE_PROMPT)
+        marks = sorted({1, 2, 4, 8, 16, 32, len(div)} & set(range(1, len(div) + 1)))
+        log(f"families {arch} {c.compute_dtype}: the layers over {SERVE_PROMPT} and "
+            f"{SERVE_PROMPT + TEACHER_STEPS} tokens, max |d| / max |h| on the first "
+            f"{SERVE_PROMPT} after layer " + ", ".join(f"{i}: {div[i - 1]:.2e}" for i in marks))
+    nb, res = fit_prompts(arch, "the float32 check", lambda nb: checks(f32, nb))
+    return report(f32, nb, res, held=True)
+
+
+def phase_families(args) -> dict:
+    """Phase 14: mamba2-1.3b, hymba-1.5b and deepseek-moe-16b at full width
+    and depth, float32 weights from --seed on the card, bf16 compute: 4
+    prompts of 2048 tokens and 64 greedy decode steps with a dense cache
+    (and SZx-planes caches at P = 1, 2 where there is attention); launch
+    counts, cache bytes, finite logits; decode vs forward over the same
+    tokens (``family_teacher_checks``); peak memory; a profile of a dense
+    prefill and 2 decode steps.  Returns the phase's launch counts
+    and each model's flash launches."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    gc.collect()                    # the earlier phases' cycles hold memory on the card
+    ops.reset_launch_counts()
+    flash = {}
+    for i, arch in enumerate(FAMILY_ARCHS):
+        flash0 = ops.launch_counts()["flash_attention"]
+        cfg = configs.get(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        free, total = torch.cuda.mem_get_info()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 14 + i)
+        model, t_init = timed(lambda: T.init_params(cfg, gen, "cuda"))
+        nparams = sum(p.numel() for p in model.parameters())
+        # param_count() leaves out the norms and the SSM's norm
+        norms = cfg.d_model * (1 + cfg.n_layers * (1 + bool(cfg.n_experts or cfg.d_ff))) \
+            + cfg.n_layers * cfg.ssm_d_inner * T.has_ssm(cfg)
+        check(nparams == cfg.param_count() + norms, f"{arch}: {nparams} parameters")
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
+                                generator=gen)
+        log(f"families {arch} ({cfg.family}): {nparams} parameters, "
+            f"{nparams * 4 / 1e9:.2f} GB f32, made on the card in {t_init:.2f} s "
+            f"({free / 1e9:.2f} of {total / 1e9:.2f} GB free before); {cfg.n_layers} layers "
+            f"(full depth), {SERVE_BATCH} prompts of {SERVE_PROMPT} tokens, {SERVE_STEPS} "
+            f"greedy steps")
+        t_first = timed(lambda: serve_and_check(model, cfg, prompts, "dense", 1, 1, 0) and None)[1]
+        log(f"families {arch}: first prefill and step (allocator and cuBLAS warm-up) "
+            f"{t_first * 1e3:.1f} ms")
+        runs = {}
+        for mode, P in family_modes(cfg):
+            cache, toks, dec, t_pre, t_dec = serve_and_check(model, cfg, prompts, mode, P,
+                                                          SERVE_STEPS, TEACHER_STEPS)
+            log(f"families {arch} kv={mode} P={P}: prefill {t_pre * 1e3:.1f} ms "
+                f"({SERVE_BATCH * SERVE_PROMPT / t_pre:.0f} tok/s), decode {SERVE_STEPS} steps "
+                f"in {t_dec:.3f} s = {SERVE_BATCH * SERVE_STEPS / t_dec:.1f} tok/s "
+                f"({t_dec / SERVE_STEPS * 1e3:.2f} ms a step), cache {E.cache_nbytes(cache)} B "
+                f"({E.cache_nbytes(cache) / 2**20:.1f} MiB), sample row {toks[0, :8].tolist()}")
+            runs[(mode, P)] = (toks, dec)
+            del cache
+        checks = family_teacher_checks(model, cfg, prompts, runs)
+        for (mode, P), (rel, what) in checks.items():
+            check(max(rel) < TEACHER_TOL[mode], f"{arch} {mode} P={P}: decode vs forward {rel}")
+            log(f"families check {arch} kv={mode} P={P}: prefill and {TEACHER_STEPS} decode steps "
+                f"vs forward over the same tokens, {what}: max |d| / max |logit| = "
+                + ", ".join(f"{r:.5f}" for r in rel) + f" (tolerance {TEACHER_TOL[mode]})")
+        dense_toks = runs[("dense", 1)][0]
+        for (mode, P), (toks, _) in runs.items():
+            if mode != "dense":
+                log(f"families {arch} kv={mode} P={P}: greedy tokens equal to dense's: "
+                    f"{float((toks == dense_toks).float().mean()):.3f}")
+        del runs
+        _, t_prof = timed(lambda: profile_serve(model, cfg, prompts, modes=SERVE_MODES[:1]))
+        peak = torch.cuda.max_memory_allocated()
+        log(f"families {arch}: peak memory allocated {peak} B ({peak / 1e9:.2f} GB of "
+            f"{total / 1e9:.2f}), weights {nparams * 4 / 1e9:.2f} GB; profile {t_prof:.1f} s")
+        flash[arch] = ops.launch_counts()["flash_attention"] - flash0
+        del model, prompts
+    torch.cuda.empty_cache()
+    counts = {k: v for k, v in ops.launch_counts().items()
+              if k in PLANES_KERNELS + ("flash_attention",)}
+    log(f"families path launches: {counts}; by route {ops.planes_route_counts()}")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the families path")
+    check_vector_route("families path", ops.planes_route_counts())
+    return counts, flash
+
+
 def store_kernels_only(args) -> int:
     """``--store-kernels``: phase 6's store-kernel rows alone, on phase 5's
     middle chunk (the stage-off store of the same array) and phase 4's first
@@ -2845,6 +3198,10 @@ def main() -> int:
     ap.add_argument("--service", action="store_true",
                     help="build, run phase 13 alone (the HTTP store service on the card, its "
                          "stores made from --seed) and stop")
+    ap.add_argument("--families", action="store_true",
+                    help="build, hold the flash kernel to its plain version at phase 14's "
+                         "prefill shapes, run phase 14 alone (the MoE, SSM and hybrid families "
+                         "at full width), time the flash kernel at those shapes and stop")
     args = ap.parse_args()
 
     import torch
@@ -2899,6 +3256,13 @@ def main() -> int:
             phase_service(args)
         finally:
             shutil.rmtree(DATA_DIR, ignore_errors=True)
+        return 0
+    if args.families:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        phase_flash_kernel(gen, [c for c in FLASH_CASES if c[:7] in FAMILY_FLASH.values()])
+        _, flash = phase_families(args)
+        family_flash_rows(gen, max(args.reps // 2, 5), flash)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2987,6 +3351,11 @@ def main() -> int:
     for counts in (ingest_launches, store_launches, service_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+    log(f"phase 14 starts {time.perf_counter() - t_start:.1f} s into the run")
+    family_launches, family_flash = phase_families(args)
+    for k, v in family_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    flash_cases = family_flash_rows(gen, max(args.reps // 2, 5), family_flash)
     log(f"time train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} plain: store-fed (batch "
         f"draw + step) " + ", ".join(f"{t * 1e3:.1f}" for t in store_s)
         + " ms vs synthetic tokens (phase 11, step only) "
@@ -3009,6 +3378,7 @@ def main() -> int:
         "replaces": SOURCES["flash_attention"][1], "launches": launches["flash_attention"],
         "max_abs_err": MAX_ERR["flash_attention"], "ms": flash_ms, "plain_ms": flash_plain_ms,
         "bound_ms": flash_bound_ms, "bound_by": "operations", "library_ms": flash_lib_ms,
+        "cases": flash_cases,
     })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

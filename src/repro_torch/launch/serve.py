@@ -1,10 +1,12 @@
-"""Serving launcher: batched greedy generation with one of the attention
-families, weights made from ``--seed``.
+"""Serving launcher: batched greedy generation with a dense, MoE, SSM or
+hybrid model, weights made from ``--seed``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --reduced --kv-mode compressed --tokens 16 --device cpu
 
 Without ``--device`` it runs on the card, and fails without one.
+arctic-480b's weights (960 GB in bf16) do not fit one card: it runs with
+``--reduced`` until the model shards (ROADMAP.md queue 1 item 7).
 """
 import argparse
 import time

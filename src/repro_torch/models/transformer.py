@@ -1,5 +1,4 @@
-"""Model assembly for the dense-attention families: parameters, forward pass,
-logits.
+"""Model assembly: parameters, forward pass, logits, loss.
 
 Counterpart of ``repro/models/transformer.py``.  The parameters live in an
 ``nn.Module`` (:class:`Transformer`) that reads like the JAX package's tree:
@@ -9,13 +8,18 @@ Python loop in place of ``lax.scan``.  :func:`params_from_jax` loads the JAX
 package's tree (layers stacked on a leading axis), so both packages can
 compute with the same weights.
 
-The families this slice carries are the attention-only ones (llama3.2-1b,
-h2o-danube-1.8b, stablelm-3b, yi-6b).  MoE, SSM/hybrid, encoder-decoder and
-VLM configurations raise ``NotImplementedError``: ROADMAP.md queue 1 item 6.
+The port carries the dense-attention families (llama3.2-1b, h2o-danube-1.8b,
+stablelm-3b, yi-6b), MoE (deepseek-moe-16b; arctic-480b, whose dense FFN
+runs beside the experts), SSM (mamba2-1.3b) and the hybrid (hymba-1.5b: an
+attention and a Mamba2 mixer side by side, their outputs averaged).
+Encoder-decoder and VLM configurations raise ``NotImplementedError``:
+ROADMAP.md queue 1 item 6.
 
-Training: :func:`loss_fn` runs :func:`forward_train` (gradients enabled,
-each layer recomputed in the backward where ``cfg.remat`` is set, as the
-reference's ``jax.checkpoint`` of its scan body) and
+Training (the dense-attention families; the others raise
+``NotImplementedError`` there): :func:`loss_fn` runs :func:`forward_train`
+(gradients enabled, each layer recomputed in the backward where
+``cfg.remat`` is set, as the reference's ``jax.checkpoint`` of its scan
+body) and
 :func:`chunked_ce_loss` (512 positions at a time, each chunk's logits
 recomputed in the backward).  :func:`param_tree` gives the parameters as a
 nested dict of tensors (the module's own storage) for the optimizer, the
@@ -32,8 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.codec.device import resolve_device
 from repro_torch.models import layers as L
 
-_LATER = (("n_experts", "MoE"), ("ssm_state", "SSM/hybrid"),
-          ("encoder_decoder", "encoder-decoder (audio)"), ("prefix_embeds", "VLM"))
+_LATER = (("encoder_decoder", "encoder-decoder (audio)"), ("prefix_embeds", "VLM"))
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -57,10 +60,20 @@ class Params(nn.Module):
         return name in self._parameters or name in self._modules
 
 
+def has_attention(cfg: ArchConfig) -> bool:
+    return bool(cfg.n_heads) and cfg.family != "ssm"
+
+
+def has_ssm(cfg: ArchConfig) -> bool:
+    return bool(cfg.ssm_state) and cfg.family in ("ssm", "hybrid")
+
+
 class Transformer(Params):
-    """The parameters of one attention-family model (uninitialized; see
-    :func:`init_params` and :func:`params_from_jax`) on ``device``: ``None``
-    means the card, and raises without one."""
+    """The parameters of one model (uninitialized; see :func:`init_params`
+    and :func:`params_from_jax`) on ``device``: ``None`` means the card, and
+    raises without one.  Each layer holds the blocks the reference's
+    ``_init_layer`` makes for the config: ``attn``, ``ssm``, ``moe`` (with
+    ``mlp`` beside it where ``dense_ff_residual``) or ``mlp``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -69,9 +82,6 @@ class Transformer(Params):
                 raise NotImplementedError(
                     f"{cfg.name}: the {family} family is not ported yet "
                     "(ROADMAP.md queue 1 item 6)")
-        if not cfg.n_heads or cfg.family == "ssm":
-            raise NotImplementedError(f"{cfg.name}: attention-free models are not ported yet "
-                                      "(ROADMAP.md queue 1 item 6)")
         device = resolve_device(device, "Transformer")
         self.cfg = cfg
         dt = param_dtype(cfg)
@@ -79,21 +89,39 @@ class Transformer(Params):
         def param(*shape):
             return nn.Parameter(torch.empty(shape, dtype=dt, device=device), requires_grad=False)
 
+        def block(**shapes):
+            blk = Params()
+            for name, shape in shapes.items():
+                setattr(blk, name, param(*shape))
+            return blk
+
         d, hd = cfg.d_model, cfg.resolved_head_dim
         self.embed = param(cfg.padded_vocab, d)
         self.layers = nn.ModuleList()
         for _ in range(cfg.n_layers):
             lay = Params()
             lay.ln1 = param(d)
-            lay.attn = Params()
-            lay.attn.wq = param(d, cfg.n_heads * hd)
-            lay.attn.wk = param(d, cfg.n_kv_heads * hd)
-            lay.attn.wv = param(d, cfg.n_kv_heads * hd)
-            lay.attn.wo = param(cfg.n_heads * hd, d)
-            if cfg.d_ff:
-                lay.mlp = Params()
-                lay.mlp.wi = param(d, 2 * cfg.d_ff)
-                lay.mlp.wo = param(cfg.d_ff, d)
+            if cfg.n_heads:
+                lay.attn = block(wq=(d, cfg.n_heads * hd), wk=(d, cfg.n_kv_heads * hd),
+                                 wv=(d, cfg.n_kv_heads * hd), wo=(cfg.n_heads * hd, d))
+            if has_ssm(cfg):
+                di, h = cfg.ssm_d_inner, cfg.ssm_n_heads
+                lay.ssm = block(**{"in": (d, L.ssm_in_features(cfg)),
+                                   "conv": (cfg.ssm_conv_width, L.ssm_conv_channels(cfg)),
+                                   "dt_bias": (h,), "A_log": (h,), "D": (h,), "norm": (di,),
+                                   "out": (di, d)})
+            if cfg.n_experts:
+                e, f = cfg.n_experts, cfg.moe_d_ff
+                shapes = {"router": (d, e), "wi": (e, d, 2 * f), "wo": (e, f, d)}
+                if cfg.n_shared_experts:
+                    fs = cfg.n_shared_experts * f
+                    shapes.update(shared_wi=(d, 2 * fs), shared_wo=(fs, d))
+                lay.moe = block(**shapes)
+                lay.ln2 = param(d)
+                if cfg.dense_ff_residual:
+                    lay.mlp = block(wi=(d, 2 * cfg.d_ff), wo=(cfg.d_ff, d))
+            elif cfg.d_ff:
+                lay.mlp = block(wi=(d, 2 * cfg.d_ff), wo=(cfg.d_ff, d))
                 lay.ln2 = param(d)
             self.layers.append(lay)
         self.final_ln = param(d)
@@ -108,17 +136,26 @@ class Transformer(Params):
 @torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> Transformer:
     """Random weights as the reference draws them: normal * fan_in^-0.5 for
-    every matrix (fan_in d_model, or the rows of an output projection
-    ``wo``), ones for the norms.  ``generator`` lies on ``device`` (``None``:
-    the card); its numbers are not jax.random's."""
+    every matrix, ones for the norms and the SSM's ``D``, zeros for its
+    ``dt_bias``, log U[1, 16) for its ``A_log``.  The fan-in is d_model for
+    the embedding and the second-to-last dimension for the rest: d_model for
+    the input projections (``moe.wi`` (E, D, 2F) too), the rows of an output
+    projection (``moe.wo`` (E, F, D): F), the conv's width.  ``generator``
+    lies on ``device`` (``None``: the card); its numbers are not
+    jax.random's."""
     model = Transformer(cfg, device=device)
     for name, w in model.named_parameters():
-        if w.dim() == 1:
-            w.fill_(1.0)
-            continue
-        fan_in = w.shape[0] if name.endswith(".wo") else cfg.d_model
         x = torch.empty(w.shape, dtype=torch.float32, device=w.device)
-        w.copy_(x.normal_(generator=generator).mul_(fan_in ** -0.5))
+        if name.endswith(".dt_bias"):
+            x.zero_()
+        elif name.endswith(".A_log"):
+            x.uniform_(1.0, 16.0, generator=generator).log_()
+        elif w.dim() == 1:
+            x.fill_(1.0)
+        else:
+            fan_in = cfg.d_model if name == "embed" else w.shape[-2]
+            x.normal_(generator=generator).mul_(fan_in ** -0.5)
+        w.copy_(x)
     return model
 
 
@@ -141,13 +178,11 @@ def params_from_jax(tree, cfg: ArchConfig, device=None) -> Transformer:
         put(model.lm_head, tree["lm_head"])
     stacked = tree["layers"]
     for i, lay in enumerate(model.layers):
-        for name in ("ln1", "ln2"):
-            if name in lay:
-                put(lay[name], stacked[name][i])
-        for block in ("attn", "mlp"):
-            if block in lay:
-                for wname, w in lay[block]._parameters.items():
-                    put(w, stacked[block][wname][i])
+        for name, w in lay._parameters.items():
+            put(w, stacked[name][i])
+        for block, mod in lay._modules.items():
+            for wname, w in mod._parameters.items():
+                put(w, stacked[block][wname][i])
     return model
 
 
@@ -169,23 +204,37 @@ def param_tree(model: Transformer) -> dict:
 # ---------------------------------------------------------------------------
 
 def ffn_part(p, h, cfg: ArchConfig):
-    """Post-mixer FFN residual (dense MLP).  Returns (h, aux); aux is 0 for
-    the families this slice carries (it is the MoE balance loss)."""
+    """Post-mixer FFN residual (dense MLP and/or MoE).  Returns (h, aux), aux
+    the MoE's balance loss (0.0 without experts)."""
+    aux = 0.0
     if "ln2" in p:
         hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+        ff = None
+        if "moe" in p:
+            ff, aux = L.moe_ffn(p["moe"], hn, cfg)
         if "mlp" in p:
-            h = h + L.swiglu_mlp(p["mlp"], hn)
-    return h, 0.0
+            mlp = L.swiglu_mlp(p["mlp"], hn)
+            ff = mlp if ff is None else ff + mlp
+        h = h + ff
+    return h, aux
 
 
 def _block(p, h, cfg: ArchConfig, *, causal: bool):
     """One transformer block (train/prefill form).  Returns (h, aux, caps),
-    caps holding the layer's k/v for a serving cache."""
+    caps holding what the layer's serving cache needs: k/v, the SSM's final
+    state and conv tail."""
+    caps = {}
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
-    attn_out, (k, v) = L.attention(p["attn"], hn, cfg, causal=causal)
-    h = h + attn_out
+    mix = None
+    if has_attention(cfg):
+        mix, (caps["k"], caps["v"]) = L.attention(p["attn"], hn, cfg, causal=causal)
+    if "ssm" in p:
+        ssm_out, (caps["state"], caps["conv"]) = L.mamba2(p["ssm"], hn, cfg, return_state=True)
+        # hybrid: parallel heads, outputs averaged (Hymba)
+        mix = ssm_out if mix is None else 0.5 * (mix + ssm_out)
+    h = h + mix
     h, aux = ffn_part(p, h, cfg)
-    return h, aux, {"k": k, "v": v}
+    return h, aux, caps
 
 
 def _run_layers(layers, h, cfg, *, causal: bool, capture: bool = False):
@@ -200,7 +249,7 @@ def _run_layers(layers, h, cfg, *, causal: bool, capture: bool = False):
             caps.append(c)
     if not capture:
         return h, aux
-    return h, aux, {name: torch.stack([c[name] for c in caps]) for name in ("k", "v")}
+    return h, aux, {name: torch.stack([c[name] for c in caps]) for name in caps[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +272,11 @@ def forward(params, cfg: ArchConfig, tokens):
 def forward_train(params, cfg: ArchConfig, tokens):
     """:func:`forward` with gradients: -> (hidden (B, S, D), aux_loss).
     With ``cfg.remat`` each layer keeps only its input for the backward and
-    runs again there (``torch.utils.checkpoint``, non-reentrant)."""
+    runs again there (``torch.utils.checkpoint``, non-reentrant).  The MoE,
+    SSM and hybrid families serve but do not train yet."""
+    if cfg.n_experts or has_ssm(cfg):
+        raise NotImplementedError(f"{cfg.name}: training of the {cfg.family} family is not "
+                                  "ported yet (ROADMAP.md queue 1 item 6)")
     h = embed_tokens(params, cfg, tokens)
     aux = 0.0
     for lp in params["layers"]:

@@ -1,5 +1,5 @@
-"""Serving engine: prefill + single-token decode with KV caches, for the
-attention families.
+"""Serving engine: prefill + single-token decode with KV and SSM state
+caches.
 
 Counterpart of ``repro/serve/engine.py``.  Cache modes:
   'dense'      -- K/V slabs (L, B, W, Hkv, hd) in the compute dtype
@@ -8,7 +8,9 @@ Counterpart of ``repro/serve/engine.py``.  Cache modes:
                   ``PlanesCodec`` (the planes kernels on the card)
 
 Sliding-window archs use a ring buffer of W = window slots (slot = pos % W)
-with an absolute-position array (``slot_pos``) for masking.
+with an absolute-position array (``slot_pos``) for masking.  SSM and hybrid
+archs carry O(1) state per layer: the SSD state (B, H, N, hp) in float32 and
+the conv's last W-1 inputs (B, W-1, CC) in the activation dtype.
 
 Where the port differs from the reference:
   - the cache is updated in place: :func:`prefill` builds it, and
@@ -67,7 +69,9 @@ def cache_window(cfg: ArchConfig, seq_len: int) -> int:
 
 def make_cache(cfg: ArchConfig, batch: int, seq_len: int, *, kv_mode: str = "dense",
                num_planes: int = 1, dtype=torch.bfloat16, device=None) -> dict:
-    """Zero-initialized cache on ``device`` (default the card)."""
+    """Zero-initialized cache on ``device`` (default the card): K/V slabs
+    for the attention families, state and conv slabs for the SSM ones; an
+    attention-free model's ``slot_pos`` has one slot."""
     if kv_mode not in ("dense", "compressed"):
         raise ValueError(f"unknown kv_mode {kv_mode!r}")
     if device is None:
@@ -75,7 +79,8 @@ def make_cache(cfg: ArchConfig, batch: int, seq_len: int, *, kv_mode: str = "den
     w = cache_window(cfg, seq_len)
     hd, nl, hkv = cfg.resolved_head_dim, cfg.n_layers, cfg.n_kv_heads
     lay = {}
-    for nm in ("k", "v"):
+    attn = T.has_attention(cfg)
+    for nm in ("k", "v") if attn else ():
         if kv_mode == "dense":
             lay[nm] = torch.zeros((nl, batch, w, hkv, hd), dtype=dtype, device=device)
         else:
@@ -83,12 +88,18 @@ def make_cache(cfg: ArchConfig, batch: int, seq_len: int, *, kv_mode: str = "den
             lay[nm + "sexp"] = torch.zeros((nl, batch, w, hkv), dtype=torch.int8, device=device)
             lay[nm + "pl"] = torch.zeros((nl, num_planes, batch, w, hkv, hd), dtype=torch.uint8,
                                          device=device)
-    return {"pos": 0, "slot_pos": torch.full((w,), -1, dtype=torch.int32, device=device),
+    if T.has_ssm(cfg):
+        lay["state"] = torch.zeros((nl, batch, cfg.ssm_n_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                                   dtype=torch.float32, device=device)
+        lay["conv"] = torch.zeros((nl, batch, cfg.ssm_conv_width - 1, L.ssm_conv_channels(cfg)),
+                                  dtype=dtype, device=device)
+    return {"pos": 0,
+            "slot_pos": torch.full((w if attn else 1,), -1, dtype=torch.int32, device=device),
             "layers": lay}
 
 
 def cache_nbytes(cache: dict) -> int:
-    """Bytes of the K/V slabs."""
+    """Bytes of the layers' slabs: K/V, and the SSM state and conv."""
     return sum(t.numel() * t.element_size() for t in cache["layers"].values())
 
 
@@ -233,7 +244,12 @@ def prefill(params, cfg: ArchConfig, tokens, *, seq_len: int | None = None,
     b, s = h.shape[0], h.shape[1]
     cache = make_cache(cfg, b, seq_len or s, kv_mode=kv_mode, num_planes=num_planes,
                        dtype=h.dtype, device=h.device)
-    fill_cache(cache, caps["k"], caps["v"], kv_mode=kv_mode, num_planes=num_planes)
+    if "k" in caps:
+        fill_cache(cache, caps["k"], caps["v"], kv_mode=kv_mode, num_planes=num_planes)
+    cache["pos"] = s
+    if "state" in caps:
+        cache["layers"]["state"].copy_(caps["state"])
+        cache["layers"]["conv"].copy_(caps["conv"])
     return cache, logits
 
 
@@ -251,11 +267,20 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
     # token it is appending (self-attention to position `pos`)
     slot_pos[pos % w] = pos
     meta = {"pos": pos, "slot_pos": slot_pos, "w": w}
+    attn = T.has_attention(cfg)
     for i, lp in enumerate(params["layers"]):
         lc = {name: slab[i] for name, slab in cache["layers"].items()}
         hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
-        h = h + decode_attention(lp["attn"], hn, lc, meta, cfg, kv_mode=kv_mode,
-                                 num_planes=num_planes)
+        mix = None
+        if attn:
+            mix = decode_attention(lp["attn"], hn, lc, meta, cfg, kv_mode=kv_mode,
+                                   num_planes=num_planes)
+        if "ssm" in lp:
+            out, state, conv = L.mamba2_decode(lp["ssm"], hn, lc["state"], lc["conv"], cfg)
+            lc["state"].copy_(state)
+            lc["conv"].copy_(conv)
+            mix = out if mix is None else 0.5 * (mix + out)
+        h = h + mix
         h, _ = T.ffn_part(lp, h, cfg)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     cache["pos"] = pos + 1

@@ -657,14 +657,16 @@ def test_wrappers_raise_when_a_launch_fails(card, monkeypatch):
 # ---------------------------------------------------------------------------
 
 # (B, Sq, Hq, Hkv, hd, causal, window, Skv): the shapes of tests/test_torch_flash.py,
-# unaligned S, GQA groups 1..6 and 32, the configs' head dims 64, 80, 128, and
-# llama3.2-1b's prefill length (causal and a window of 512)
+# unaligned S, GQA groups 1..6 and 32, the configs' head dims 64, 80, 128,
+# llama3.2-1b's prefill length (causal and a window of 512), and the prefills
+# of hymba-1.5b (G = 5, a window equal to S) and deepseek-moe-16b (G = 1, hd 128)
 FLASH_CASES = [(2, 64, 4, 2, 32, True, 0, 64), (2, 96, 2, 1, 16, True, 16, 96),
                (2, 128, 8, 8, 8, False, 0, 128), (1, 50, 4, 2, 16, True, 0, 50),
                (2, 48, 6, 1, 16, True, 8, 48), (1, 40, 4, 2, 32, False, 0, 77),
                (1, 300, 32, 8, 64, True, 0, 300), (2, 257, 32, 32, 80, True, 0, 257),
                (1, 333, 32, 4, 128, True, 100, 333), (1, 200, 32, 1, 64, False, 37, 200),
-               (1, 2048, 32, 8, 64, True, 0, 2048), (1, 2048, 32, 8, 64, True, 512, 2048)]
+               (1, 2048, 32, 8, 64, True, 0, 2048), (1, 2048, 32, 8, 64, True, 512, 2048),
+               (4, 2048, 25, 5, 64, True, 2048, 2048), (4, 2048, 16, 16, 128, True, 0, 2048)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -758,6 +760,49 @@ def test_serving_launches_the_kernels(card, mode, planes):
     c_cache, _ = E.prefill(cpu, cfg, toks, seq_len=44, kv_mode=mode, num_planes=planes)
     want, _ = E.decode_step(cpu, cfg, c_cache, toks[:, -1:], kv_mode=mode, num_planes=planes)
     assert (logits.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-1.3b", "hymba-1.5b"])
+def test_families_serve_on_the_card(card, name):
+    """The MoE, SSM and hybrid families (reduced): prefill launches the
+    flash kernel once per attention layer, a compressed decode step the
+    planes kernels; the logits of the prefill and of two decode steps agree
+    with the plain route on the CPU (same weights), and so do the SSM state
+    slabs."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    cfg = configs.get(name).reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    mode = "compressed" if T.has_attention(cfg) else "dense"
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    model = T.Transformer(cfg, device=card)
+    model.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 42), generator=torch.Generator().manual_seed(1))
+    runs = []
+    for m, dev in ((model, card), (cpu, torch.device("cpu"))):
+        ops.reset_launch_counts()
+        cache, logits = E.prefill(m, cfg, toks[:, :40].to(dev), seq_len=44, kv_mode=mode,
+                                  num_planes=2)
+        out = [logits, ops.launch_counts()["flash_attention"]]
+        for i in range(2):
+            logits, cache = E.decode_step(m, cfg, cache, toks[:, 40 + i:41 + i].to(dev),
+                                          kv_mode=mode, num_planes=2)
+            out.append(logits)
+        out += [ops.launch_counts(), cache]
+        runs.append(out)
+    (p0, flash, d1, d2, counts, cache), (c0, _, e1, e2, _, c_cache) = runs
+    assert flash == (cfg.n_layers if T.has_attention(cfg) else 0)
+    assert counts["planes_encode"] == (2 * cfg.n_layers * 2 + 2 if mode == "compressed" else 0)
+    for got, want in ((p0, c0), (d1, e1), (d2, e2)):
+        assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    if "state" in cache["layers"]:
+        want = c_cache["layers"]["state"]
+        assert (cache["layers"]["state"].cpu() - want).abs().max() <= 1e-4 * want.abs().max()
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ def test_import_loads_nothing_of_the_reference():
         "import repro_torch.obs.stream_stats, repro_torch.data.store_loader\n"
         "import repro_torch.data.scidata, repro_torch.serve.service\n"
         "import repro_torch.serve.store_service, repro_torch.serve.client\n"
+        "import repro_torch.core.metrics\n"
         "repro_torch.configs.all_configs()\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
         "          and any(m == b or m.startswith(b + '.') for b in %r)]\n"

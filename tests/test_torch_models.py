@@ -172,8 +172,7 @@ def test_init_params_draws_the_reference_scales():
     assert all(torch.equal(a, b) for a, b in zip(m.parameters(), again.parameters()))
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-1.3b", "hymba-1.5b",
-                                  "whisper-medium", "internvl2-1b"])
+@pytest.mark.parametrize("name", ["whisper-medium", "internvl2-1b"])
 def test_families_of_later_slices_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         T.Transformer(configs.get(name).reduced(), device="cpu")
