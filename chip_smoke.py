@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch port (repro_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--edge 512] [--reps 50]
-                          [--store-kernels | --ingest | --service | --families]
+                          [--store-kernels | --ingest | --service | --families |
+                           --enc-vlm]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It imports nothing of the JAX package.  In order it:
@@ -155,6 +156,32 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      (``--families`` runs this phase alone, after the flash kernel's checks
      at its two prefill shapes, then times the kernel at them).
 
+ 15. serves and trains the audio encoder-decoder and the VLM at full width
+     and depth: whisper-medium (24 encoder and 24 decoder layers, d_model
+     1024, 16 heads of 64, vocab 51865; 4 x 1500 stub frame embeddings from
+     --seed, the encoder's 30 s of audio, then 384-token prompts and 64
+     greedy steps, Whisper's 448-position text context) and internvl2-1b
+     (24 layers, d_model 896, 14 query heads over 2, vocab 151655, tied
+     embeddings; 4 x 256 stub image embeddings and 1792 tokens, 64 steps);
+     float32 weights from --seed on the card, bf16 compute, dense and
+     SZx-planes caches at P = 1 and 2 (whisper's cross K/V dense in all
+     three).  Launch counters are zeroed just before and read after: the
+     flash kernel once per encoder layer, decoder layer and cross-attention
+     a prefill and never in decode, the planes kernels as in phase 9; the
+     flash launches counted by shape, rows 8d-8g each launched; the cache
+     bytes equal the slabs' shapes, the cross K/V apart; the logits finite;
+     decode held to forward over the same tokens (the VLM at its text
+     positions) in float32 compute, the bf16 figures measured beside; the
+     peak memory and a profile of a dense prefill and 2 steps.  Then each
+     model trains through ``launch.train.run`` (its Trainer and synthetic
+     batches with the stub frames or image embeddings): 3 plain steps of
+     B 4 x S 448 (whisper) and B 4 x (256 + 1792) (internvl2-1b), its final
+     raw checkpoint under the gitignored ``_smoke_ckpt/`` (removed after),
+     every loss finite and the weights moved; then one compressed step at
+     P = 1 in a one-rank NCCL group after a warm-up step (``--enc-vlm`` runs
+     this phase alone, after the flash kernel's checks at its four shapes,
+     then times the kernel at them).
+
 Phase 2 also holds the planes kernels against their plain versions on both
 routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
 nb = 0; edge blocks; a view one float off and planes one byte off; random
@@ -165,7 +192,10 @@ counters that every planes launch took the vector route; the flash
 kernel is held to its plain version right after (llama3.2-1b's prefill
 shape, a window, unaligned S, hd 80 and 128, float32, and phase 14's
 prefills: hymba's G = 5 with a window equal to S, deepseek's G = 1 at hd
-128), and timed at llama3.2-1b's and phase 14's prefill shapes.
+128; phase 15's: whisper's non-causal encoder over 1500 frames and its
+cross-attention of 384 positions against them, its causal decoder, and
+internvl2-1b's G = 7), and timed at llama3.2-1b's, phase 14's and phase
+15's shapes.
 
 Any failed check raises, so the exit code is non-zero.  The last two lines
 are the kernels JSON and the result JSON.
@@ -1529,7 +1559,18 @@ PROFILE_STEPS = 2                  # decode steps in each traced run
 # heads of 128 (configs/hymba_1p5b.py, configs/deepseek_moe_16b.py)
 FAMILY_FLASH = {"hymba-1.5b": (4, 2048, 25, 5, 64, True, 2048),
                 "deepseek-moe-16b": (4, 2048, 16, 16, 128, True, 0)}
-FLASH_CASES = (                    # (B, S, Hq, Hkv, hd, causal, window, dtype name)
+# phase 15's shapes, rows 8d-8g of PERF.md's kernel table (B, Sq, Hq, Hkv, hd,
+# causal, window, Skv): whisper-medium's encoder over its 1500 frames (not a
+# multiple of the 64-key tile), its cross-attention (384 decoder positions
+# against 1500) and its decoder's self-attention; internvl2-1b's prefill of
+# 256 image embeddings and 1792 tokens, 14 query heads over 2 (G = 7, which
+# does not divide the kernel's 64 rows) (configs/whisper_medium.py,
+# configs/internvl2_1b.py)
+ENC_VLM_FLASH = {"8d whisper-medium encoder": (4, 1500, 16, 16, 64, False, 0, 1500),
+                 "8e whisper-medium cross": (4, 384, 16, 16, 64, False, 0, 1500),
+                 "8f whisper-medium decoder": (4, 384, 16, 16, 64, True, 0, 384),
+                 "8g internvl2-1b prefill": (4, 2048, 14, 2, 64, True, 0, 2048)}
+FLASH_CASES = (                    # (B, S, Hq, Hkv, hd, causal, window[, Skv], dtype name)
     (4, 2048, 32, 8, 64, True, 0, "bfloat16"),      # llama3.2-1b's prefill, the main path
     (4, 2048, 32, 8, 64, True, 512, "bfloat16"),    # a sliding window
     (4, 2000, 32, 8, 64, True, 0, "bfloat16"),      # unaligned S
@@ -1538,14 +1579,21 @@ FLASH_CASES = (                    # (B, S, Hq, Hkv, hd, causal, window, dtype n
     (2, 1024, 32, 8, 64, True, 0, "float32"),
     FAMILY_FLASH["hymba-1.5b"] + ("bfloat16",),      # G = 5, window = S (phase 14)
     FAMILY_FLASH["deepseek-moe-16b"] + ("bfloat16",),  # G = 1, hd 128 (phase 14)
-)
+) + tuple(shape + ("bfloat16",) for shape in ENC_VLM_FLASH.values())      # phase 15
 
 
-def flash_inputs(gen, b, s, hq, hkv, hd, dtype):
+def flash_shape(shape) -> tuple:
+    """(B, Sq, Hq, Hkv, hd, causal, window, Skv) of a case's shape; Skv is
+    Sq where the shape leaves it out."""
+    return (*shape, shape[1])[:8]
+
+
+def flash_inputs(gen, b, s, hq, hkv, hd, dtype, skv=None):
     import torch
 
+    skv = s if skv is None else skv
     return tuple(torch.randn(shape, device="cuda", generator=gen).to(dtype)
-                 for shape in ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+                 for shape in ((b, s, hq, hd), (b, skv, hkv, hd), (b, skv, hkv, hd)))
 
 
 def phase_flash_kernel(gen, cases=FLASH_CASES):
@@ -1557,20 +1605,21 @@ def phase_flash_kernel(gen, cases=FLASH_CASES):
     from repro_torch.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
-    for b, s, hq, hkv, hd, causal, window, dname in cases:
+    for *shape, dname in cases:
+        b, s, hq, hkv, hd, causal, window, skv = flash_shape(shape)
         dtype = getattr(torch, dname)
-        q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, dtype)
+        q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, dtype, skv)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
         d = (got.float() - want.float()).abs()
         check(bool((d <= rtol * want.float().abs() + 1e-6).all()) and not bool(got.isnan().any()),
-              f"flash_attention B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} window={window} {dname}: "
-              f"max |kernel - plain| {float(d.max())}")
+              f"flash_attention B={b} S={s} Skv={skv} Hq={hq} Hkv={hkv} hd={hd} causal={causal} "
+              f"window={window} {dname}: max |kernel - plain| {float(d.max())}")
         MAX_ERR["flash_attention"] = max(MAX_ERR["flash_attention"], float(d.max()))
-        MAX_ERR_CASES[(b, s, hq, hkv, hd, causal, window)] = float(d.max())
-        log(f"flash_attention vs plain B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} causal={causal} "
-            f"window={window} {dname}: max |d| {float(d.max()):.3e} (tolerance "
+        MAX_ERR_CASES[tuple(shape)] = float(d.max())
+        log(f"flash_attention vs plain B={b} S={s} Skv={skv} Hq={hq} Hkv={hkv} hd={hd} "
+            f"causal={causal} window={window} {dname}: max |d| {float(d.max()):.3e} (tolerance "
             f"{'2^-7' if rtol > 1e-5 else '1e-5'} |ref| + 1e-6)")
     torch.cuda.synchronize()
     log(f"flash kernel vs plain: {len(cases)} cases within tolerance "
@@ -1580,28 +1629,31 @@ def phase_flash_kernel(gen, cases=FLASH_CASES):
 def time_flash(gen, reps: int, shape=(SERVE_BATCH, SERVE_PROMPT, 32, 8, 64, True, 0)):
     """The kernel, its plain version and scaled_dot_product_attention (the
     yardstick; the port never calls it) at a prefill shape (default
-    llama3.2-1b's), beside the bound from this input's bytes and the
-    operations of its unmasked (q, k) pairs.  A window no shorter than S
-    masks nothing the causal mask keeps, so SDPA's is_causal computes the
-    same function there."""
+    llama3.2-1b's; Skv may differ from Sq where the attention is not
+    causal), beside the bound from this input's bytes and the operations of
+    its unmasked (q, k) pairs.  A window no shorter than S masks nothing the
+    causal mask keeps, so SDPA's is_causal computes the same function
+    there."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
-    b, s, hq, hkv, hd, causal, window = shape
-    check(causal and (not window or window >= s), f"time_flash: SDPA has no window < S {shape}")
-    q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, torch.bfloat16)
+    b, s, hq, hkv, hd, causal, window, skv = flash_shape(shape)
+    check((not window or window >= s) and (skv == s or not causal),
+          f"time_flash: SDPA has no window < S and no causal rectangle {shape}")
+    q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, torch.bfloat16, skv)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window), reps)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=causal, window=window),
                        max(reps // 10, 3))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                             enable_gqa=True), reps)
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    pairs = s * (s + 1) // 2                       # (q, k) pairs under the causal mask
+    pairs = s * (s + 1) // 2 if causal else s * skv    # (q, k) pairs the mask keeps
     flops = b * hq * pairs * hd * 4                # q.k and p @ v, 2 flops a multiply-add
     bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    log(f"time flash_attention bf16 B={b} S={s} Hq={hq} Hkv={hkv} hd={hd} causal window={window}: "
+    log(f"time flash_attention bf16 B={b} S={s} Skv={skv} Hq={hq} Hkv={hkv} hd={hd} "
+        f"causal={causal} window={window}: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} "
         f"ms; bound {bound_ms:.4f} ms ({flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16; "
         f"{nbytes / 1e6:.3f} MB at 3.35 TB/s takes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
@@ -1652,8 +1704,9 @@ def phase_serve(args):
 
 def cache_bytes(cfg, mode: str, P: int, batch: int, seq: int) -> int:
     """The cache slabs' bytes from their shapes: K/V (dense in the compute
-    dtype, or mu, sexp and P planes a head_dim block) and the SSM's float32
-    state and conv tail in the compute dtype."""
+    dtype, or mu, sexp and P planes a head_dim block), the SSM's float32
+    state and conv tail in the compute dtype, and the encoder-decoder's
+    cross K/V (dense in the compute dtype in both modes)."""
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine as E
@@ -1666,31 +1719,47 @@ def cache_bytes(cfg, mode: str, P: int, batch: int, seq: int) -> int:
     if T.has_ssm(cfg):
         per_layer += batch * (4 * cfg.ssm_n_heads * cfg.ssm_state * cfg.ssm_head_dim
                               + item * (cfg.ssm_conv_width - 1) * L.ssm_conv_channels(cfg))
+    if cfg.encoder_decoder:
+        per_layer += 2 * batch * cfg.encoder_len * cfg.n_kv_heads * cfg.resolved_head_dim * item
     return cfg.n_layers * per_layer
 
 
-def serve_and_check(model, cfg, prompts, mode: str, P: int, steps: int, record: int):
-    """Prefill, then ``steps`` greedy decode steps; checks the launch
-    counts (the flash kernel once per attention layer a prefill and never
-    in decode, the planes kernels once per K and V a prefill and per layer
-    and chunk a step), the cache bytes and finite logits.  Returns (cache, generated tokens (B,
-    steps), logits of the prefill and the first ``record`` steps (B, record
-    + 1, V), prefill s, decode s)."""
+def prefill_flash(cfg) -> int:
+    """Flash launches of one prefill or forward: one per attention layer,
+    and for the encoder-decoder each encoder layer's and each decoder
+    layer's cross-attention besides."""
+    from repro_torch.models import transformer as T
+
+    if not T.has_attention(cfg):
+        return 0
+    return cfg.n_layers * (2 if cfg.encoder_decoder else 1) + cfg.n_encoder_layers
+
+
+def serve_and_check(model, cfg, prompts, mode: str, P: int, steps: int, record: int,
+                    extra=None):
+    """Prefill (with ``extra``: the encoder-decoder's frames or the VLM's
+    image embeddings, whose positions the cache holds too), then ``steps``
+    greedy decode steps; checks the launch counts (the flash kernel as
+    ``prefill_flash`` says a prefill and never in decode, the planes kernels
+    once per K and V a prefill and per layer and chunk a step), the cache
+    bytes and finite logits.  Returns (cache, generated tokens (B, steps),
+    logits of the prefill and the first ``record`` steps (B, record + 1, V),
+    prefill s, decode s)."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.models import transformer as T
     from repro_torch.serve import engine as E
 
+    extra = extra or {}
     b, s = prompts.shape
-    seq = s + steps
+    seq = s + steps + (cfg.prefix_embeds if "image_embeds" in extra else 0)
     nl = cfg.n_layers
-    attn = T.has_attention(cfg)
     before = ops.launch_counts()
     (cache, logits), t_pre = timed(lambda: E.prefill(model, cfg, prompts, seq_len=seq,
-                                                     kv_mode=mode, num_planes=P))
+                                                     kv_mode=mode, num_planes=P, **extra))
     after = ops.launch_counts()
     n = after["flash_attention"] - before["flash_attention"]
-    check(n == (nl if attn else 0), f"{cfg.name} {mode} P={P}: prefill launched flash {n} times")
+    check(n == prefill_flash(cfg), f"{cfg.name} {mode} P={P}: prefill launched flash {n} times")
+    check(bool(torch.isfinite(logits).all()), f"{cfg.name} {mode} P={P}: prefill logits not finite")
     if mode == "compressed":
         check(after["planes_encode"] - before["planes_encode"] == 2,
               f"{cfg.name} P={P}: prefill's K and V encodes")
@@ -1725,15 +1794,18 @@ def serve_and_check(model, cfg, prompts, mode: str, P: int, steps: int, record: 
     return cache, torch.cat(gen_tokens, dim=1), torch.stack(first, dim=1), t_pre, t_dec
 
 
-def forward_logits(model, cfg, prompts, toks):
+def forward_logits(model, cfg, prompts, toks, extra=None):
     """``forward`` over the prompts and the first TEACHER_STEPS generated
-    tokens: the logits (B, TEACHER_STEPS + 1, V) at the positions the
+    tokens (with ``extra``, the frames or image embeddings the prefill
+    took): the logits (B, TEACHER_STEPS + 1, V) at the text positions the
     prefill and those steps predict from."""
     import torch
     from repro_torch.models import transformer as T
 
-    h, _ = T.forward(model, cfg, torch.cat([prompts, toks[:, :TEACHER_STEPS]], dim=1))
-    return T.logits_for(model, cfg, h[:, prompts.shape[1] - 1:]).float()
+    extra = extra or {}
+    h, _ = T.forward(model, cfg, torch.cat([prompts, toks[:, :TEACHER_STEPS]], dim=1), **extra)
+    start = prompts.shape[1] - 1 + (cfg.prefix_embeds if "image_embeds" in extra else 0)
+    return T.logits_for(model, cfg, h[:, start:]).float()
 
 
 def teacher_rel(full, dec, vocab: int) -> list:
@@ -1757,7 +1829,7 @@ def check_serve(model, cfg, prompts, runs) -> None:
             + f" (tolerance {TEACHER_TOL[mode]}); greedy tokens equal to dense's: {agree:.3f}")
 
 
-def profile_serve(model, cfg, prompts, modes=SERVE_MODES) -> None:
+def profile_serve(model, cfg, prompts, modes=SERVE_MODES, extra=None) -> None:
     """torch.profiler over one prefill and the PROFILE_STEPS decode steps
     after it, per mode: device time by kernel and the device's busy share of
     the wall time (kernels run on one stream, so their times add up without
@@ -1767,7 +1839,8 @@ def profile_serve(model, cfg, prompts, modes=SERVE_MODES) -> None:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve import engine as E
 
-    seq = prompts.shape[1] + SERVE_STEPS
+    extra = extra or {}
+    seq = prompts.shape[1] + SERVE_STEPS + (cfg.prefix_embeds if "image_embeds" in extra else 0)
 
     def traced(fn):
         torch.cuda.synchronize()
@@ -1787,7 +1860,8 @@ def profile_serve(model, cfg, prompts, modes=SERVE_MODES) -> None:
 
     for mode, P in modes:
         (cache, logits), wall_pre, evs_pre = traced(
-            lambda: E.prefill(model, cfg, prompts, seq_len=seq, kv_mode=mode, num_planes=P))
+            lambda: E.prefill(model, cfg, prompts, seq_len=seq, kv_mode=mode, num_planes=P,
+                              **extra))
         tok = torch.argmax(logits[:, -1:], -1)
         _, wall_dec, evs_dec = traced(lambda: decode(cache, tok, mode, P))
         for what, wall, evs in (("prefill", wall_pre, evs_pre),
@@ -3163,6 +3237,274 @@ def phase_families(args) -> dict:
     return counts, flash
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the audio encoder-decoder and the VLM at full width and depth
+# ---------------------------------------------------------------------------
+
+ENC_VLM_ARCHS = ("whisper-medium", "internvl2-1b")
+# per model: text prompt, decode steps, training sequence.  whisper-medium:
+# 30 s of audio (1500 encoder frames) and Whisper's 448-position text
+# context, a 384-token prompt and 64 steps; internvl2-1b: 256 image
+# embeddings and 1792 tokens (phase 9's 2048 positions) and 64 steps
+ENC_VLM_TRAFFIC = {"whisper-medium": (384, 64, 448), "internvl2-1b": (1792, 64, 1792)}
+ENC_VLM_TRAIN_STEPS = 3            # through launch.train: the first one warms up
+
+
+def enc_vlm_extra(cfg, gen) -> dict:
+    """Stub frame embeddings (B, encoder_len, D) for the encoder-decoder,
+    image embeddings (B, prefix_embeds, D) for the VLM, drawn from ``gen``
+    on the card (the configs' frontends are stubs)."""
+    import torch
+
+    if cfg.encoder_decoder:
+        return {"frames": torch.randn((SERVE_BATCH, cfg.encoder_len, cfg.d_model),
+                                      device="cuda", generator=gen)}
+    return {"image_embeds": torch.randn((SERVE_BATCH, cfg.prefix_embeds, cfg.d_model),
+                                        device="cuda", generator=gen)}
+
+
+class FlashShapes:
+    """Counts the flash kernel's launches by (B, Sq, Hq, Hkv, hd, causal,
+    window, Skv, dtype) while it is entered, by wrapping the wrapper that
+    ``FlashAttention`` calls; the kernels' own counts are untouched."""
+
+    def __enter__(self):
+        import collections
+
+        from repro_torch.kernels import flash_attention as fa
+
+        self.fa, self.inner, self.seen = fa, fa.flash_attention, collections.Counter()
+
+        def counted(q, k, v, *, causal=True, window=0):
+            out = self.inner(q, k, v, causal=causal, window=window)
+            if q.is_cuda:
+                b, sq, hq, hd = q.shape
+                self.seen[(b, sq, hq, k.shape[2], hd, bool(causal), int(window), k.shape[1],
+                           str(q.dtype).split(".")[-1])] += 1
+            return out
+
+        fa.flash_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_attention = self.inner
+
+
+def train_enc_vlm(args, cfg, seq: int, i: int) -> dict:
+    """``launch.train``'s run (its Trainer, its synthetic batches with the
+    stub frames or image embeddings, AdamW) for ENC_VLM_TRAIN_STEPS plain
+    steps of B 4 x ``seq`` tokens, its final checkpoint into CKPT_DIR
+    (removed after); then one compressed step at P = 1 in a one-rank NCCL
+    group after a warm-up step, and a profiled plain step.  Every loss
+    finite, the weights moved, the flash kernel twice a layer a step
+    (forward and remat), the planes kernels in the compressed steps.
+    Returns the step times."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import pytree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW
+    from repro_torch.train import step as step_mod
+
+    arch = cfg.name
+    seed = args.seed + 40 + i
+    watch = ("frontend_proj", "layers/0/attn/wq", "layers/0/cross/wk", "encoder/layers/0/attn/wq")
+    init = {n: t[:64, :64].clone() for n, t in pytree.leaf_paths(T.param_tree(
+        T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")))
+        if n in watch}
+    torch.cuda.empty_cache()
+    argv = ["--arch", arch, "--steps", str(ENC_VLM_TRAIN_STEPS), "--seq", str(seq),
+            "--batch", str(SERVE_BATCH), "--ckpt", str(CKPT_DIR / arch), "--device", "cuda",
+            "--seed", str(seed)]
+    shutil.rmtree(CKPT_DIR / arch, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    try:
+        (tr, state), t_run = timed(lambda: train_cli.run(train_cli.build_parser().parse_args(argv),
+                                                         torch.device("cuda")))
+    finally:
+        shutil.rmtree(CKPT_DIR / arch, ignore_errors=True)
+    after = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses, dts = [h["loss"] for h in tr.history], [h["dt"] for h in tr.history]
+    check(len(losses) == ENC_VLM_TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"{arch}: train losses {losses}")
+    moved = {n: float((t[:64, :64] - init[n]).abs().max())
+             for n, t in pytree.leaf_paths(state["params"]) if n in init}
+    check(len(moved) == len(init) and all(v > 0 for v in moved.values()),
+          f"{arch}: the weights did not move {moved}")
+    flash = after["flash_attention"] - before["flash_attention"]
+    check(flash == (2 if cfg.remat else 1) * prefill_flash(cfg) * ENC_VLM_TRAIN_STEPS,
+          f"{arch}: {flash} flash launches in {ENC_VLM_TRAIN_STEPS} steps")
+    nbytes = sum(t.numel() * t.element_size() for t in pytree.leaves(state))
+    tokens = SERVE_BATCH * seq
+    log(f"enc-vlm train {arch} plain through launch.train (B {SERVE_BATCH} x S {seq}"
+        + (f" + {cfg.prefix_embeds} image embeddings" if cfg.prefix_embeds else "")
+        + (f", {cfg.encoder_len} frames" if cfg.encoder_decoder else "")
+        + f"): steps " + ", ".join(f"{t * 1e3:.1f}" for t in dts)
+        + f" ms (the first warms up; {tokens / (sum(dts[1:]) / len(dts[1:])):.0f} tokens/s after"
+        f"); loss curve " + ", ".join(f"{v:.4f}" for v in losses)
+        + f"; max |d w| " + ", ".join(f"{n} {v:.3e}" for n, v in moved.items())
+        + f"; state {nbytes / 1e9:.2f} GB, the run with its final raw checkpoint {t_run:.1f} s;"
+        f" peak {peak / 1e9:.2f} GB; flash launches {flash}")
+    del state, tr
+    torch.cuda.empty_cache()
+
+    opt = AdamW(lr=TRAIN_LR)
+    ds = SyntheticLM(train_cli.data_config(cfg, seq, SERVE_BATCH))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        state = step_mod.init_state(cfg, opt, torch.Generator(device="cuda").manual_seed(seed),
+                                    ef_planes=1, device="cuda")
+        fn = step_mod.make_train_step(cfg, opt, compress_planes=1)
+        w0 = state["params"]["layers"][0]["attn"]["wq"][:64, :64].clone()
+        (state, m0), t_warm = timed(lambda: fn(state, train_batch(ds, 0)))
+        before = ops.launch_counts()
+        batch = train_batch(ds, 1)
+        (state, m1), t_step = timed(lambda: fn(state, batch))
+        after = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    losses = [float(m0["loss"]), float(m1["loss"])]
+    check(all(math.isfinite(v) for v in losses), f"{arch}: compressed losses {losses}")
+    dw = float((state["params"]["layers"][0]["attn"]["wq"][:64, :64] - w0).abs().max())
+    check(dw > 0, f"{arch}: the compressed steps did not move the weights")
+    for k in PLANES_KERNELS:
+        check(after[k] > before[k], f"{arch} compressed P=1: {k} not launched")
+    log(f"enc-vlm train {arch} compressed P=1: warm-up step {t_warm * 1e3:.1f} ms, step "
+        f"{t_step * 1e3:.1f} ms ({tokens / t_step:.0f} tokens/s); losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; max |d wq| {dw:.3e}; launches "
+        f"{dict((k, after[k] - before[k]) for k in after if after[k] != before[k])}")
+    profile_train(step_mod.make_train_step(cfg, opt), state, train_batch(ds, 2), f"{arch} plain")
+    del state, m0, m1
+    torch.cuda.empty_cache()
+    return {"plain": dts, "compressed": t_step}
+
+
+def phase_enc_vlm(args) -> tuple:
+    """Phase 15: whisper-medium and internvl2-1b at full width and depth,
+    float32 weights from --seed on the card, bf16 compute, B 4: prefill
+    (whisper: 1500 stub frames through the encoder, a 384-token prompt;
+    internvl2-1b: 256 stub image embeddings and 1792 tokens) and 64 greedy
+    steps with a dense and SZx-planes (P = 1, 2) caches; launch counts,
+    cache bytes (the cross K/V apart), finite logits; decode vs forward over
+    the same tokens in float32 compute, held to TEACHER_TOL, with the bf16
+    figures measured beside; peak memory; a profile of a dense prefill and
+    2 steps; then ``train_enc_vlm``.  Returns the phase's launch counts and
+    its flash launches by shape."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    gc.collect()
+    ops.reset_launch_counts()
+    with FlashShapes() as shapes:
+        for i, arch in enumerate(ENC_VLM_ARCHS):
+            cfg = configs.get(arch)
+            prompt, steps, train_seq = ENC_VLM_TRAFFIC[arch]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            free, total = torch.cuda.mem_get_info()
+            gen = torch.Generator(device="cuda").manual_seed(args.seed + 30 + i)
+            model, t_init = timed(lambda: T.init_params(cfg, gen, "cuda"))
+            nparams = sum(p.numel() for p in model.parameters())
+            # param_count() leaves out frontend_proj and the norms (ln1, ln2,
+            # ln_cross a decoder layer, ln1 and ln2 an encoder layer, the final ones)
+            d = cfg.d_model
+            extra_params = d * d + d * (1 + cfg.n_layers * (2 + cfg.encoder_decoder)
+                                        + (2 * cfg.n_encoder_layers + 1) * cfg.encoder_decoder)
+            check(nparams == cfg.param_count() + extra_params, f"{arch}: {nparams} parameters")
+            prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt), device="cuda",
+                                    generator=gen)
+            extra = enc_vlm_extra(cfg, gen)
+            log(f"enc-vlm {arch} ({cfg.family}): {nparams} parameters, {nparams * 4 / 1e9:.2f} GB "
+                f"f32, made on the card in {t_init:.2f} s ({free / 1e9:.2f} of "
+                f"{total / 1e9:.2f} GB free before); {cfg.n_layers} decoder layers"
+                + (f" and {cfg.n_encoder_layers} encoder layers over {cfg.encoder_len} frames"
+                   if cfg.encoder_decoder else f", {cfg.prefix_embeds} image embeddings")
+                + f" (full depth), {SERVE_BATCH} prompts of {prompt} tokens, {steps} greedy steps")
+            t_first = timed(lambda: serve_and_check(model, cfg, prompts, "dense", 1, 1, 0,
+                                                    extra) and None)[1]
+            log(f"enc-vlm {arch}: first prefill and step (allocator and cuBLAS warm-up) "
+                f"{t_first * 1e3:.1f} ms")
+            runs = {}
+            for mode, P in SERVE_MODES:
+                cache, toks, dec, t_pre, t_dec = serve_and_check(model, cfg, prompts, mode, P,
+                                                              steps, TEACHER_STEPS, extra)
+                cross = sum(t.numel() * t.element_size() for t in cache.get("cross", {}).values())
+                log(f"enc-vlm {arch} kv={mode} P={P}: prefill {t_pre * 1e3:.1f} ms, decode "
+                    f"{steps} steps in {t_dec:.3f} s = {SERVE_BATCH * steps / t_dec:.1f} tok/s "
+                    f"({t_dec / steps * 1e3:.2f} ms a step), cache {E.cache_nbytes(cache)} B "
+                    f"({E.cache_nbytes(cache) / 2**20:.1f} MiB; self-attention "
+                    f"{E.cache_nbytes(cache) - cross} B, cross {cross} B), sample row "
+                    f"{toks[0, :8].tolist()}")
+                runs[(mode, P)] = (toks, dec)
+                del cache
+            bf16 = {key: teacher_rel(forward_logits(model, cfg, prompts, toks, extra), dec,
+                                     cfg.vocab_size) for key, (toks, dec) in runs.items()}
+            f32 = dataclasses.replace(cfg, compute_dtype="float32")
+            for mode, P in SERVE_MODES:
+                _, toks, dec, _, _ = serve_and_check(model, f32, prompts, mode, P, TEACHER_STEPS,
+                                                     TEACHER_STEPS, extra)
+                rel = teacher_rel(forward_logits(model, f32, prompts, toks, extra), dec,
+                                  cfg.vocab_size)
+                check(max(rel) < TEACHER_TOL[mode], f"{arch} {mode} P={P}: decode vs forward {rel}")
+                log(f"enc-vlm check {arch} kv={mode} P={P}: prefill and {TEACHER_STEPS} decode "
+                    f"steps vs forward over the same tokens"
+                    + (" (at the text positions)" if cfg.prefix_embeds else "")
+                    + ", float32: max |d| / max |logit| = " + ", ".join(f"{r:.5f}" for r in rel)
+                    + f" (tolerance {TEACHER_TOL[mode]}); bf16 as served (measured): "
+                    + ", ".join(f"{r:.5f}" for r in bf16[(mode, P)]))
+            dense_toks = runs[("dense", 1)][0]
+            for (mode, P), (toks, _) in runs.items():
+                if mode != "dense":
+                    log(f"enc-vlm {arch} kv={mode} P={P}: greedy tokens equal to dense's: "
+                        f"{float((toks == dense_toks).float().mean()):.3f}")
+            del runs
+            _, t_prof = timed(lambda: profile_serve(model, cfg, prompts, SERVE_MODES[:1], extra))
+            peak = torch.cuda.max_memory_allocated()
+            log(f"enc-vlm {arch}: peak memory allocated {peak} B ({peak / 1e9:.2f} GB of "
+                f"{total / 1e9:.2f}), weights {nparams * 4 / 1e9:.2f} GB; profile {t_prof:.1f} s")
+            del model, prompts, extra
+            torch.cuda.empty_cache()
+            train_enc_vlm(args, cfg, train_seq, i)
+    counts = {k: v for k, v in ops.launch_counts().items()
+              if k in PLANES_KERNELS + ("flash_attention",)}
+    log(f"enc-vlm path launches: {counts}; by route {ops.planes_route_counts()}; flash by "
+        f"shape (B, Sq, Hq, Hkv, hd, causal, window, Skv, dtype): {dict(shapes.seen)}")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was not launched on the enc-vlm path")
+    check_vector_route("enc-vlm path", ops.planes_route_counts())
+    by_row = {row: shapes.seen[shape + ("bfloat16",)] for row, shape in ENC_VLM_FLASH.items()}
+    for row, n in by_row.items():
+        check(n > 0, f"flash row {row} was not launched on the enc-vlm path")
+    return counts, by_row
+
+
+def enc_vlm_flash_rows(gen, reps: int, launches: dict) -> list:
+    """The flash kernel timed at phase 15's shapes (rows 8d-8g), as entries
+    of the kernels JSON's flash row with their max |kernel - plain| and
+    their bf16 launches in phase 15."""
+    rows = []
+    for row, shape in ENC_VLM_FLASH.items():
+        ms, plain_ms, lib_ms, bound_ms = time_flash(gen, reps, shape)
+        rows.append({"row": row, "shape": list(shape), "launches": launches.get(row),
+                     "max_abs_err": MAX_ERR_CASES.get(shape), "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms})
+    return rows
+
+
 def store_kernels_only(args) -> int:
     """``--store-kernels``: phase 6's store-kernel rows alone, on phase 5's
     middle chunk (the stage-off store of the same array) and phase 4's first
@@ -3202,6 +3544,11 @@ def main() -> int:
                     help="build, hold the flash kernel to its plain version at phase 14's "
                          "prefill shapes, run phase 14 alone (the MoE, SSM and hybrid families "
                          "at full width), time the flash kernel at those shapes and stop")
+    ap.add_argument("--enc-vlm", action="store_true",
+                    help="build, hold the flash kernel to its plain version at phase 15's "
+                         "shapes, run phase 15 alone (whisper-medium and internvl2-1b served "
+                         "and trained at full width), time the flash kernel at those shapes "
+                         "and stop")
     args = ap.parse_args()
 
     import torch
@@ -3259,9 +3606,22 @@ def main() -> int:
         return 0
     if args.families:
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
-        phase_flash_kernel(gen, [c for c in FLASH_CASES if c[:7] in FAMILY_FLASH.values()])
+        phase_flash_kernel(gen, [c for c in FLASH_CASES if c[:-1] in FAMILY_FLASH.values()])
         _, flash = phase_families(args)
         family_flash_rows(gen, max(args.reps // 2, 5), flash)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.enc_vlm:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        phase_flash_kernel(gen, [c for c in FLASH_CASES if c[:-1] in ENC_VLM_FLASH.values()])
+        try:
+            _, flash = phase_enc_vlm(args)
+        finally:
+            import shutil
+
+            shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        rows = enc_vlm_flash_rows(gen, max(args.reps // 2, 5), flash)
+        log(f"phase 15 flash rows: {json.dumps(rows)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3355,7 +3715,15 @@ def main() -> int:
     family_launches, family_flash = phase_families(args)
     for k, v in family_launches.items():
         launches[k] = launches.get(k, 0) + v
-    flash_cases = family_flash_rows(gen, max(args.reps // 2, 5), family_flash)
+    log(f"phase 15 starts {time.perf_counter() - t_start:.1f} s into the run")
+    try:
+        enc_vlm_launches, enc_vlm_flash = phase_enc_vlm(args)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    for k, v in enc_vlm_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    flash_cases = (family_flash_rows(gen, max(args.reps // 2, 5), family_flash)
+                   + enc_vlm_flash_rows(gen, max(args.reps // 2, 5), enc_vlm_flash))
     log(f"time train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} plain: store-fed (batch "
         f"draw + step) " + ", ".join(f"{t * 1e3:.1f}" for t in store_s)
         + " ms vs synthetic tokens (phase 11, step only) "

@@ -1,5 +1,9 @@
-"""Serving launcher: batched greedy generation with a dense, MoE, SSM or
-hybrid model, weights made from ``--seed``.
+"""Serving launcher: batched greedy generation with a dense, MoE, SSM,
+hybrid, audio encoder-decoder (whisper-medium) or VLM (internvl2-1b) model,
+weights made from ``--seed``.  The encoder-decoder gets zero frame
+embeddings (B, encoder_len, D) and the VLM zero image embeddings (B,
+prefix_embeds, D), as the reference's launcher gives them; the cache holds
+the prefix too.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --reduced --kv-mode compressed --tokens 16 --device cpu
@@ -37,10 +41,16 @@ def main(argv=None):
         cfg = cfg.reduced()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, dev)
+    kw = {}
+    if cfg.encoder_decoder:
+        kw["frames"] = torch.zeros((args.batch, cfg.encoder_len, cfg.d_model), device=dev)
+    if cfg.prefix_embeds:
+        kw["image_embeds"] = torch.zeros((args.batch, cfg.prefix_embeds, cfg.d_model), device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt), generator=gen,
                             device=dev)
-    cache, logits = engine.prefill(params, cfg, prompts, seq_len=args.prompt + args.tokens,
-                                   kv_mode=args.kv_mode)
+    cache, logits = engine.prefill(params, cfg, prompts,
+                                   seq_len=args.prompt + args.tokens + (cfg.prefix_embeds or 0),
+                                   kv_mode=args.kv_mode, **kw)
 
     def sync():
         if dev.type == "cuda":

@@ -1,6 +1,7 @@
-"""Training launcher: the dense-attention families on synthetic tokens or on
-a compressed store corpus, with optional SZx gradient compression,
-SZx-compressed checkpoints and telemetry.
+"""Training launcher: the dense-attention, audio encoder-decoder and VLM
+families on synthetic tokens (with stub frame or image embeddings where the
+model takes them) or on a compressed store corpus, with optional SZx
+gradient compression, SZx-compressed checkpoints and telemetry.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --reduced --steps 20 --ckpt <dir> --device cpu
@@ -18,7 +19,7 @@ SZx-compressed checkpoints and telemetry.
 Without ``--device`` it runs on the card, and fails without one.  The
 gradient compression averages over the process group; launched alone, the
 launcher makes a one-rank group (gloo on the CPU, NCCL on the card).  The
-MoE, SSM, audio and VLM families raise ``NotImplementedError``.
+MoE, SSM and hybrid families raise ``NotImplementedError``.
 """
 import argparse
 import os
@@ -76,7 +77,7 @@ def main(argv=None):
 
     dev = resolve_device(args.device, "repro_torch.launch.train")
     if not args.profile_dir:
-        tr = _run(args, dev)
+        tr, _state = run(args, dev)
     else:
         obs.enable()
         os.makedirs(args.profile_dir, exist_ok=True)
@@ -84,7 +85,7 @@ def main(argv=None):
         if dev.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         with torch.profiler.profile(activities=activities) as prof:
-            tr = _run(args, dev)
+            tr, _state = run(args, dev)
         prof.export_chrome_trace(os.path.join(args.profile_dir, "torch_trace.json"))
         obs.write_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
         with open(os.path.join(args.profile_dir, "metrics.prom"), "w") as f:
@@ -97,7 +98,19 @@ def main(argv=None):
     return tr
 
 
-def _run(args, dev: torch.device) -> Trainer:
+def data_config(cfg, seq: int, batch: int) -> DataConfig:
+    """The synthetic stream's configuration, with stub frames (B,
+    encoder_len, D) for the encoder-decoder and image embeddings (B,
+    prefix_embeds, D) for the VLM, as the reference's launcher makes it."""
+    return DataConfig(cfg.vocab_size, seq, batch,
+                      frames=cfg.encoder_len, frame_dim=cfg.d_model if cfg.encoder_decoder else 0,
+                      prefix_embeds=cfg.prefix_embeds,
+                      prefix_dim=cfg.d_model if cfg.prefix_embeds else 0)
+
+
+def run(args, dev: torch.device) -> tuple[Trainer, dict]:
+    """The launcher's training run on ``dev`` for parsed ``args``: returns
+    the Trainer (its ``history``) and the final state."""
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -107,15 +120,15 @@ def _run(args, dev: torch.device) -> Trainer:
     own_group = bool(args.grad_compress) and not dist.is_initialized()
     if own_group:
         _one_rank_group(dev)
-    data_cfg = DataConfig(cfg.vocab_size, args.seq, args.batch)
     if args.data_store:
         # compressed-corpus ingest: pipelined ROI-window loader on the device,
         # same (seed, step, rank) replay contract as the synthetic stream;
         # its batches are already there
-        ds = StoreLM(args.data_store, data_cfg, workers=args.data_workers, device=dev)
+        ds = StoreLM(args.data_store, DataConfig(cfg.vocab_size, args.seq, args.batch),
+                     workers=args.data_workers, device=dev)
         batch_fn = SteppedBatches(lambda s: ds.batches(start_step=s))
     else:
-        ds = SyntheticLM(data_cfg)
+        ds = SyntheticLM(data_config(cfg, args.seq, args.batch))
 
         def batch_fn(s):
             return {k: torch.from_numpy(v).to(dev) for k, v in ds.batch_at(s).items()}
@@ -125,14 +138,14 @@ def _run(args, dev: torch.device) -> Trainer:
         ckpt = CheckpointManager(args.ckpt, keep=2, compress=args.ckpt_compress, device=dev)
         tr = Trainer(TrainerConfig(total_steps=args.steps, checkpoint_every=25),
                      step_fn, batch_fn, ckpt)
-        tr.run(state)
+        state = tr.run(state)
     finally:
         if args.data_store:
             batch_fn.close()
             ds.close()
         if own_group:
             dist.destroy_process_group()
-    return tr
+    return tr, state
 
 
 if __name__ == "__main__":

@@ -12,8 +12,7 @@ here a Python loop over chunks).
 
 Not carried here: ``shard_activation`` (``repro/models/sharding.py:66``) is
 an exact no-op outside a sharding-rules context, as it is on one card, so
-the calls to it are dropped (the mesh comes with the multi-card slice); the
-cross-attention (``kv_override``, ``cross_kv``) waits for the audio slice.
+the calls to it are dropped (the mesh comes with the multi-card slice).
 
 Precision on the card: :func:`exact_matmuls` turns off TF32 and bf16
 reduced-precision reductions for the ``dense`` products while a forward
@@ -87,21 +86,40 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
-def attention(p, x, cfg, *, positions=None, causal: bool = True):
-    """p: {'wq','wk','wv','wo'}; x: (B,S,D).  Returns (B,S,D) and the (k, v)
-    tensors for cache construction."""
+def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=None):
+    """p: {'wq','wk','wv','wo'}; x: (B,S,D).
+
+    kv_override: (k, v) already projected (whisper's cross-attention, from
+    :func:`cross_kv`); they get no rotary embedding, and q gets one only
+    where ``positions`` is given.  Returns (B,S,D) and the (k, v) tensors
+    for cache construction."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     q = dense(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = dense(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = dense(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+        v = dense(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
+        if positions is not None:
+            q = rope(q, positions, cfg.rope_theta)
     o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window if causal else 0)
     o = dense(o.reshape(b, s, cfg.n_heads * hd), p["wo"])
     return o, (k, v)
+
+
+def cross_kv(p, enc_out, cfg):
+    """Project the encoder output (B,T,D) to the (k, v) of cross-attention,
+    each (B,T,Hkv,hd)."""
+    b, s, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = dense(enc_out, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = dense(enc_out, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -8,15 +8,19 @@ Python loop in place of ``lax.scan``.  :func:`params_from_jax` loads the JAX
 package's tree (layers stacked on a leading axis), so both packages can
 compute with the same weights.
 
-The port carries the dense-attention families (llama3.2-1b, h2o-danube-1.8b,
-stablelm-3b, yi-6b), MoE (deepseek-moe-16b; arctic-480b, whose dense FFN
-runs beside the experts), SSM (mamba2-1.3b) and the hybrid (hymba-1.5b: an
-attention and a Mamba2 mixer side by side, their outputs averaged).
-Encoder-decoder and VLM configurations raise ``NotImplementedError``:
-ROADMAP.md queue 1 item 6.
+The port carries every family of the configs: dense attention (llama3.2-1b,
+h2o-danube-1.8b, stablelm-3b, yi-6b), MoE (deepseek-moe-16b; arctic-480b,
+whose dense FFN runs beside the experts), SSM (mamba2-1.3b), the hybrid
+(hymba-1.5b: an attention and a Mamba2 mixer side by side, their outputs
+averaged), the audio encoder-decoder (whisper-medium: :func:`encode` runs a
+non-causal encoder over stub frame embeddings through ``frontend_proj``, and
+each decoder layer cross-attends to its output after the mixer) and the VLM
+(internvl2-1b: stub image embeddings through ``frontend_proj``, prepended
+to the tokens).
 
-Training (the dense-attention families; the others raise
-``NotImplementedError`` there): :func:`loss_fn` runs :func:`forward_train`
+Training (the dense-attention, audio and VLM families; the MoE, SSM and
+hybrid ones raise ``NotImplementedError`` there, ROADMAP.md queue 1 item 6):
+:func:`loss_fn` runs :func:`forward_train`
 (gradients enabled, each layer recomputed in the backward where
 ``cfg.remat`` is set, as the reference's ``jax.checkpoint`` of its scan
 body) and
@@ -35,8 +39,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.codec.device import resolve_device
 from repro_torch.models import layers as L
-
-_LATER = (("encoder_decoder", "encoder-decoder (audio)"), ("prefix_embeds", "VLM"))
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -73,15 +75,14 @@ class Transformer(Params):
     and :func:`params_from_jax`) on ``device``: ``None`` means the card, and
     raises without one.  Each layer holds the blocks the reference's
     ``_init_layer`` makes for the config: ``attn``, ``ssm``, ``moe`` (with
-    ``mlp`` beside it where ``dense_ff_residual``) or ``mlp``."""
+    ``mlp`` beside it where ``dense_ff_residual``) or ``mlp``, and in a
+    decoder layer of an encoder-decoder ``cross`` and ``ln_cross``.  The
+    encoder-decoder and the VLM have ``frontend_proj`` (D, D); the
+    encoder-decoder an ``encoder`` of ``n_encoder_layers`` layers (no
+    ``cross``) and its ``final_ln``."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
-        for field, family in _LATER:
-            if getattr(cfg, field):
-                raise NotImplementedError(
-                    f"{cfg.name}: the {family} family is not ported yet "
-                    "(ROADMAP.md queue 1 item 6)")
         device = resolve_device(device, "Transformer")
         self.cfg = cfg
         dt = param_dtype(cfg)
@@ -96,14 +97,16 @@ class Transformer(Params):
             return blk
 
         d, hd = cfg.d_model, cfg.resolved_head_dim
-        self.embed = param(cfg.padded_vocab, d)
-        self.layers = nn.ModuleList()
-        for _ in range(cfg.n_layers):
+
+        def attn():
+            return block(wq=(d, cfg.n_heads * hd), wk=(d, cfg.n_kv_heads * hd),
+                         wv=(d, cfg.n_kv_heads * hd), wo=(cfg.n_heads * hd, d))
+
+        def layer(decoder: bool):
             lay = Params()
             lay.ln1 = param(d)
             if cfg.n_heads:
-                lay.attn = block(wq=(d, cfg.n_heads * hd), wk=(d, cfg.n_kv_heads * hd),
-                                 wv=(d, cfg.n_kv_heads * hd), wo=(cfg.n_heads * hd, d))
+                lay.attn = attn()
             if has_ssm(cfg):
                 di, h = cfg.ssm_d_inner, cfg.ssm_n_heads
                 lay.ssm = block(**{"in": (d, L.ssm_in_features(cfg)),
@@ -123,10 +126,23 @@ class Transformer(Params):
             elif cfg.d_ff:
                 lay.mlp = block(wi=(d, 2 * cfg.d_ff), wo=(cfg.d_ff, d))
                 lay.ln2 = param(d)
-            self.layers.append(lay)
+            if decoder and cfg.encoder_decoder:
+                lay.cross = attn()
+                lay.ln_cross = param(d)
+            return lay
+
+        self.embed = param(cfg.padded_vocab, d)
+        self.layers = nn.ModuleList([layer(decoder=True) for _ in range(cfg.n_layers)])
         self.final_ln = param(d)
         if not cfg.tie_embeddings:
             self.lm_head = param(d, cfg.padded_vocab)
+        if cfg.encoder_decoder or cfg.prefix_embeds:
+            self.frontend_proj = param(d, d)
+        if cfg.encoder_decoder:
+            self.encoder = Params()
+            self.encoder.layers = nn.ModuleList(
+                [layer(decoder=False) for _ in range(cfg.n_encoder_layers)])
+            self.encoder.final_ln = param(d)
 
 
 # ---------------------------------------------------------------------------
@@ -172,23 +188,32 @@ def params_from_jax(tree, cfg: ArchConfig, device=None) -> Transformer:
             raise ValueError(f"shape {arr.shape} != {tuple(dst.shape)}")
         dst.copy_(torch.tensor(arr))
 
+    def put_layers(layers, stacked):
+        for i, lay in enumerate(layers):
+            for name, w in lay._parameters.items():
+                put(w, stacked[name][i])
+            for block, mod in lay._modules.items():
+                for wname, w in mod._parameters.items():
+                    put(w, stacked[block][wname][i])
+
     put(model.embed, tree["embed"])
     put(model.final_ln, tree["final_ln"])
     if not cfg.tie_embeddings:
         put(model.lm_head, tree["lm_head"])
-    stacked = tree["layers"]
-    for i, lay in enumerate(model.layers):
-        for name, w in lay._parameters.items():
-            put(w, stacked[name][i])
-        for block, mod in lay._modules.items():
-            for wname, w in mod._parameters.items():
-                put(w, stacked[block][wname][i])
+    if "frontend_proj" in model:
+        put(model.frontend_proj, tree["frontend_proj"])
+    put_layers(model.layers, tree["layers"])
+    if "encoder" in model:
+        put_layers(model.encoder.layers, tree["encoder"]["layers"])
+        put(model.encoder.final_ln, tree["encoder"]["final_ln"])
     return model
 
 
 def param_tree(model: Transformer) -> dict:
     """The model's tensors as a nested dict (``{"embed", "final_ln",
-    "layers": [{"ln1", "attn": {...}, "mlp": {...}, "ln2"}, ...]}``), sharing
+    "layers": [{"ln1", "attn": {...}, "mlp": {...}, "ln2"}, ...]}``, and
+    ``frontend_proj`` and ``encoder: {"layers": [...], "final_ln"}`` where
+    the model has them), sharing
     the module's storage; the model functions read either form."""
     def node(mod):
         out = {name: t.data for name, t in mod._parameters.items()}
@@ -219,10 +244,11 @@ def ffn_part(p, h, cfg: ArchConfig):
     return h, aux
 
 
-def _block(p, h, cfg: ArchConfig, *, causal: bool):
+def _block(p, h, cfg: ArchConfig, *, causal: bool, enc_out=None):
     """One transformer block (train/prefill form).  Returns (h, aux, caps),
     caps holding what the layer's serving cache needs: k/v, the SSM's final
-    state and conv tail."""
+    state and conv tail, the cross-attention's k/v (``cross_k``,
+    ``cross_v``)."""
     caps = {}
     hn = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     mix = None
@@ -233,23 +259,46 @@ def _block(p, h, cfg: ArchConfig, *, causal: bool):
         # hybrid: parallel heads, outputs averaged (Hymba)
         mix = ssm_out if mix is None else 0.5 * (mix + ssm_out)
     h = h + mix
+    if enc_out is not None and "cross" in p:
+        hn = L.rms_norm(h, p["ln_cross"], cfg.norm_eps)
+        kv = L.cross_kv(p["cross"], enc_out, cfg)
+        caps["cross_k"], caps["cross_v"] = kv
+        out, _ = L.attention(p["cross"], hn, cfg, causal=False, kv_override=kv)
+        h = h + out
     h, aux = ffn_part(p, h, cfg)
     return h, aux, caps
 
 
-def _run_layers(layers, h, cfg, *, causal: bool, capture: bool = False):
+def _run_layers(layers, h, cfg, *, causal: bool, enc_out=None, capture: bool = False):
     """Every layer in turn.  With ``capture`` also returns the layers' caps
     stacked on a leading axis, as the reference's scan does."""
     aux = 0.0
     caps = []
     for lp in layers:
-        h, a, c = _block(lp, h, cfg, causal=causal)
+        h, a, c = _block(lp, h, cfg, causal=causal, enc_out=enc_out)
         aux = aux + a
         if capture:
             caps.append(c)
     if not capture:
         return h, aux
     return h, aux, {name: torch.stack([c[name] for c in caps]) for name in caps[0]}
+
+
+def _run_layers_train(layers, h, cfg, *, causal: bool, enc_out=None):
+    """:func:`_run_layers` with gradients.  With ``cfg.remat`` each layer
+    keeps only its inputs for the backward and runs again there
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` of its scan body."""
+    aux = 0.0
+    for lp in layers:
+        if cfg.remat:
+            h, a = checkpoint(lambda x, e, lp=lp: _block(lp, x, cfg, causal=causal,
+                                                         enc_out=e)[:2],
+                              h, enc_out, use_reentrant=False)
+        else:
+            h, a, _caps = _block(lp, h, cfg, causal=causal, enc_out=enc_out)
+        aux = aux + a
+    return h, aux
 
 
 # ---------------------------------------------------------------------------
@@ -260,32 +309,53 @@ def embed_tokens(params, cfg, tokens):
     return params["embed"][tokens.long()].to(compute_dtype(cfg))
 
 
+def _inputs(params, cfg: ArchConfig, tokens, frames, image_embeds, run_layers):
+    """The decoder's input (B, S', D) -- the VLM's projected prefix before
+    the token embeddings -- and the encoder's output (or None)."""
+    h = embed_tokens(params, cfg, tokens)
+    if cfg.prefix_embeds and image_embeds is not None:
+        pre = L.dense(image_embeds.to(h.dtype), params["frontend_proj"])
+        h = torch.cat([pre, h], dim=1)
+    enc_out = None
+    if cfg.encoder_decoder:
+        enc_out = _encode(params, cfg, frames, run_layers)
+    return h, enc_out
+
+
+def _encode(params, cfg: ArchConfig, frames, run_layers):
+    enc = params["encoder"]
+    h = L.dense(frames.to(compute_dtype(cfg)), params["frontend_proj"])
+    h, _ = run_layers(enc["layers"], h, cfg, causal=False)
+    return L.rms_norm(h, enc["final_ln"], cfg.norm_eps)
+
+
 @torch.no_grad()
 @L.exact_matmuls()
-def forward(params, cfg: ArchConfig, tokens):
-    """-> (hidden (B, S, D), aux_loss)."""
-    h = embed_tokens(params, cfg, tokens)
-    h, aux = _run_layers(params["layers"], h, cfg, causal=True)
+def encode(params, cfg: ArchConfig, frames):
+    """Whisper's encoder over stub frame embeddings (B, T, D): through
+    ``frontend_proj``, the non-causal encoder layers and its final norm."""
+    return _encode(params, cfg, frames, _run_layers)
+
+
+@torch.no_grad()
+@L.exact_matmuls()
+def forward(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None):
+    """-> (hidden (B, S', D), aux_loss); S' includes any VLM prefix."""
+    h, enc_out = _inputs(params, cfg, tokens, frames, image_embeds, _run_layers)
+    h, aux = _run_layers(params["layers"], h, cfg, causal=True, enc_out=enc_out)
     return L.rms_norm(h, params["final_ln"], cfg.norm_eps), aux
 
 
-def forward_train(params, cfg: ArchConfig, tokens):
-    """:func:`forward` with gradients: -> (hidden (B, S, D), aux_loss).
-    With ``cfg.remat`` each layer keeps only its input for the backward and
-    runs again there (``torch.utils.checkpoint``, non-reentrant).  The MoE,
-    SSM and hybrid families serve but do not train yet."""
+def forward_train(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None):
+    """:func:`forward` with gradients: -> (hidden (B, S', D), aux_loss),
+    each layer of the encoder and the decoder recomputed in the backward
+    where ``cfg.remat`` is set.  The MoE, SSM and hybrid families serve but
+    do not train yet."""
     if cfg.n_experts or has_ssm(cfg):
         raise NotImplementedError(f"{cfg.name}: training of the {cfg.family} family is not "
                                   "ported yet (ROADMAP.md queue 1 item 6)")
-    h = embed_tokens(params, cfg, tokens)
-    aux = 0.0
-    for lp in params["layers"]:
-        if cfg.remat:
-            h, a = checkpoint(lambda x, lp=lp: _block(lp, x, cfg, causal=True)[:2], h,
-                              use_reentrant=False)
-        else:
-            h, a, _caps = _block(lp, h, cfg, causal=True)
-        aux = aux + a
+    h, enc_out = _inputs(params, cfg, tokens, frames, image_embeds, _run_layers_train)
+    h, aux = _run_layers_train(params["layers"], h, cfg, causal=True, enc_out=enc_out)
     return L.rms_norm(h, params["final_ln"], cfg.norm_eps), aux
 
 
@@ -339,8 +409,13 @@ def chunked_ce_loss(params, cfg: ArchConfig, h, labels, *, chunk: int = 512):
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, aux_weight: float = 0.01):
-    """Scalar training loss of a batch dict (``tokens``, ``labels``)."""
-    h, aux = forward_train(params, cfg, batch["tokens"])
+    """Scalar training loss of a batch dict (``tokens``, ``labels`` [,
+    ``frames``, ``image_embeds``]); the VLM's prefix positions take no
+    loss."""
+    h, aux = forward_train(params, cfg, batch["tokens"], frames=batch.get("frames"),
+                           image_embeds=batch.get("image_embeds"))
+    if cfg.prefix_embeds:
+        h = h[:, cfg.prefix_embeds:]
     loss, cnt = chunked_ce_loss(params, cfg, h, batch["labels"])
     loss = loss / torch.clamp(cnt.to(torch.float32), min=1.0)
     return loss + aux_weight * aux / max(cfg.n_layers, 1)

@@ -10,7 +10,12 @@ Counterpart of ``repro/serve/engine.py``.  Cache modes:
 Sliding-window archs use a ring buffer of W = window slots (slot = pos % W)
 with an absolute-position array (``slot_pos``) for masking.  SSM and hybrid
 archs carry O(1) state per layer: the SSD state (B, H, N, hp) in float32 and
-the conv's last W-1 inputs (B, W-1, CC) in the activation dtype.
+the conv's last W-1 inputs (B, W-1, CC) in the activation dtype.  The
+encoder-decoder keeps the cross-attention's K/V, (L, B, T, Hkv, hd) in the
+compute dtype, in ``cache["cross"]`` beside the layers' slabs: written once
+by the prefill and read-only after, dense in both cache modes, as the
+reference keeps them.  The VLM's prefix positions are cached as the tokens'
+are.
 
 Where the port differs from the reference:
   - the cache is updated in place: :func:`prefill` builds it, and
@@ -70,8 +75,9 @@ def cache_window(cfg: ArchConfig, seq_len: int) -> int:
 def make_cache(cfg: ArchConfig, batch: int, seq_len: int, *, kv_mode: str = "dense",
                num_planes: int = 1, dtype=torch.bfloat16, device=None) -> dict:
     """Zero-initialized cache on ``device`` (default the card): K/V slabs
-    for the attention families, state and conv slabs for the SSM ones; an
-    attention-free model's ``slot_pos`` has one slot."""
+    for the attention families, state and conv slabs for the SSM ones, the
+    cross-attention's K/V for the encoder-decoder; an attention-free
+    model's ``slot_pos`` has one slot."""
     if kv_mode not in ("dense", "compressed"):
         raise ValueError(f"unknown kv_mode {kv_mode!r}")
     if device is None:
@@ -93,14 +99,20 @@ def make_cache(cfg: ArchConfig, batch: int, seq_len: int, *, kv_mode: str = "den
                                    dtype=torch.float32, device=device)
         lay["conv"] = torch.zeros((nl, batch, cfg.ssm_conv_width - 1, L.ssm_conv_channels(cfg)),
                                   dtype=dtype, device=device)
-    return {"pos": 0,
-            "slot_pos": torch.full((w if attn else 1,), -1, dtype=torch.int32, device=device),
-            "layers": lay}
+    cache = {"pos": 0,
+             "slot_pos": torch.full((w if attn else 1,), -1, dtype=torch.int32, device=device),
+             "layers": lay}
+    if cfg.encoder_decoder:
+        cache["cross"] = {nm: torch.zeros((nl, batch, cfg.encoder_len, hkv, hd), dtype=dtype,
+                                          device=device) for nm in ("k", "v")}
+    return cache
 
 
 def cache_nbytes(cache: dict) -> int:
-    """Bytes of the layers' slabs: K/V, and the SSM state and conv."""
-    return sum(t.numel() * t.element_size() for t in cache["layers"].values())
+    """Bytes of the cache's slabs: the layers' K/V, SSM state and conv, and
+    the cross-attention's K/V."""
+    return sum(t.numel() * t.element_size()
+               for part in ("layers", "cross") for t in cache.get(part, {}).values())
 
 
 def fill_cache(cache: dict, k, v, *, kv_mode: str = "dense", num_planes: int = 1) -> dict:
@@ -227,18 +239,34 @@ def decode_attention(p, x1, lc, cache_meta, cfg: ArchConfig, *, kv_mode: str,
     return L.dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
 
 
+def _cross_attend(p, x1, cross_k, cross_v, cfg: ArchConfig):
+    """Decoder cross-attention of x1 (B,1,D) against one layer's cached
+    encoder K/V (B,T,Hkv,hd): every slot valid, no rotary embedding."""
+    b = x1.shape[0]
+    hd = cfg.resolved_head_dim
+    q = L.dense(x1, p["wq"]).reshape(b, 1, cfg.n_heads, hd)
+    t = cross_k.shape[1]
+    slot_pos = torch.arange(t, dtype=torch.int32, device=x1.device)
+    out = _slab_attend(q, cross_k, cross_v, slot_pos, t, window=0)
+    return L.dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
+
+
 # ---------------------------------------------------------------------------
 # prefill / decode steps
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
 @L.exact_matmuls()
-def prefill(params, cfg: ArchConfig, tokens, *, seq_len: int | None = None,
-            kv_mode: str = "dense", num_planes: int = 1):
+def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
+            seq_len: int | None = None, kv_mode: str = "dense", num_planes: int = 1):
     """Run the full-context forward, build the cache, return (cache,
-    logits of the last position (B, 1, V))."""
-    h = T.embed_tokens(params, cfg, tokens)
-    h, _, caps = T._run_layers(params["layers"], h, cfg, causal=True, capture=True)
+    logits of the last position (B, 1, V)).  ``frames`` (B, T, D) feed the
+    encoder-decoder's encoder, ``image_embeds`` (B, P, D) the VLM's prefix;
+    the cache is sized for ``seq_len`` positions (default all of them, the
+    prefix included), and a shorter one is a ring that evicts."""
+    h, enc_out = T._inputs(params, cfg, tokens, frames, image_embeds, T._run_layers)
+    h, _, caps = T._run_layers(params["layers"], h, cfg, causal=True, enc_out=enc_out,
+                               capture=True)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = T.logits_for(params, cfg, h[:, -1:])
     b, s = h.shape[0], h.shape[1]
@@ -250,6 +278,8 @@ def prefill(params, cfg: ArchConfig, tokens, *, seq_len: int | None = None,
     if "state" in caps:
         cache["layers"]["state"].copy_(caps["state"])
         cache["layers"]["conv"].copy_(caps["conv"])
+    if cfg.encoder_decoder:
+        cache["cross"] = {"k": caps["cross_k"].to(h.dtype), "v": caps["cross_v"].to(h.dtype)}
     return cache, logits
 
 
@@ -281,6 +311,10 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
             lc["conv"].copy_(conv)
             mix = out if mix is None else 0.5 * (mix + out)
         h = h + mix
+        if "cross" in lp:
+            hn = L.rms_norm(h, lp["ln_cross"], cfg.norm_eps)
+            h = h + _cross_attend(lp["cross"], hn, cache["cross"]["k"][i], cache["cross"]["v"][i],
+                                  cfg)
         h, _ = T.ffn_part(lp, h, cfg)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     cache["pos"] = pos + 1

@@ -658,15 +658,20 @@ def test_wrappers_raise_when_a_launch_fails(card, monkeypatch):
 
 # (B, Sq, Hq, Hkv, hd, causal, window, Skv): the shapes of tests/test_torch_flash.py,
 # unaligned S, GQA groups 1..6 and 32, the configs' head dims 64, 80, 128,
-# llama3.2-1b's prefill length (causal and a window of 512), and the prefills
-# of hymba-1.5b (G = 5, a window equal to S) and deepseek-moe-16b (G = 1, hd 128)
+# llama3.2-1b's prefill length (causal and a window of 512), the prefills
+# of hymba-1.5b (G = 5, a window equal to S) and deepseek-moe-16b (G = 1, hd 128),
+# whisper-medium's encoder (non-causal, S = 1500, a ragged last key tile), its
+# cross-attention (Sq 384 against Skv 1500) and decoder, and internvl2-1b's
+# prefill (G = 7, which does not divide the kernel's 64 rows)
 FLASH_CASES = [(2, 64, 4, 2, 32, True, 0, 64), (2, 96, 2, 1, 16, True, 16, 96),
                (2, 128, 8, 8, 8, False, 0, 128), (1, 50, 4, 2, 16, True, 0, 50),
                (2, 48, 6, 1, 16, True, 8, 48), (1, 40, 4, 2, 32, False, 0, 77),
                (1, 300, 32, 8, 64, True, 0, 300), (2, 257, 32, 32, 80, True, 0, 257),
                (1, 333, 32, 4, 128, True, 100, 333), (1, 200, 32, 1, 64, False, 37, 200),
                (1, 2048, 32, 8, 64, True, 0, 2048), (1, 2048, 32, 8, 64, True, 512, 2048),
-               (4, 2048, 25, 5, 64, True, 2048, 2048), (4, 2048, 16, 16, 128, True, 0, 2048)]
+               (4, 2048, 25, 5, 64, True, 2048, 2048), (4, 2048, 16, 16, 128, True, 0, 2048),
+               (4, 1500, 16, 16, 64, False, 0, 1500), (4, 384, 16, 16, 64, False, 0, 1500),
+               (4, 384, 16, 16, 64, True, 0, 384), (4, 2048, 14, 2, 64, True, 0, 2048)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
@@ -762,13 +767,16 @@ def test_serving_launches_the_kernels(card, mode, planes):
     assert (logits.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-1.3b", "hymba-1.5b"])
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-1.3b", "hymba-1.5b",
+                                  "whisper-medium", "internvl2-1b"])
 def test_families_serve_on_the_card(card, name):
-    """The MoE, SSM and hybrid families (reduced): prefill launches the
-    flash kernel once per attention layer, a compressed decode step the
-    planes kernels; the logits of the prefill and of two decode steps agree
-    with the plain route on the CPU (same weights), and so do the SSM state
-    slabs."""
+    """The MoE, SSM, hybrid, audio and VLM families (reduced): prefill
+    launches the flash kernel once per attention layer (whisper: its
+    encoder's, and each decoder layer's self- and cross-attention), a
+    compressed decode step the planes kernels; the logits of the prefill
+    and of two decode steps agree with the plain route on the CPU (same
+    weights, frames and image embeddings), and so do the SSM state slabs
+    and the cross cache."""
     import dataclasses
 
     from repro_torch import configs
@@ -782,12 +790,19 @@ def test_families_serve_on_the_card(card, name):
     cpu = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     model = T.Transformer(cfg, device=card)
     model.load_state_dict(cpu.state_dict())
-    toks = torch.randint(0, cfg.vocab_size, (2, 42), generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 42), generator=g)
+    extra = {}
+    if cfg.encoder_decoder:
+        extra["frames"] = torch.randn((2, cfg.encoder_len, cfg.d_model), generator=g)
+    if cfg.prefix_embeds:
+        extra["image_embeds"] = torch.randn((2, cfg.prefix_embeds, cfg.d_model), generator=g)
     runs = []
     for m, dev in ((model, card), (cpu, torch.device("cpu"))):
         ops.reset_launch_counts()
-        cache, logits = E.prefill(m, cfg, toks[:, :40].to(dev), seq_len=44, kv_mode=mode,
-                                  num_planes=2)
+        cache, logits = E.prefill(m, cfg, toks[:, :40].to(dev), seq_len=44 + cfg.prefix_embeds,
+                                  kv_mode=mode, num_planes=2,
+                                  **{k: v.to(dev) for k, v in extra.items()})
         out = [logits, ops.launch_counts()["flash_attention"]]
         for i in range(2):
             logits, cache = E.decode_step(m, cfg, cache, toks[:, 40 + i:41 + i].to(dev),
@@ -796,13 +811,17 @@ def test_families_serve_on_the_card(card, name):
         out += [ops.launch_counts(), cache]
         runs.append(out)
     (p0, flash, d1, d2, counts, cache), (c0, _, e1, e2, _, c_cache) = runs
-    assert flash == (cfg.n_layers if T.has_attention(cfg) else 0)
+    per_prefill = cfg.n_layers * (2 if cfg.encoder_decoder else 1) + cfg.n_encoder_layers
+    assert flash == (per_prefill if T.has_attention(cfg) else 0)
     assert counts["planes_encode"] == (2 * cfg.n_layers * 2 + 2 if mode == "compressed" else 0)
     for got, want in ((p0, c0), (d1, e1), (d2, e2)):
         assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
     if "state" in cache["layers"]:
         want = c_cache["layers"]["state"]
         assert (cache["layers"]["state"].cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    for nm in ("k", "v") if cfg.encoder_decoder else ():
+        want = c_cache["cross"][nm]
+        assert (cache["cross"][nm].cpu() - want).abs().max() <= 1e-4 * want.abs().max()
 
 
 # ---------------------------------------------------------------------------
@@ -954,3 +973,34 @@ def test_compressed_train_step_and_checkpoint_round_trip(card, tmp_path):
                 assert float((af - b.double()).abs().max()) <= e, name
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["whisper-medium", "internvl2-1b"])
+def test_encdec_vlm_gradients_on_card_match_cpu(card, name):
+    """loss_fn and every gradient of the reduced whisper-medium (the
+    encoder, the cross-attention's non-causal kernel launches and backward)
+    and internvl2-1b (the image prefix) on the card against the CPU route,
+    on the launcher's synthetic batch with its frames or image embeddings."""
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as step_mod
+
+    cfg = configs.get(name).reduced()
+    batch = SyntheticLM(train.data_config(cfg, 40, 2)).batch_at(0)
+    out = {}
+    for dev in ("cpu", card):
+        params = T.param_tree(T.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+        params = pytree.tree_map(lambda t: t.to(dev), params)
+        ops.reset_launch_counts()
+        out[str(dev)] = step_mod.value_and_grad(
+            cfg, params, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    per_forward = cfg.n_layers * (2 if cfg.encoder_decoder else 1) + cfg.n_encoder_layers
+    assert ops.launch_counts()["flash_attention"] == per_forward          # reduced: no remat
+    (loss, grads), (kloss, kgrads) = out["cpu"], out[str(card)]
+    assert abs(float(loss) - float(kloss)) <= 1e-5 * abs(float(loss))
+    for (leaf, a), b in zip(pytree.leaf_paths(grads), pytree.leaves(kgrads)):
+        assert b.device.type == "cuda", leaf
+        assert (b.cpu() - a).abs().max() <= 1e-4 * a.abs().max(), leaf

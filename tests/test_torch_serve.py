@@ -7,10 +7,23 @@ evicts), with the reference's weights loaded through ``params_from_jax`` and
 tokens made with numpy from a seed.
 
 What is compared, and to what:
-  - logits of the prefill and of every decode step: float32 throughout; the
-    model's K/V differ from XLA's in their last bits (matmul order), which
-    moves a P-plane quantum here and there, so within 1e-4 of the largest
-    logit (measured up to 1e-5);
+  - logits of the prefill and of every decode step, float32 throughout,
+    within 1e-4 of the largest logit.  The model's K/V differ from XLA's in
+    their last bits (matmul order), and where one lies at a quantization
+    boundary the port's own cache holds another P-plane quantum than the
+    reference's: one P = 1 byte of h2o-danube-1.8b's prefill cache does on
+    some hosts, and moves decode steps 1 and 2 by 3.2e-4 and 7.4e-4 of the
+    largest logit until the ring evicts it.  So each decode step runs both
+    engines from the same cache -- the reference's after the previous step,
+    given to the port -- with the same token (measured up to 2.7e-6).  The
+    step's own record is still each engine's encode of its own K/V: in the
+    runs measured here it differs by one quantum at P = 2 in two steps
+    (logits still within 2.7e-6) and never at P = 1, where one quantum of a
+    record the step reads can move the logits past 1e-4.  The port's
+    free-running trajectory is held too: its compressed records differ from
+    the reference's by at most one quantum with the same sexp (asserted), and
+    at every step whose quantized records (sexp, planes) equal the
+    reference's its logits are within 1e-4 (measured up to 9.8e-7);
   - the cache after prefill, bit for bit: fed the reference's own K/V (its
     layer scan's captures), the port builds the reference's records -- mu,
     sexp, planes, slot_pos, pos -- exactly;
@@ -97,17 +110,53 @@ def _signed_q(planes):
     return np.where(uq >= 1 << (8 * p - 1), uq - (1 << (8 * p)), uq)
 
 
+def _port_cache(cache):
+    """A cache of ``_np_cache``'s form as the port's engine takes it."""
+    return {"pos": cache["pos"], "slot_pos": torch.from_numpy(cache["slot_pos"].copy()),
+            "layers": {k: torch.from_numpy(v.copy()) for k, v in cache["layers"].items()}}
+
+
+def _rel(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _quantized_records_differ(got, want) -> bool:
+    """Whether the compressed caches' quantized records (sexp and planes)
+    differ anywhere.  Asserts what test_decode_records does of each record:
+    the same sexp, the quantized values at most one step apart, mu close."""
+    differ = False
+    for nm in "kv":
+        assert np.array_equal(got[nm + "sexp"], want[nm + "sexp"]), nm
+        dq = (_signed_q(np.moveaxis(got[nm + "pl"], 1, 0))
+              - _signed_q(np.moveaxis(want[nm + "pl"], 1, 0)))
+        assert np.abs(dq).max() <= 1, nm
+        np.testing.assert_allclose(got[nm + "mu"], want[nm + "mu"], rtol=1e-4, atol=1e-5)
+        differ |= bool(dq.any())
+    return differ
+
+
 @pytest.mark.parametrize("mode,planes", MODES)
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_logits_match_reference(arch, mode, planes):
+    """The prefill's logits; each decode step's from the same cache; the
+    port's free-running logits where its records are the reference's (see
+    the module docstring); pos, slot_pos and slab shapes after each call."""
+    _rcfg, cfg, _rp, m, toks, s, _extra = _setup(arch)
     ref_out = _reference_run(arch, mode, planes)
     port_out = _port_run(arch, mode, planes)
     for step, ((lr, cr), (lp, cp)) in enumerate(zip(ref_out, port_out)):
         assert lp.shape == lr.shape and lp.dtype == np.float32
-        assert np.abs(lp - lr).max() <= LOGIT_TOL * np.abs(lr).max(), (arch, mode, step)
         assert cp["pos"] == cr["pos"] and np.array_equal(cp["slot_pos"], cr["slot_pos"])
         assert {k: (v.shape, v.dtype) for k, v in cp["layers"].items()} == \
             {k: (v.shape, v.dtype) for k, v in cr["layers"].items()}
+        if step:
+            same, _ = E.decode_step(m, cfg, _port_cache(ref_out[step - 1][1]),
+                                    torch.from_numpy(toks[:, s + step - 1:s + step]),
+                                    kv_mode=mode, num_planes=planes)
+            assert _rel(same.numpy(), lr) <= LOGIT_TOL, (arch, mode, step, "same cache")
+        differ = mode == "compressed" and _quantized_records_differ(cp["layers"], cr["layers"])
+        if step == 0 or not differ:
+            assert _rel(lp, lr) <= LOGIT_TOL, (arch, mode, step, "free-running")
 
 
 @pytest.mark.parametrize("mode,planes", MODES)
