@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--edge 512] [--reps 50]
                           [--store-kernels | --ingest | --service | --families |
-                           --enc-vlm]
+                           --enc-vlm | --families-train | --examples]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It imports nothing of the JAX package.  In order it:
@@ -181,6 +181,32 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      P = 1 in a one-rank NCCL group after a warm-up step (``--enc-vlm`` runs
      this phase alone, after the flash kernel's checks at its four shapes,
      then times the kernel at them).
+
+ 16. trains the MoE, SSM and hybrid families: mamba2-1.3b (48 layers, d_model
+     2048, 64 SSD heads of 64, state 128; 1.446 B parameters) and hymba-1.5b
+     (32 layers, d_model 1600, 25/5 heads of 64 with a 2048 window beside 50
+     SSD heads, d_ff 5504; 1.641 B) at full width and depth through
+     ``launch.train.run`` with --ckpt-compress: 3 plain steps of B 4 x S 2048
+     SyntheticLM tokens with per-layer remat, every loss finite, the SSM's
+     in/conv/A_log/dt_bias/D/out (and hymba's attention and MLP) moved, the
+     final SZx checkpoint restored on the card with every float leaf within
+     its bound and the rest bit for bit; then a compressed P = 1 step in a
+     one-rank NCCL group after a warm-up step and a profiled plain step; then
+     deepseek-moe-16b at full width (64 routed experts top-6, 2 shared) on 4
+     of its 28 layers (the full depth's 270 GB of training state waits for
+     sharding; the cut is printed): a warm-up and 3 plain steps and a
+     profiled one.  Launch counters are zeroed before each model and read
+     after: the flash kernel exactly twice an attention layer a step, the
+     planes kernels (vector route) in the compressed steps, encode in the
+     checkpoint save and decode_body in its restore (``--families-train``
+     runs this phase alone, after the flash kernel's checks at phase 14's
+     shapes);
+ 17. runs the four examples (``examples/quickstart_torch.py``,
+     ``compress_checkpoint_torch.py``, ``serve_lm_torch.py``,
+     ``train_lm_torch.py``) through their ``main`` on the card at their
+     defaults, each checking its own results; launch counters zeroed before
+     each and read after: each must launch the kernels its path runs
+     (``--examples`` runs this phase alone).
 
 Phase 2 also holds the planes kernels against their plain versions on both
 routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
@@ -2092,15 +2118,8 @@ def phase_train(args):
             wq0 = state["params"]["layers"][0]["attn"]["wq"][:64, :64].clone()
             fn = step_mod.make_train_step(cfg, opt, compress_planes=P)
             torch.cuda.reset_peak_memory_stats()
-            (state, m), t_warm = timed(lambda: fn(state, train_batch(ds, 0)))
-            losses, times = [float(m["loss"])], []
-            before, routes_before = ops.launch_counts(), ops.planes_route_counts()
-            for s in range(1, TRAIN_STEPS + 1):
-                batch = train_batch(ds, s)
-                (state, m), t = timed(lambda: fn(state, batch))
-                times.append(t)
-                losses.append(float(m["loss"]))
-            after = ops.launch_counts()
+            routes_before = ops.planes_route_counts()
+            state, m, t_warm, losses, times, before, after = warm_and_time(fn, state, ds)
             peak = torch.cuda.max_memory_allocated()
             check(all(math.isfinite(v) for v in losses), f"{mode}: losses {losses}")
             moved = float((state["params"]["layers"][0]["attn"]["wq"][:64, :64] - wq0).abs().max())
@@ -2133,6 +2152,24 @@ def phase_train(args):
     finally:
         dist.destroy_process_group()
     return results
+
+
+def warm_and_time(fn, state, ds):
+    """A warm-up step on batch 0, then TRAIN_STEPS timed steps (host clock,
+    synchronized) on the next batches.  Returns (state, the last metrics,
+    the warm-up's seconds, every loss, the timed steps' seconds, and the
+    launch counts before and after the timed steps)."""
+    from repro_torch.kernels import ops
+
+    (state, m), t_warm = timed(lambda: fn(state, train_batch(ds, 0)))
+    losses, times = [float(m["loss"])], []
+    before = ops.launch_counts()
+    for s in range(1, TRAIN_STEPS + 1):
+        batch = train_batch(ds, s)
+        (state, m), t = timed(lambda: fn(state, batch))
+        times.append(t)
+        losses.append(float(m["loss"]))
+    return state, m, t_warm, losses, times, before, ops.launch_counts()
 
 
 def profile_train(fn, state, batch, mode: str) -> float | None:
@@ -3248,6 +3285,10 @@ ENC_VLM_ARCHS = ("whisper-medium", "internvl2-1b")
 # embeddings and 1792 tokens (phase 9's 2048 positions) and 64 steps
 ENC_VLM_TRAFFIC = {"whisper-medium": (384, 64, 448), "internvl2-1b": (1792, 64, 1792)}
 ENC_VLM_TRAIN_STEPS = 3            # through launch.train: the first one warms up
+# the leaves whose first 64 x 64 values must move in training
+ENC_VLM_WATCH = {"whisper-medium": ("frontend_proj", "layers/0/attn/wq", "layers/0/cross/wk",
+                                    "encoder/layers/0/attn/wq"),
+                 "internvl2-1b": ("frontend_proj", "layers/0/attn/wq")}
 
 
 def enc_vlm_extra(cfg, gen) -> dict:
@@ -3290,15 +3331,71 @@ class FlashShapes:
         self.fa.flash_attention = self.inner
 
 
-def train_enc_vlm(args, cfg, seq: int, i: int) -> dict:
+def corner(t):
+    """A copy of the first 64 entries along every axis of ``t``: the part of
+    a watched leaf the training phases compare before and after, 1-D leaves
+    (the SSM's ``A_log``, ``dt_bias``, ``D``) and the experts' 3-D ones
+    included."""
+    return t[(slice(0, 64),) * t.dim()].clone()
+
+
+def moved_leaves(params, init: dict) -> dict:
+    """max |w - w0| over each watched leaf's corner."""
+    from repro_torch.core import pytree
+
+    return {n: float((corner(t) - init[n]).abs().max())
+            for n, t in pytree.leaf_paths(params) if n in init}
+
+
+def check_restored(path, state, arch: str) -> str:
+    """The launcher's final SZx checkpoint under ``path`` restored on the
+    card (``CheckpointManager.restore``, the decode kernel) and held to the
+    final ``state``: every float leaf of 1024+ values within the
+    checkpoint's bound, the rest bit for bit.  Returns the log line's
+    text."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pytree
+    from repro_torch.core.codec import plan
+    from repro_torch.kernels import ops
+
+    ckpt = CheckpointManager(str(path), compress=True, device="cuda")
+    before = ops.launch_counts()["decode_body"]
+    (tree, step), t = timed(lambda: ckpt.restore(state))
+    launched = ops.launch_counts()["decode_body"] - before
+    check(launched > 0, f"{arch}: the restore did not launch the decode kernel")
+    worst, shapes = 0.0, {"szx": set(), "raw": set()}
+    for (name, leaf), want in zip(pytree.leaf_paths(tree), pytree.leaves(state)):
+        check(leaf.dtype == want.dtype and leaf.shape == want.shape, f"{arch}: restored {name}")
+        if leaf.is_floating_point() and leaf.numel() >= 1024:
+            e = plan.resolve_error_bound(want, ckpt.bound)
+            err = max_abs_diff(leaf, want)
+            check(err <= e, f"{arch}: restored {name}: max error {err} > e={e}")
+            worst = max(worst, err / e if e else 0.0)
+            shapes["szx"].add(tuple(leaf.shape))
+        else:
+            check(same_bits(leaf, want), f"{arch}: restored {name} not bit-identical")
+            shapes["raw"].add(tuple(leaf.shape))
+    del tree
+    st = ckpt.stats(step)
+    return (f"restore step {step} on the card {t:.2f} s, {launched} decode launches; every "
+            f"leaf of 1024+ float values within the bound (max error/bound {worst:.4f}; shapes "
+            f"{sorted(shapes['szx'])}), the rest bit for bit (shapes {sorted(shapes['raw'])}); "
+            f"{st['raw_bytes']} B -> {st['stored_bytes']} B (CR {st['ratio']:.4f})")
+
+
+def train_launcher(args, cfg, seq: int, seed: int, watch: tuple, tag: str, *,
+                   ckpt_compress: bool = False) -> dict:
     """``launch.train``'s run (its Trainer, its synthetic batches with the
-    stub frames or image embeddings, AdamW) for ENC_VLM_TRAIN_STEPS plain
-    steps of B 4 x ``seq`` tokens, its final checkpoint into CKPT_DIR
-    (removed after); then one compressed step at P = 1 in a one-rank NCCL
-    group after a warm-up step, and a profiled plain step.  Every loss
-    finite, the weights moved, the flash kernel twice a layer a step
-    (forward and remat), the planes kernels in the compressed steps.
-    Returns the step times."""
+    stub frames or image embeddings where the model takes them, AdamW) for
+    ENC_VLM_TRAIN_STEPS plain steps of B 4 x ``seq`` tokens, its final
+    checkpoint into CKPT_DIR (raw, or with ``ckpt_compress`` SZx, restored
+    on the card and held to the final state; removed after); then one
+    compressed step at P = 1 in a one-rank NCCL group after a warm-up step,
+    and a profiled compressed and plain step.  Every loss finite, the ``watch`` leaves
+    moved, the flash kernel twice an attention layer a step (forward and
+    remat), the planes kernels in the compressed step on the vector route,
+    the encode kernel in an SZx save.  Returns the step times, the peak
+    memory and the profiled steps' busy shares."""
     import shutil
 
     import torch
@@ -3312,46 +3409,67 @@ def train_enc_vlm(args, cfg, seq: int, i: int) -> dict:
     from repro_torch.train import step as step_mod
 
     arch = cfg.name
-    seed = args.seed + 40 + i
-    watch = ("frontend_proj", "layers/0/attn/wq", "layers/0/cross/wk", "encoder/layers/0/attn/wq")
-    init = {n: t[:64, :64].clone() for n, t in pytree.leaf_paths(T.param_tree(
+    init = {n: corner(t) for n, t in pytree.leaf_paths(T.param_tree(
         T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")))
         if n in watch}
+    check(len(init) == len(watch), f"{arch}: watched leaves {sorted(init)} of {watch}")
     torch.cuda.empty_cache()
+    flash_step = (2 if cfg.remat else 1) * prefill_flash(cfg)
     argv = ["--arch", arch, "--steps", str(ENC_VLM_TRAIN_STEPS), "--seq", str(seq),
             "--batch", str(SERVE_BATCH), "--ckpt", str(CKPT_DIR / arch), "--device", "cuda",
-            "--seed", str(seed)]
+            "--seed", str(seed)] + ["--ckpt-compress"] * ckpt_compress
     shutil.rmtree(CKPT_DIR / arch, ignore_errors=True)
+    saves = []
+
+    class TimedSaves(train_cli.CheckpointManager):
+        def save(self, step, tree):
+            before = ops.launch_counts()["encode"]
+            out, t = timed(lambda: super(TimedSaves, self).save(step, tree))
+            saves.append(f"save step {step} {t:.2f} s, "
+                         f"{ops.launch_counts()['encode'] - before} encode launches")
+            return out
+
     torch.cuda.reset_peak_memory_stats()
+    manager, train_cli.CheckpointManager = train_cli.CheckpointManager, TimedSaves
     before = ops.launch_counts()
     try:
         (tr, state), t_run = timed(lambda: train_cli.run(train_cli.build_parser().parse_args(argv),
                                                          torch.device("cuda")))
+        after = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        restored = check_restored(CKPT_DIR / arch, state, arch) if ckpt_compress else None
     finally:
+        train_cli.CheckpointManager = manager
         shutil.rmtree(CKPT_DIR / arch, ignore_errors=True)
-    after = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     losses, dts = [h["loss"] for h in tr.history], [h["dt"] for h in tr.history]
     check(len(losses) == ENC_VLM_TRAIN_STEPS and all(math.isfinite(v) for v in losses),
           f"{arch}: train losses {losses}")
-    moved = {n: float((t[:64, :64] - init[n]).abs().max())
-             for n, t in pytree.leaf_paths(state["params"]) if n in init}
+    moved = moved_leaves(state["params"], init)
     check(len(moved) == len(init) and all(v > 0 for v in moved.values()),
           f"{arch}: the weights did not move {moved}")
     flash = after["flash_attention"] - before["flash_attention"]
-    check(flash == (2 if cfg.remat else 1) * prefill_flash(cfg) * ENC_VLM_TRAIN_STEPS,
+    check(flash == flash_step * ENC_VLM_TRAIN_STEPS,
           f"{arch}: {flash} flash launches in {ENC_VLM_TRAIN_STEPS} steps")
+    if ckpt_compress:
+        check(after["encode"] > before["encode"], f"{arch}: the SZx save launched no encode")
     nbytes = sum(t.numel() * t.element_size() for t in pytree.leaves(state))
+    nparams = sum(t.numel() for t in pytree.leaves(state["params"]))
     tokens = SERVE_BATCH * seq
-    log(f"enc-vlm train {arch} plain through launch.train (B {SERVE_BATCH} x S {seq}"
+    total = torch.cuda.mem_get_info()[1]
+    log(f"{tag} train {arch} plain through launch.train (B {SERVE_BATCH} x S {seq}"
         + (f" + {cfg.prefix_embeds} image embeddings" if cfg.prefix_embeds else "")
         + (f", {cfg.encoder_len} frames" if cfg.encoder_decoder else "")
-        + f"): steps " + ", ".join(f"{t * 1e3:.1f}" for t in dts)
+        + f"; {cfg.n_layers} layers, {nparams} parameters): steps "
+        + ", ".join(f"{t * 1e3:.1f}" for t in dts)
         + f" ms (the first warms up; {tokens / (sum(dts[1:]) / len(dts[1:])):.0f} tokens/s after"
         f"); loss curve " + ", ".join(f"{v:.4f}" for v in losses)
         + f"; max |d w| " + ", ".join(f"{n} {v:.3e}" for n, v in moved.items())
-        + f"; state {nbytes / 1e9:.2f} GB, the run with its final raw checkpoint {t_run:.1f} s;"
-        f" peak {peak / 1e9:.2f} GB; flash launches {flash}")
+        + f"; state {nbytes / 1e9:.2f} GB, the run with its final "
+        + ("SZx" if ckpt_compress else "raw") + f" checkpoint {t_run:.1f} s"
+        + (f" ({'; '.join(saves)})" if saves else "")
+        + f"; peak {peak / 1e9:.2f} GB of {total / 1e9:.2f}; flash launches {flash}")
+    if restored:
+        log(f"{tag} train {arch}: {restored}")
     del state, tr
     torch.cuda.empty_cache()
 
@@ -3360,31 +3478,42 @@ def train_enc_vlm(args, cfg, seq: int, i: int) -> dict:
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             world_size=1, rank=0)
     try:
+        torch.cuda.reset_peak_memory_stats()
         state = step_mod.init_state(cfg, opt, torch.Generator(device="cuda").manual_seed(seed),
                                     ef_planes=1, device="cuda")
         fn = step_mod.make_train_step(cfg, opt, compress_planes=1)
-        w0 = state["params"]["layers"][0]["attn"]["wq"][:64, :64].clone()
+        w0 = {n: corner(t) for n, t in pytree.leaf_paths(state["params"]) if n in init}
         (state, m0), t_warm = timed(lambda: fn(state, train_batch(ds, 0)))
-        before = ops.launch_counts()
+        before, routes_before = ops.launch_counts(), ops.planes_route_counts()
         batch = train_batch(ds, 1)
         (state, m1), t_step = timed(lambda: fn(state, batch))
         after = ops.launch_counts()
+        routes = {k: v - routes_before[k] for k, v in ops.planes_route_counts().items()}
+        peak_c = torch.cuda.max_memory_allocated()
+        busy_c = profile_train(fn, state, train_batch(ds, 2), f"{arch} compressed P=1")
     finally:
         dist.destroy_process_group()
     losses = [float(m0["loss"]), float(m1["loss"])]
     check(all(math.isfinite(v) for v in losses), f"{arch}: compressed losses {losses}")
-    dw = float((state["params"]["layers"][0]["attn"]["wq"][:64, :64] - w0).abs().max())
-    check(dw > 0, f"{arch}: the compressed steps did not move the weights")
+    dw = moved_leaves(state["params"], w0)
+    check(all(v > 0 for v in dw.values()), f"{arch}: the compressed steps did not move {dw}")
     for k in PLANES_KERNELS:
         check(after[k] > before[k], f"{arch} compressed P=1: {k} not launched")
-    log(f"enc-vlm train {arch} compressed P=1: warm-up step {t_warm * 1e3:.1f} ms, step "
+    check_vector_route(f"{arch} compressed P=1", routes)
+    check(after["flash_attention"] - before["flash_attention"] == flash_step,
+          f"{arch} compressed P=1: flash launches "
+          f"{after['flash_attention'] - before['flash_attention']}, not {flash_step}")
+    log(f"{tag} train {arch} compressed P=1: warm-up step {t_warm * 1e3:.1f} ms, step "
         f"{t_step * 1e3:.1f} ms ({tokens / t_step:.0f} tokens/s); losses "
-        + ", ".join(f"{v:.4f}" for v in losses) + f"; max |d wq| {dw:.3e}; launches "
-        f"{dict((k, after[k] - before[k]) for k in after if after[k] != before[k])}")
-    profile_train(step_mod.make_train_step(cfg, opt), state, train_batch(ds, 2), f"{arch} plain")
+        + ", ".join(f"{v:.4f}" for v in losses) + "; max |d w| "
+        + ", ".join(f"{n} {v:.3e}" for n, v in dw.items()) + f"; peak {peak_c / 1e9:.2f} GB; "
+        f"launches {dict((k, after[k] - before[k]) for k in after if after[k] != before[k])}")
+    busy = profile_train(step_mod.make_train_step(cfg, opt), state, train_batch(ds, 3),
+                         f"{arch} plain")
     del state, m0, m1
     torch.cuda.empty_cache()
-    return {"plain": dts, "compressed": t_step}
+    return {"plain": dts, "compressed": t_step, "peak": peak, "busy": busy,
+            "busy_compressed": busy_c}
 
 
 def phase_enc_vlm(args) -> tuple:
@@ -3396,7 +3525,7 @@ def phase_enc_vlm(args) -> tuple:
     cache bytes (the cross K/V apart), finite logits; decode vs forward over
     the same tokens in float32 compute, held to TEACHER_TOL, with the bf16
     figures measured beside; peak memory; a profile of a dense prefill and
-    2 steps; then ``train_enc_vlm``.  Returns the phase's launch counts and
+    2 steps; then ``train_launcher``.  Returns the phase's launch counts and
     its flash launches by shape."""
     import dataclasses
     import gc
@@ -3478,7 +3607,8 @@ def phase_enc_vlm(args) -> tuple:
                 f"{total / 1e9:.2f}), weights {nparams * 4 / 1e9:.2f} GB; profile {t_prof:.1f} s")
             del model, prompts, extra
             torch.cuda.empty_cache()
-            train_enc_vlm(args, cfg, train_seq, i)
+            train_launcher(args, cfg, train_seq, args.seed + 40 + i, ENC_VLM_WATCH[arch],
+                           "enc-vlm")
     counts = {k: v for k, v in ops.launch_counts().items()
               if k in PLANES_KERNELS + ("flash_attention",)}
     log(f"enc-vlm path launches: {counts}; by route {ops.planes_route_counts()}; flash by "
@@ -3503,6 +3633,179 @@ def enc_vlm_flash_rows(gen, reps: int, launches: dict) -> list:
                      "max_abs_err": MAX_ERR_CASES.get(shape), "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": "operations", "library_ms": lib_ms})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training of the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+# full width and depth through launch.train, with SZx checkpoints
+SSM_WATCH = tuple(f"layers/0/ssm/{w}" for w in ("in", "conv", "A_log", "dt_bias", "D", "out"))
+FAMILY_TRAIN_WATCH = {"mamba2-1.3b": SSM_WATCH,
+                      "hymba-1.5b": SSM_WATCH + ("layers/0/attn/wq", "layers/0/mlp/wi")}
+# deepseek-moe-16b at full width on MOE_TRAIN_LAYERS of its 28 layers
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-moe-16b", 4
+MOE_WATCH = tuple(f"layers/0/{w}" for w in ("attn/wq", "moe/router", "moe/wi", "moe/wo",
+                                            "moe/shared_wi"))
+TRAIN_STATE_BYTES = 16             # f32 weights, gradients and two AdamW moments a parameter
+
+
+def train_moe_cut(args) -> dict:
+    """deepseek-moe-16b at full width (d 2048, 64 routed experts top-6 and 2
+    shared of 1408, vocab 102400, capacity factor 1.25) on MOE_TRAIN_LAYERS
+    of its 28 layers: ``make_train_step`` on the cut config, a warm-up and
+    TRAIN_STEPS plain steps of B 4 x S 2048 SyntheticLM tokens from --seed,
+    AdamW at TRAIN_LR; every loss finite, the watched leaves moved, the
+    flash kernel twice a layer a step; a profiled step.  Returns the step
+    times, the peak memory and the busy share."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import pytree
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamW
+    from repro_torch.train import step as step_mod
+
+    full = configs.get(MOE_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    check(cfg.remat, f"{MOE_TRAIN_ARCH} trains with per-layer remat")
+    total = torch.cuda.mem_get_info()[1]
+    log(f"families-train {MOE_TRAIN_ARCH}: cut to {MOE_TRAIN_LAYERS} of its {full.n_layers} "
+        f"layers at full width, because the full depth's {full.param_count()} parameters need "
+        f"{full.param_count() * TRAIN_STATE_BYTES / 1e9:.1f} GB of f32 weights, gradients and "
+        f"AdamW moments against the card's {total / 1e9:.1f} GB; {MOE_TRAIN_LAYERS} layers have "
+        f"{cfg.param_count()} ({cfg.param_count() * TRAIN_STATE_BYTES / 1e9:.1f} GB). Full "
+        f"depth waits for sharding (ROADMAP.md queue 1 item 7)")
+    opt = AdamW(lr=TRAIN_LR)
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 50)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, t_init = timed(lambda: step_mod.init_state(cfg, opt, gen, device="cuda"))
+    init = {n: corner(t) for n, t in pytree.leaf_paths(state["params"]) if n in MOE_WATCH}
+    check(len(init) == len(MOE_WATCH), f"{MOE_TRAIN_ARCH}: watched leaves {sorted(init)}")
+    nparams = sum(t.numel() for t in pytree.leaves(state["params"]))
+    fn = step_mod.make_train_step(cfg, opt)
+    state, m, t_warm, losses, times, before, after = warm_and_time(fn, state, ds)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(v) for v in losses), f"{MOE_TRAIN_ARCH}: losses {losses}")
+    moved = moved_leaves(state["params"], init)
+    check(all(v > 0 for v in moved.values()), f"{MOE_TRAIN_ARCH}: the weights did not move {moved}")
+    flash = after["flash_attention"] - before["flash_attention"]
+    check(flash == 2 * cfg.n_layers * TRAIN_STEPS,
+          f"{MOE_TRAIN_ARCH}: {flash} flash launches in {TRAIN_STEPS} steps (forward + remat)")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"families-train {MOE_TRAIN_ARCH} plain ({cfg.n_layers} layers, {nparams} parameters, "
+        f"state made in {t_init:.2f} s; B {TRAIN_BATCH} x S {TRAIN_SEQ}): warm-up step "
+        f"{t_warm * 1e3:.1f} ms; steps " + ", ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" ms ({tokens / (sum(times) / len(times)):.0f} tokens/s); loss curve "
+        + ", ".join(f"{v:.4f}" for v in losses) + "; max |d w| "
+        + ", ".join(f"{n} {v:.3e}" for n, v in moved.items())
+        + f"; peak {peak / 1e9:.2f} GB of {total / 1e9:.2f}; flash launches {flash}")
+    busy = profile_train(fn, state, train_batch(ds, TRAIN_STEPS + 1), f"{MOE_TRAIN_ARCH} plain")
+    del state, m
+    torch.cuda.empty_cache()
+    return {"plain": times, "peak": peak, "busy": busy}
+
+
+def phase_families_train(args) -> tuple:
+    """Phase 16: mamba2-1.3b and hymba-1.5b trained at full width and depth
+    through ``launch.train.run`` (B 4 x S 2048, 3 steps, SZx checkpoints
+    restored on the card within their bound, a compressed P = 1 step, a
+    profiled step), then deepseek-moe-16b at full width on 4 layers
+    (``train_moe_cut``).  Launch counters are zeroed before each model and
+    read after it; the flash launches are also counted by shape.  Returns
+    the phase's launch counts, each model's flash launches and its
+    results."""
+    import gc
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    counts, flash, results = {}, {}, {}
+
+    def add(arch, wanted):
+        got = ops.launch_counts()
+        log(f"families-train {arch} launches: "
+            + str({k: v for k, v in got.items() if v}) + f"; planes by route "
+            + str(ops.planes_route_counts()))
+        for k in wanted:
+            check(got[k] > 0, f"kernel {k} was not launched training {arch}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        flash[arch] = got["flash_attention"]
+
+    with FlashShapes() as shapes:
+        for i, (arch, watch) in enumerate(FAMILY_TRAIN_WATCH.items()):
+            cfg = configs.get(arch)
+            ops.reset_launch_counts()
+            torch.cuda.empty_cache()
+            results[arch] = train_launcher(args, cfg, TRAIN_SEQ, args.seed + 60 + i, watch,
+                                           "families-train", ckpt_compress=True)
+            add(arch, ("encode", "decode_body") + PLANES_KERNELS
+                + (("flash_attention",) if prefill_flash(cfg) else ()))
+        ops.reset_launch_counts()
+        results[MOE_TRAIN_ARCH] = train_moe_cut(args)
+        add(MOE_TRAIN_ARCH, ("flash_attention",))
+    log(f"families-train flash by shape (B, Sq, Hq, Hkv, hd, causal, window, Skv, dtype): "
+        f"{dict(shapes.seen)}")
+    for arch, shape in FAMILY_FLASH.items():
+        n = shapes.seen[shape + (shape[1], "bfloat16")]
+        check(n > 0, f"families-train: no flash launch at {arch}'s shape {shape}")
+    return {k: v for k, v in counts.items() if v}, flash, results
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the examples
+# ---------------------------------------------------------------------------
+
+# example -> (the flags beside its defaults, the kernels it must launch)
+EXAMPLES = {
+    "quickstart_torch": ((), ("encode", "decode_body", "unpack")),
+    "compress_checkpoint_torch": ((), ("encode", "decode_body")),
+    "serve_lm_torch": ((), ("flash_attention",) + PLANES_KERNELS),
+    # its checkpoints under CKPT_DIR, removed after
+    "train_lm_torch": (("--ckpt", str(CKPT_DIR / "train_lm_torch")),
+                       ("flash_attention", "encode")),
+}
+
+
+def phase_examples() -> dict:
+    """Phase 17: each of ``examples/*_torch.py`` run through its ``main`` on
+    the card at its defaults (train_lm_torch's checkpoints under CKPT_DIR);
+    each checks its own results (error bounds, finite logits, a falling
+    loss) and must return cleanly.  Launch counters are zeroed before each
+    and read after it.  Returns the phase's launch counts."""
+    import importlib.util
+    import shutil
+
+    import torch
+    from repro_torch.kernels import ops
+
+    counts = {}
+    for name, (argv, wanted) in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        shutil.rmtree(CKPT_DIR / name, ignore_errors=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        try:
+            _, t = timed(lambda: mod.main(list(argv)))
+        finally:
+            shutil.rmtree(CKPT_DIR / name, ignore_errors=True)
+        got = {k: v for k, v in ops.launch_counts().items() if v}
+        log(f"example {name}: main returned in {t:.1f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches {got}")
+        for k in wanted:
+            check(got.get(k, 0) > 0, f"example {name} did not launch {k}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
 
 
 def store_kernels_only(args) -> int:
@@ -3549,6 +3852,14 @@ def main() -> int:
                          "shapes, run phase 15 alone (whisper-medium and internvl2-1b served "
                          "and trained at full width), time the flash kernel at those shapes "
                          "and stop")
+    ap.add_argument("--families-train", action="store_true",
+                    help="build, hold the flash kernel to its plain version at phase 14's "
+                         "prefill shapes, run phase 16 alone (mamba2-1.3b and hymba-1.5b "
+                         "trained at full width and depth, deepseek-moe-16b at full width on "
+                         "4 layers) and stop")
+    ap.add_argument("--examples", action="store_true",
+                    help="build, run phase 17 alone (the four examples/*_torch.py on the "
+                         "card) and stop")
     args = ap.parse_args()
 
     import torch
@@ -3622,6 +3933,22 @@ def main() -> int:
             shutil.rmtree(CKPT_DIR, ignore_errors=True)
         rows = enc_vlm_flash_rows(gen, max(args.reps // 2, 5), flash)
         log(f"phase 15 flash rows: {json.dumps(rows)}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+
+    if args.families_train:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        phase_flash_kernel(gen, [c for c in FLASH_CASES if c[:-1] in FAMILY_FLASH.values()])
+        try:
+            log(f"phase 16 launches: {phase_families_train(args)[0]}")
+        finally:
+            import shutil
+
+            shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.examples:
+        log(f"phase 17 launches: {phase_examples()}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -3722,6 +4049,19 @@ def main() -> int:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     for k, v in enc_vlm_launches.items():
         launches[k] = launches.get(k, 0) + v
+    log(f"phase 16 starts {time.perf_counter() - t_start:.1f} s into the run")
+    try:
+        train_launches, train_flash, _ = phase_families_train(args)
+        log(f"phase 17 starts {time.perf_counter() - t_start:.1f} s into the run")
+        example_launches = phase_examples()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    for counts in (train_launches, example_launches):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for arch, n in train_flash.items():
+        if arch in family_flash:
+            family_flash[arch] += n
     flash_cases = (family_flash_rows(gen, max(args.reps // 2, 5), family_flash)
                    + enc_vlm_flash_rows(gen, max(args.reps // 2, 5), enc_vlm_flash))
     log(f"time train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} plain: store-fed (batch "

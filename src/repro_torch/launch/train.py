@@ -1,7 +1,7 @@
-"""Training launcher: the dense-attention, audio encoder-decoder and VLM
-families on synthetic tokens (with stub frame or image embeddings where the
-model takes them) or on a compressed store corpus, with optional SZx
-gradient compression, SZx-compressed checkpoints and telemetry.
+"""Training launcher: every family of the configs on synthetic tokens (with
+stub frame or image embeddings where the model takes them) or on a
+compressed store corpus, with optional SZx gradient compression,
+SZx-compressed checkpoints and telemetry.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --reduced --steps 20 --ckpt <dir> --device cpu
@@ -18,8 +18,7 @@ gradient compression, SZx-compressed checkpoints and telemetry.
 
 Without ``--device`` it runs on the card, and fails without one.  The
 gradient compression averages over the process group; launched alone, the
-launcher makes a one-rank group (gloo on the CPU, NCCL on the card).  The
-MoE, SSM and hybrid families raise ``NotImplementedError``.
+launcher makes a one-rank group (gloo on the CPU, NCCL on the card).
 """
 import argparse
 import os

@@ -18,9 +18,7 @@ each decoder layer cross-attends to its output after the mixer) and the VLM
 (internvl2-1b: stub image embeddings through ``frontend_proj``, prepended
 to the tokens).
 
-Training (the dense-attention, audio and VLM families; the MoE, SSM and
-hybrid ones raise ``NotImplementedError`` there, ROADMAP.md queue 1 item 6):
-:func:`loss_fn` runs :func:`forward_train`
+Training (every family): :func:`loss_fn` runs :func:`forward_train`
 (gradients enabled, each layer recomputed in the backward where
 ``cfg.remat`` is set, as the reference's ``jax.checkpoint`` of its scan
 body) and
@@ -349,11 +347,8 @@ def forward(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None):
 def forward_train(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None):
     """:func:`forward` with gradients: -> (hidden (B, S', D), aux_loss),
     each layer of the encoder and the decoder recomputed in the backward
-    where ``cfg.remat`` is set.  The MoE, SSM and hybrid families serve but
-    do not train yet."""
-    if cfg.n_experts or has_ssm(cfg):
-        raise NotImplementedError(f"{cfg.name}: training of the {cfg.family} family is not "
-                                  "ported yet (ROADMAP.md queue 1 item 6)")
+    where ``cfg.remat`` is set.  The MoE's balance loss comes back summed
+    over the layers."""
     h, enc_out = _inputs(params, cfg, tokens, frames, image_embeds, _run_layers_train)
     h, aux = _run_layers_train(params["layers"], h, cfg, causal=True, enc_out=enc_out)
     return L.rms_norm(h, params["final_ln"], cfg.norm_eps), aux

@@ -68,11 +68,35 @@ def _imports(path: Path) -> list[str]:
     return mods
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+
+
 def test_sources_import_nothing_of_the_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + EXAMPLES)
+    assert len(files) > 10 and len(EXAMPLES) == 4
     bad = {str(f.relative_to(ROOT)): m for f in files for m in _imports(f) if _banned(m)}
     assert not bad, bad
+
+
+def test_examples_load_nothing_of_the_reference():
+    """Each examples/*_torch.py imported in a process where JAX cannot load:
+    none of the reference comes in."""
+    code = (
+        "import importlib.util, sys\n"
+        "for name in ('jax', 'jaxlib', 'ml_dtypes'):\n"
+        "    sys.modules[name] = None\n"
+        "for path in sys.argv[1:]:\n"
+        "    spec = importlib.util.spec_from_file_location('example', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None\n"
+        "          and any(m == b or m.startswith(b + '.') for b in %r)]\n"
+        "print(loaded)\n" % (BANNED,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code, *map(str, EXAMPLES)], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert res.stdout.strip() == "[]", res.stdout + res.stderr
 
 
 def test_codec_refuses_to_run_without_a_card(monkeypatch):

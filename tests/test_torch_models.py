@@ -172,14 +172,23 @@ def test_init_params_draws_the_reference_scales():
     assert all(torch.equal(a, b) for a, b in zip(m.parameters(), again.parameters()))
 
 
-@pytest.mark.parametrize("name", ["deepseek-moe-16b", "mamba2-1.3b", "hymba-1.5b"])
-def test_families_of_later_slices_raise(name):
-    """Every family builds and serves; training of the MoE, SSM and hybrid
-    ones is a later slice and raises."""
-    cfg = configs.get(name).reduced()
-    m = T.Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.forward_train(m, cfg, torch.zeros((1, 4), dtype=torch.int64))
+@pytest.mark.parametrize("remat", [False, True], ids=["no_remat", "remat"])
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "arctic-480b", "mamba2-1.3b",
+                                  "hymba-1.5b"])
+def test_families_of_later_slices_raise(name, remat):
+    """The MoE, SSM and hybrid families, whose training once raised here,
+    now train: forward_train, with remat off and on, gives forward's hidden
+    states and aux loss, with a graph (tests/test_torch_families_train.py
+    holds their gradients to the reference's)."""
+    cfg = dataclasses.replace(configs.get(name).reduced(), remat=remat)
+    m = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(_rng(11).integers(0, cfg.vocab_size, (1, 8)))
+    h0, aux0 = T.forward(m, cfg, toks)
+    w = m["final_ln"].detach().requires_grad_()
+    params = dict(T.param_tree(m), final_ln=w)
+    h, aux = T.forward_train(params, cfg, toks)
+    assert h.requires_grad and torch.equal(h.detach(), h0)
+    assert float(torch.as_tensor(aux).detach()) == float(aux0)
 
 
 @pytest.mark.parametrize("name", ["h2o-danube-1.8b", "stablelm-3b", "yi-6b"])
