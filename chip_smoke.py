@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--edge 512] [--reps 50]
                           [--store-kernels | --ingest | --service | --families |
-                           --enc-vlm | --families-train | --examples]
+                           --enc-vlm | --families-train | --examples | --sharding]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It imports nothing of the JAX package.  In order it:
@@ -206,7 +206,29 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      ``train_lm_torch.py``) through their ``main`` on the card at their
      defaults, each checking its own results; launch counters zeroed before
      each and read after: each must launch the kernels its path runs
-     (``--examples`` runs this phase alone).
+     (``--examples`` runs this phase alone);
+ 18. shards training on a device mesh (one-rank NCCL group, one-member
+     meshes): (a) llama3.2-1b at full width and depth, B 4 x S 2048, 3
+     steps of the sharded step on a (1, 1) data x model mesh, its state
+     placed by ``state_specs``, against two runs of the plain step from the
+     same seed (deterministic algorithms on): bit for bit where the plain
+     step repeats itself, else within its run-to-run spread; the flash
+     kernel exactly twice an attention layer a step; (d) that state through
+     ``CheckpointManager.save(mesh=)`` (``compress_tree_sharded`` along
+     'data', SZx rel 1e-6), restored by ``decompress_tree`` and by
+     ``restore(shardings=)`` onto the mesh, every float leaf within its
+     bound and the rest bit for bit, encode and decode_body launches
+     counted; (b) deepseek-moe-16b at full width on 4 layers through the
+     sharded step (fsdp, ``_moe_rule``): 3 steps, losses finite, the
+     experts moved, the peak beside phase 16's; (c) the compressed sharded
+     step at P = 1 on a (1, 1, 1) pod x data x model mesh, the planes
+     kernels on the vector route; (e) with the group destroyed, the dry-run
+     on fake CUDA tensors of deepseek-moe-16b and yi-6b train_4k on (16,
+     16) and llama3.2-1b train_4k on (2, 16, 16) with --grad-compress 1,
+     each record on a line with its wall time, then deepseek-moe-16b's
+     state bytes a card on a (4, 1) mesh from the specs.  Launch counters
+     are zeroed before (a) and read after (c): flash, planes, encode and
+     decode_body must each have run (``--sharding`` runs this phase alone).
 
 Phase 2 also holds the planes kernels against their plain versions on both
 routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
@@ -3808,6 +3830,381 @@ def phase_examples() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: sharding on a device mesh, sharded checkpoints, the dry-run
+# ---------------------------------------------------------------------------
+
+# phase 16's deepseek-moe-16b plain steps, on an H100 80GB HBM3 at 700 W (PERF.md)
+PHASE16_MOE_PEAK_GB = 50.33
+SHARD_CKPT_DIR = CKPT_DIR / "sharded"
+DRYRUN_CELLS = (("deepseek-moe-16b", "train_4k", False, 0),   # (arch, shape, multi_pod, P)
+                ("yi-6b", "train_4k", False, 0),
+                ("llama3.2-1b", "train_4k", True, 1))
+
+
+def one_member_mesh(names):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh("cuda", (1,) * len(names), mesh_dim_names=names)
+
+
+def shard_runs(cfg, opt, ds, mesh, seed: int, *, P: int = 0):
+    """TRAIN_STEPS steps (B 4 x S 2048 from ``ds``) from ``seed``'s state:
+    plain (``mesh`` None) or sharded on ``mesh``.  Returns (state, losses,
+    step seconds)."""
+    import torch
+    from repro_torch.train import step as step_mod
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if mesh is None:
+        state = step_mod.init_state(cfg, opt, gen, device="cuda")
+    else:
+        state = step_mod.init_sharded_state(cfg, opt, gen, mesh, ef_planes=P, device="cuda")
+    fn = step_mod.make_train_step(cfg, opt, mesh=mesh, compress_planes=P)
+    losses, times = [], []
+    for s in range(TRAIN_STEPS):
+        batch = train_batch(ds, s)
+        (state, m), t = timed(lambda: fn(state, batch))
+        losses.append(float(m["loss"]))
+        times.append(t)
+    return state, losses, times
+
+
+def flat_params(state):
+    from repro_torch.core import pytree
+
+    return [p.full_tensor() if hasattr(p, "full_tensor") else p
+            for p in pytree.leaves(state["params"])]
+
+
+def max_diff(a, b) -> float:
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+def sharded_llama(args, opt):
+    """18a: llama3.2-1b through the sharded step on a (1, 1) data x model
+    mesh against two runs of the plain step from the same seed; returns the
+    sharded state (for 18d) and the mesh."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = configs.get(TRAIN_ARCH)
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
+    seed = args.seed + 80
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        state, loss_a, t_a = shard_runs(cfg, opt, ds, None, seed)
+        ref = [p.clone() for p in flat_params(state)]
+        del state
+        torch.cuda.empty_cache()
+        state, loss_b, t_b = shard_runs(cfg, opt, ds, None, seed)
+        spread = max_diff(flat_params(state), ref)
+        loss_spread = max(abs(x - y) for x, y in zip(loss_a, loss_b))
+        del state
+        torch.cuda.empty_cache()
+        mesh = one_member_mesh(("data", "model"))
+        torch.cuda.reset_peak_memory_stats()
+        flash0 = fa.LAUNCHES
+        state, loss_s, t_s = shard_runs(cfg, opt, ds, mesh, seed)
+        flash = fa.LAUNCHES - flash0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = max_diff(flat_params(state), ref)
+    loss_diff = max(abs(x - y) for x, y in zip(loss_s, loss_a))
+    del ref
+    if spread == 0 and loss_spread == 0:
+        verdict = "bit for bit (the plain step repeats itself)"
+        check(diff == 0 and loss_diff == 0,
+              f"18a: the sharded step differs from the plain step by {diff:.3e} "
+              f"(losses {loss_diff:.3e}) where the plain step repeats itself bit for bit")
+    else:
+        verdict = (f"within the plain step's own run-to-run spread (parameters "
+                   f"{spread:.3e}, losses {loss_spread:.3e})")
+        check(diff <= spread and loss_diff <= loss_spread,
+              f"18a: sharded vs plain {diff:.3e} (losses {loss_diff:.3e}) outside the plain "
+              f"step's run-to-run spread {spread:.3e} ({loss_spread:.3e})")
+    check(flash == 2 * cfg.n_layers * TRAIN_STEPS,
+          f"18a: {flash} flash launches in {TRAIN_STEPS} sharded steps (forward + remat)")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"sharding 18a {TRAIN_ARCH} on a (1, 1) data x model mesh, B {TRAIN_BATCH} x S "
+        f"{TRAIN_SEQ}, deterministic algorithms on: sharded steps "
+        + ", ".join(f"{t * 1e3:.1f}" for t in t_s) + " ms; plain run A "
+        + ", ".join(f"{t * 1e3:.1f}" for t in t_a) + " ms, run B "
+        + ", ".join(f"{t * 1e3:.1f}" for t in t_b) + " ms (first step of each warms up; "
+        f"{tokens / (sum(t_s[1:]) / len(t_s[1:])):.0f} tokens/s sharded); losses "
+        + ", ".join(f"{v:.6f}" for v in loss_s) + f"; max |sharded - plain| {diff:.3e}, "
+        f"plain A vs B {spread:.3e}: {verdict}; flash launches {flash}; peak "
+        f"{peak / 1e9:.2f} GB")
+    return state, mesh
+
+
+def sharded_moe(args, opt):
+    """18b: deepseek-moe-16b at full width on MOE_TRAIN_LAYERS layers
+    through the sharded step (its config's fsdp, ``_moe_rule`` on the
+    experts) on a (1, 1) mesh: TRAIN_STEPS steps, losses finite, the
+    experts moved; the peak beside phase 16's."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.train import step as step_mod
+
+    cfg = dataclasses.replace(configs.get(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    check(cfg.fsdp, f"{MOE_TRAIN_ARCH} is configured with fsdp")
+    mesh = one_member_mesh(("data", "model"))
+    specs = mesh_lib.param_specs_tree(cfg, T.param_specs(cfg), mesh)
+    wi = specs["layers"][0]["moe"]["wi"]
+    check(tuple(wi) == ("model", "data", None), f"18b: moe/wi spec {wi}")
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 81)
+    state = step_mod.init_sharded_state(cfg, opt, gen, mesh, device="cuda")
+    w0 = {n: corner(state["params"]["layers"][0]["moe"][n].to_local()) for n in ("wi", "wo")}
+    fn = step_mod.make_train_step(cfg, opt, mesh=mesh)
+    losses, times = [], []
+    for s in range(TRAIN_STEPS):
+        batch = train_batch(ds, s)
+        (state, m), t = timed(lambda: fn(state, batch))
+        losses.append(float(m["loss"]))
+        times.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    moved = {n: float((corner(state["params"]["layers"][0]["moe"][n].to_local()) - w0[n])
+                      .abs().max()) for n in w0}
+    check(all(math.isfinite(v) for v in losses), f"18b: losses {losses}")
+    check(all(v > 0 for v in moved.values()), f"18b: the experts did not move {moved}")
+    log(f"sharding 18b {MOE_TRAIN_ARCH} at full width on {MOE_TRAIN_LAYERS} layers, sharded "
+        f"(fsdp, moe/wi {tuple(wi)}) on a (1, 1) mesh: steps "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms; losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + "; max |d w| "
+        + ", ".join(f"moe/{n} {v:.3e}" for n, v in moved.items())
+        + f"; peak {peak / 1e9:.2f} GB beside phase 16's plain {PHASE16_MOE_PEAK_GB} GB")
+    del state
+    torch.cuda.empty_cache()
+
+
+def sharded_compressed(args, opt):
+    """18c: the compressed sharded step at P = 1 on a (1, 1, 1) pod x data x
+    model mesh for llama3.2-1b: the planes kernels on the vector route, the
+    loss finite."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+
+    cfg = configs.get(TRAIN_ARCH)
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
+    mesh = one_member_mesh(("pod", "data", "model"))
+    routes0, counts0 = ops.planes_route_counts(), ops.launch_counts()
+    state, losses, times = shard_runs(cfg, opt, ds, mesh, args.seed + 82, P=1)
+    counts = {k: v - counts0[k] for k, v in ops.launch_counts().items()}
+    check(all(math.isfinite(v) for v in losses), f"18c: losses {losses}")
+    for k in PLANES_KERNELS:
+        check(counts[k] > 0, f"18c: {k} not launched by the compressed sharded step")
+    check_vector_route("sharding 18c", {k: v - routes0[k]
+                                        for k, v in ops.planes_route_counts().items()})
+    log(f"sharding 18c {TRAIN_ARCH} compressed P = 1 on a (1, 1, 1) pod x data x model mesh: "
+        f"steps " + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms; losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + f"; planes launches "
+        f"{counts['planes_encode']} / {counts['planes_decode']}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def sharded_checkpoint(cfg, state, mesh):
+    """18d: 18a's sharded state (params and AdamW moments) through
+    ``CheckpointManager.save(mesh=)`` (``compress_tree_sharded`` along
+    'data', SZx rel 1e-6), restored by ``decompress_tree`` and by
+    ``restore(shardings=)`` onto the mesh: every float leaf within its
+    bound, the rest bit for bit; the save's and both restores' encode and
+    decode_body launches counted."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import pytree
+    from repro_torch.core.codec import Bound, SZxCodec, plan
+    from repro_torch.core.codec.tree import TreeCodec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import step as step_mod
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    leaves = {n: whole(t) for n, t in pytree.leaf_paths(state)}
+    nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    bounds = {n: plan.resolve_error_bound(t, Bound.rel(1e-6)) for n, t in leaves.items()
+              if t.is_floating_point() and t.numel() >= 1024}
+
+    def held(restored: dict, how: str) -> float:
+        worst = 0.0
+        for n, a in leaves.items():
+            b = whole(restored[n])
+            if n in bounds:
+                err = float((a.float() - b.float()).abs().max())
+                check(err <= bounds[n], f"18d {how}: {n} off by {err:.3e} > {bounds[n]:.3e}")
+                worst = max(worst, err / bounds[n])
+            else:
+                check(same_bits(a, b), f"18d {how}: {n} not restored bit for bit")
+        return worst
+
+    shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+    ck = CheckpointManager(str(SHARD_CKPT_DIR), compress=True, device="cuda")
+    c0 = ops.launch_counts()
+    man, t_save = timed(lambda: ck.save(TRAIN_STEPS, state, mesh=mesh))
+    c1 = ops.launch_counts()
+    with open(SHARD_CKPT_DIR / f"step_{TRAIN_STEPS:09d}" / "tree.szt", "rb") as f:
+        flat, t_flat = timed(lambda: TreeCodec(codec=SZxCodec(device="cuda"))
+                             .decompress_tree(f, select=list(leaves)))
+    w_flat = held(flat, "decompress_tree")
+    del flat
+    torch.cuda.empty_cache()
+    c2 = ops.launch_counts()
+    shardings = pytree.tree_map(lambda spec: mesh_lib.NamedSharding(mesh, spec),
+                                step_mod.state_specs(cfg, state, mesh))
+    (restored, step), t_restore = timed(lambda: ck.restore(state, shardings=shardings))
+    c3 = ops.launch_counts()
+    check(step == TRAIN_STEPS and all(hasattr(t, "placements")
+                                      for t in pytree.leaves(restored)),
+          "18d: restore(shardings=) gave no DTensors")
+    w_sharded = held(dict(pytree.leaf_paths(restored)), "restore(shardings=)")
+    del restored
+    torch.cuda.empty_cache()
+    shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+    launches = {"save": {k: c1[k] - c0[k] for k in ("encode", "decode_body")},
+                "decompress_tree": {k: c2[k] - c1[k] for k in ("encode", "decode_body")},
+                "restore": {k: c3[k] - c2[k] for k in ("encode", "decode_body")}}
+    check(launches["save"]["encode"] > 0 and launches["decompress_tree"]["decode_body"] > 0
+          and launches["restore"]["decode_body"] > 0, f"18d: launches {launches}")
+    log(f"sharding 18d: the {nbytes / 1e9:.2f} GB state of 18a through save(mesh=) along "
+        f"'data' in {t_save:.1f} s ({man['stored_bytes'] / 1e9:.2f} GB stored, "
+        f"{len(man['frames'])} frames), decompress_tree in {t_flat:.1f} s, restore(shardings=) "
+        f"in {t_restore:.1f} s; worst error / bound {w_flat:.3f} and {w_sharded:.3f}; "
+        f"launches {launches}")
+
+
+def dryrun_cells():
+    """18e: the dry-run on fake CUDA tensors for DRYRUN_CELLS (each record a
+    line of its own with its wall time), then deepseek-moe-16b's exact
+    state bytes a card on a (4, 1) mesh from the specs."""
+    import types
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    from repro_torch.roofline import analysis
+    from repro_torch.train import step as step_mod
+
+    for arch, shape, multi_pod, P in DRYRUN_CELLS:
+        rec, t = timed(lambda: dryrun.lower_cell(arch, shape, multi_pod=multi_pod,
+                                                 grad_compress=P))
+        check(rec["status"] == "OK", f"18e: dry-run {arch} {shape}: {rec}")
+        log(f"sharding 18e dry-run {arch} {shape} mesh {rec['mesh']} grad_compress {P}: wall "
+            f"{t:.1f} s; " + json.dumps(rec))
+    cfg = configs.get(MOE_TRAIN_ARCH)
+    pm = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(4, 1))
+    template = step_mod.state_template(cfg)
+    state = analysis.sharded_bytes_per_device(template, step_mod.state_specs(cfg, template, pm),
+                                              pm)
+    grads = analysis.sharded_bytes_per_device(
+        template["params"], mesh_lib.param_specs_tree(cfg, template["params"], pm), pm)
+    total = torch.cuda.mem_get_info()[1]
+    log(f"sharding 18e: {MOE_TRAIN_ARCH} at full depth ({cfg.n_layers} layers) on a (4, 1) "
+        f"data x model mesh with fsdp, from the specs: weights and AdamW moments "
+        f"{state / 1e9:.2f} GB a card, {(state + grads) / 1e9:.2f} GB with the gradients, "
+        f"beside this card's {total / 1e9:.2f} GB")
+
+
+def phase_sharding(args) -> dict:
+    """Phase 18 (``--sharding`` runs it alone): 18a-18d in a one-rank NCCL
+    group on one-member meshes, then (the group destroyed) 18e's dry-run.
+    Launch counters are zeroed before and read after: the flash, planes,
+    encode and decode_body kernels must each have run.  Returns the launch
+    counts."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamW
+
+    opt = AdamW(lr=TRAIN_LR)
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        state, mesh = sharded_llama(args, opt)
+        try:
+            sharded_checkpoint(configs.get(TRAIN_ARCH), state, mesh)
+        finally:
+            import shutil
+
+            shutil.rmtree(SHARD_CKPT_DIR, ignore_errors=True)
+        del state
+        torch.cuda.empty_cache()
+        sharded_moe(args, opt)
+        sharded_compressed(args, opt)
+    finally:
+        dist.destroy_process_group()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    log(f"phase 18 launches: {counts}; planes by route {ops.planes_route_counts()}")
+    for k in ("flash_attention", "encode", "decode_body") + PLANES_KERNELS:
+        check(counts.get(k, 0) > 0, f"kernel {k} was not launched on the sharded path")
+    dryrun_cells()
+    return counts
+
+
+def dispatch_cost(reps: int, rounds: int = 5) -> dict:
+    """``--dispatch``: the cost of the custom operator that every flash and
+    planes call goes through.  Each wrapper call, through its operator,
+    against the operator's body called directly (``_init_fn``: the same
+    checks and launch, no dispatch), ``reps`` calls in a tight loop timed
+    with CUDA events (the card waits on the host for calls this small),
+    ``rounds`` rounds alternating which goes first.  Shapes: a compressed
+    decode step's of llama3.2-1b at B 4 (one position's K of 8 kv heads x
+    hd 64 encoded; a 2048-slot chunk decoded, P = 1), a 128-token flash
+    prefill.  Returns microseconds a call, medians."""
+    import statistics
+
+    import torch
+    from repro_torch.kernels import flash_attention as F, ops, planes
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = torch.randn(4, 8, 64, device="cuda", generator=gen)
+    mu, sexp, pl = planes.planes_encode(torch.randn(4, 2048, 8, 64, device="cuda",
+                                                    generator=gen), 1)
+    sexp = sexp.clamp(-127, 127).to(torch.int8)
+    q = torch.randn(1, 128, 32, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    kv = torch.randn(1, 128, 8, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    calls = {
+        "planes_encode": (lambda: planes.planes_encode(t, 1),
+                          lambda: planes._encode_op._init_fn(t, 1)),
+        "planes_decode": (lambda: planes.planes_decode(mu, sexp, pl),
+                          lambda: planes._decode_op._init_fn(mu, sexp, pl)),
+        "flash_attention": (lambda: F.flash_attention(q, kv, kv, causal=True),
+                            lambda: F._flash_op._init_fn(q, kv, kv, True, 0)),
+    }
+    out = {}
+    for name, (via_op, direct) in calls.items():
+        got = {"operator": [], "direct": []}
+        for r in range(rounds):
+            order = (("operator", via_op), ("direct", direct))
+            for side, fn in (order if r % 2 == 0 else order[::-1]):
+                got[side].append(cuda_ms(fn, reps) * 1e3)
+        op_us, direct_us = (statistics.median(got[k]) for k in ("operator", "direct"))
+        out[name] = {"operator_us": op_us, "direct_us": direct_us,
+                     "rounds": {k: [round(v, 3) for v in vs] for k, vs in got.items()}}
+    ops.reset_launch_counts()
+    return out
+
+
 def store_kernels_only(args) -> int:
     """``--store-kernels``: phase 6's store-kernel rows alone, on phase 5's
     middle chunk (the stage-off store of the same array) and phase 4's first
@@ -3860,6 +4257,13 @@ def main() -> int:
     ap.add_argument("--examples", action="store_true",
                     help="build, run phase 17 alone (the four examples/*_torch.py on the "
                          "card) and stop")
+    ap.add_argument("--dispatch", action="store_true",
+                    help="build, time each flash and planes wrapper call through its custom "
+                         "operator against the operator's body called directly, print the "
+                         "rows as JSON and stop")
+    ap.add_argument("--sharding", action="store_true",
+                    help="build, run phase 18 alone (the sharded training step on one-member "
+                         "meshes, sharded checkpoints, the dry-run) and stop")
     args = ap.parse_args()
 
     import torch
@@ -3896,6 +4300,11 @@ def main() -> int:
 
     if args.store_kernels:
         return store_kernels_only(args)
+    if args.dispatch:
+        log(f"dispatch (us a call, {args.reps * 20} calls a round): "
+            f"{json.dumps(dispatch_cost(args.reps * 20))}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.ingest:
         import shutil
 
@@ -3949,6 +4358,10 @@ def main() -> int:
         return 0
     if args.examples:
         log(f"phase 17 launches: {phase_examples()}")
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.sharding:
+        phase_sharding(args)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -4056,7 +4469,9 @@ def main() -> int:
         example_launches = phase_examples()
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    for counts in (train_launches, example_launches):
+    log(f"phase 18 starts {time.perf_counter() - t_start:.1f} s into the run")
+    sharding_launches = phase_sharding(args)
+    for counts in (train_launches, example_launches, sharding_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     for arch, n in train_flash.items():

@@ -95,8 +95,16 @@ class CheckpointManager:
         return self._codec.device
 
     # ----------------------------------------------------------- save
-    def save(self, step: int, tree) -> dict:
-        """Commit ``tree`` as step ``step``; returns the stream manifest."""
+    def save(self, step: int, tree, *, mesh=None, axis: str = "data") -> dict:
+        """Commit ``tree`` as step ``step``; returns the stream manifest.
+
+        With ``mesh`` every rank of it calls ``save``: each member along
+        ``axis`` compresses its block-aligned range of every large leaf
+        (``TreeCodec.compress_tree_sharded``; leaves may be ``DTensor``s),
+        the rank at coordinate 0 commits the step, and all return after the
+        commit."""
+        if mesh is not None:
+            return self._save_sharded(step, tree, mesh, axis)
         if not self.async_save:
             return self._save_sync(step, tree)
         self.wait()
@@ -124,6 +132,23 @@ class CheckpointManager:
         if self._last_error is not None:
             err, self._last_error = self._last_error, None
             raise err
+
+    def _save_sharded(self, step: int, tree, mesh, axis: str) -> dict:
+        import torch.distributed as dist
+
+        self.wait()
+
+        def encode(f) -> dict:
+            with obs.span("checkpoint.save", step=step):
+                return self._tree_codec.compress_tree_sharded(tree, f, mesh, axis=axis)
+
+        if all(c == 0 for c in mesh.get_coordinate()):
+            manifest = self._commit(step, encode)
+        else:
+            manifest = encode(None)
+        if dist.is_initialized():
+            dist.barrier()
+        return manifest
 
     def _save_sync(self, step: int, tree) -> dict:
         return self._commit(step, lambda f: self._encode(step, tree, f))
@@ -200,9 +225,14 @@ class CheckpointManager:
             manifest = json.load(f)
         return d, manifest
 
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, step: Optional[int] = None, *, shardings=None):
         """Restore into the structure of ``template`` (a tree; only its leaf
-        names are read) -> (tree of tensors on the manager's device, step)."""
+        names are read) -> (tree of tensors on the manager's device, step).
+
+        ``shardings``: a matching tree of ``launch.mesh.NamedSharding`` --
+        each leaf comes back as a ``DTensor`` on that mesh holding only this
+        rank's shard (elastic restore onto any mesh: the file stores whole
+        leaves)."""
         d, manifest = self._step_dir(step)
         by_name = {m["name"]: m for m in manifest["leaves"]}
         names = [name for name, _ in leaf_paths(template)]
@@ -218,7 +248,10 @@ class CheckpointManager:
                 arrays = {n: self._restore_leaf_v1(d, by_name[n]) for n in names}
         if obs.enabled():
             obs.counter("checkpoint.restores").inc()
-        return pytree.unflatten(template, [arrays[n] for n in names]), manifest["step"]
+        out = [arrays.pop(n) for n in names]
+        if shardings is not None:
+            out = [sh.shard(t) for t, sh in zip(out, pytree.leaves(shardings))]
+        return pytree.unflatten(template, out), manifest["step"]
 
     def restore_leaves(self, names: Iterable[str], step: Optional[int] = None
                        ) -> dict[str, torch.Tensor]:

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/configs/base.py``: every assigned architecture is a
 frozen ``ArchConfig`` in its own module under ``repro_torch.configs``;
-``get(name)`` resolves it and ``cfg.reduced()`` gives the CPU-test variant of
-the same family.  The dry-run shape cells (``SHAPES``, ``input_specs``) are
-not carried: they serve the JAX dry-run and need ``jax.ShapeDtypeStruct``.
+``get(name)`` resolves it, ``cfg.reduced()`` gives the CPU-test variant of
+the same family, and ``input_specs(cfg, shape)`` gives the dry-run's inputs
+of a shape cell as tensors on the ``meta`` device (the port's stand-in for
+``jax.ShapeDtypeStruct``: a shape and a dtype, nothing allocated).
 """
 from __future__ import annotations
 
@@ -12,6 +13,13 @@ import importlib
 from dataclasses import dataclass, field, replace
 from typing import Any
 
+# The four assigned input-shape cells (LM-family: seq_len x global_batch).
+SHAPES: dict[str, dict[str, Any]] = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
 
 @dataclass(frozen=True)
 class ArchConfig:
@@ -174,3 +182,40 @@ def get(name: str) -> ArchConfig:
 
 def all_configs() -> dict[str, ArchConfig]:
     return {n: get(n) for n in ARCH_NAMES}
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs (tensors on the meta device -- never allocates)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape_name: str, *, reduced: bool = False,
+                device="meta") -> dict:
+    """Stand-ins for every model input of a shape cell, as empty tensors on
+    ``device`` (``meta``: shape and dtype only).
+
+    kind='train'   -> {tokens, labels [, frames | image_embeds]}
+    kind='prefill' -> {tokens [, frames | image_embeds]}
+    kind='decode'  -> {token} (+ cache specs come from the serve module)
+    """
+    spec = SHAPES[shape_name]
+    s, b = spec["seq_len"], spec["global_batch"]
+    if reduced:
+        s, b = min(s, 64), min(b, 4)
+    kind = spec["kind"]
+    import torch
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    out: dict[str, Any] = {}
+    if kind in ("train", "prefill"):
+        out["tokens"] = empty((b, s), torch.int32)
+        if kind == "train":
+            out["labels"] = empty((b, s), torch.int32)
+    else:
+        out["token"] = empty((b, 1), torch.int32)
+    if cfg.encoder_decoder:
+        out["frames"] = empty((b, cfg.encoder_len, cfg.d_model), torch.float32)
+    if cfg.prefix_embeds:
+        out["image_embeds"] = empty((b, cfg.prefix_embeds, cfg.d_model), torch.float32)
+    return out

@@ -16,16 +16,22 @@ template, or -- with ``select=`` -- reads ONLY the named leaves' byte
 ranges.  Leaves come back as tensors on the codec's device.
 
 The error bound is resolved PER LEAF over the leaf's full value range.
-``compress_tree_sharded`` (one shard per device of a mesh axis) comes with
-the mesh slice.
+:meth:`TreeCodec.compress_tree_sharded` splits each large float leaf into
+the reference's block-aligned flat ranges, one per member of a mesh axis:
+member i encodes its range on its own device, and the payloads are
+gathered to the writer (the rank at mesh coordinate 0), which writes them
+in shard order -- the file is byte-identical to the reference's.  Leaves
+may be ``DTensor``s (the sharded training state), gathered leaf by leaf.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core import pytree
@@ -82,6 +88,22 @@ def as_leaf_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A leaf as one tensor: a ``DTensor`` gathered from its shards (a
+    collective: every rank of its mesh calls it)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+class _Discard:
+    """A file object that keeps nothing: the stream of a rank that does not
+    write it."""
+
+    def write(self, data) -> int:
+        return len(data)
+
+
 def _raw_bytes(t: torch.Tensor) -> bytes:
     return t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
 
@@ -110,13 +132,19 @@ class TreeCodec:
     def _compressible(self, t: torch.Tensor) -> bool:
         return t.dtype in specs.BY_DTYPE and t.numel() >= self.min_compress_elems
 
-    def compress_tree(self, tree, fileobj) -> dict:
+    def compress_tree(self, tree, fileobj, *, _leaf_payloads=None) -> dict:
         """Write ``tree`` as one container-v3 multi-leaf stream; returns the
         stream manifest (the dict stored in the index footer).
 
         Layout: frame 0 is the shared raw pack (every small/integer leaf
         back to back), then each large float leaf's chunk frames in leaf
-        order; the index footer closes the stream."""
+        order; the index footer closes the stream.  ``_leaf_payloads(t)``
+        yields a compressed leaf's (payload, last) pairs (default: its
+        chunks through the codec)."""
+        if _leaf_payloads is None:
+            def _leaf_payloads(t):
+                return self.codec.iter_chunk_payloads(t, self.bound, chunk_bytes=self.chunk_bytes)
+
         leaves = [(name, as_leaf_tensor(leaf)) for name, leaf in leaf_paths(tree)]
         raw_leaves = [(n, t) for n, t in leaves if not self._compressible(t)]
         big_leaves = [(n, t) for n, t in leaves if self._compressible(t)]
@@ -139,7 +167,7 @@ class TreeCodec:
         written = len(header)
         inner = 0
         for name, t in raw_leaves:
-            data = _raw_bytes(t)
+            data = _raw_bytes(_whole(t))
             fileobj.write(data)
             manifest["leaves"].append({
                 "name": name,
@@ -163,8 +191,7 @@ class TreeCodec:
             stored = 0
             final_leaf = li == len(big_leaves) - 1
             with obs.span("tree.leaf_encode", leaf=name, elements=int(t.numel())):
-                for payload, pl_last in self.codec.iter_chunk_payloads(
-                        t, self.bound, chunk_bytes=self.chunk_bytes):
+                for payload, pl_last in _leaf_payloads(t):
                     frame = container.build_frame(payload, seq, last=final_leaf and pl_last,
                                                   stage=self.codec.stage,
                                                   device=self.codec.device)
@@ -187,6 +214,77 @@ class TreeCodec:
         manifest["raw_bytes"] = int(sum(m["raw_bytes"] for m in manifest["leaves"]))
         manifest["stored_bytes"] = written
         fileobj.write(container.build_index_footer(manifest))
+        return manifest
+
+    def _sharded_leaf_payloads(self, t, group, writer: bool) -> Iterator[tuple[bytes, bool]]:
+        """One block-aligned flat range of ``t`` per member of ``group``
+        (``None``: this rank alone), each compressed by its member under
+        the bound resolved over the WHOLE leaf -- a rel bound through a
+        min/max all-reduce of the members' ranges -- so each payload is
+        ``compress(range, e_abs)``, as the reference's.  The writer gets
+        the payloads in range order; the other members yield nothing."""
+        n = dist.get_world_size(group) if group is not None else 1
+        me = dist.get_rank(group) if group is not None else 0
+        flat = _whole(t).reshape(-1)
+        bs = self.codec.block_size
+        blocks_total = max((flat.numel() + bs - 1) // bs, 1)
+        per = -(-blocks_total // n)                 # ceil: block-aligned ranges
+        bounds = [min(i * per * bs, flat.numel()) for i in range(n + 1)]
+        lo, hi = bounds[me], bounds[me + 1]
+        e = self._whole_leaf_bound(flat[lo:hi], group, n)
+        payload = self.codec.compress(flat[lo:hi], e) if hi > lo else None
+        if n > 1:
+            parts = [None] * n if writer else None
+            dist.gather_object(payload, parts, dst=dist.get_global_rank(group, 0), group=group)
+        else:
+            parts = [payload]
+        if not writer:
+            return
+        parts = [p for p in parts if p is not None] or [self.codec.compress(flat, e)]
+        for i, pl in enumerate(parts):
+            yield pl, i == len(parts) - 1
+
+    def _whole_leaf_bound(self, part: torch.Tensor, group, n: int) -> float:
+        """The absolute bound of the leaf whose range ``part`` this member
+        holds: the rel range taken over every member's values."""
+        if self.bound.mode != "rel" or n == 1:
+            return plan_mod.resolve_error_bound(part, self.bound)
+        ext = torch.tensor([-math.inf, -math.inf], dtype=torch.float64, device=part.device)
+        if part.numel():
+            ext = torch.stack([-part.min().to(torch.float64), part.max().to(torch.float64)])
+        dist.all_reduce(ext, op=dist.ReduceOp.MAX, group=group)
+        lo_hi = torch.stack([-ext[0], ext[1]]).to(part.dtype)
+        return plan_mod.resolve_error_bound(lo_hi, self.bound, spec=specs.spec_for(part.dtype))
+
+    def compress_tree_sharded(self, tree, fileobj, mesh, *, axis: str = "data") -> dict:
+        """Sharded :meth:`compress_tree`, run by every rank of ``mesh``: the
+        members along mesh ``axis`` (at coordinate 0 of the other axes)
+        each compress their block-aligned range of every large float leaf
+        on their own device, and the writer -- the rank at coordinate 0 --
+        writes the stream to ``fileobj`` (ignored elsewhere).  Shard
+        payloads land in shard order, so :meth:`decompress_tree` restores
+        them as chunks.  Returns the writer's manifest on every rank."""
+        names = list(mesh.mesh_dim_names)
+        if axis not in names:
+            raise ValueError(f"mesh has no axis {axis!r} (axes: {tuple(names)})")
+        coords = mesh.get_coordinate()
+        ai = names.index(axis)
+        active = all(c == 0 for i, c in enumerate(coords) if i != ai)
+        writer = active and coords[ai] == 0
+        group = mesh.get_group(ai) if mesh.size(ai) > 1 else None
+
+        def payloads(t):
+            if not active:                  # gathers its DTensor leaves, encodes nothing
+                _whole(t)
+                return iter(())
+            return self._sharded_leaf_payloads(t, group, writer)
+
+        manifest = self.compress_tree(tree, fileobj if writer else _Discard(),
+                                      _leaf_payloads=payloads)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            box = [manifest if writer else None]
+            dist.broadcast_object_list(box, src=mesh.mesh.reshape(-1)[0].item())
+            manifest = box[0]
         return manifest
 
     # ----------------------------------------------------------- decompress

@@ -11,7 +11,11 @@ is :func:`repro_torch.kernels.ref.flash_attention_ref`, the online softmax of
 ``repro/models/layers.py::flash_attention``.  The wrapper takes the plain
 version for a CPU tensor only; a CUDA tensor launches the kernel or raises.
 The kernel is held to the plain version to a tolerance (its sums run in
-another order), not bit for bit.
+another order), not bit for bit.  The launch is the custom operator
+``repro_torch::flash_attention_fwd``, which every CUDA tensor goes through:
+its fake implementation gives the output's shape only, so a fake tensor
+(the dry-run's) reaches no launch.  Its flops are registered with
+``torch.utils.flop_counter``.
 
 Training differentiates through :class:`FlashAttention`, whose forward is
 :func:`flash_attention` and whose backward, :func:`flash_attention_bwd`,
@@ -28,6 +32,7 @@ import math
 import threading
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build, ref
 
@@ -85,6 +90,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Sq, Hq, hd) in q.dtype."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":             # the operator's fake would take a meta tensor
+        raise ValueError(f"flash_attention: q on {q.device}; the kernel takes CUDA tensors")
+    return _flash_op(q, k, v, bool(causal), int(window))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: int) -> torch.Tensor:
+    """The kernel's launch as an operator: a fake tensor (the dry-run's)
+    takes :func:`_flash_shape` and launches nothing."""
     _check(q, k, v)
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -99,6 +115,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention kernel launch failed (CUDA error {rc})")
     _count_launch()
     return out
+
+
+@_flash_op.register_fake
+def _flash_shape(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave, for queries at positions 0 ..
+    sq-1 over keys at 0 .. skv-1."""
+    total = 0
+    for i in range(sq):
+        hi = min(skv, i + 1) if causal else skv
+        lo = max(0, i - window + 1) if window else 0
+        total += max(hi - lo, 0)
+    return total
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None, **kwargs):
+    """2 flops a multiply-add of q k^T and of p v, over the visible pairs."""
+    b, sq, hq, hd = q_shape
+    return 4 * b * hq * hd * visible_pairs(sq, k_shape[1], causal, window)
 
 
 NEG_INF = -1e30       # the reference's mask value; s <= NEG_INF / 2 gives p = 0

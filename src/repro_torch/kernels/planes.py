@@ -16,7 +16,10 @@ block of 4 or more values, float32 data on 16 bytes, planes on min(bs, 16)
 bytes) and the scalar route for every other shape.  A failed launch raises
 on either; nothing falls back to the other route.  The decode reads ``sexp``
 as int8, int16 or int32, the widths the KV cache, the gradient wire and the
-encode store it at.
+encode store it at.  Each launch is a custom operator
+(``repro_torch::planes_encode``, ``::planes_decode``) whose fake
+implementation gives the outputs' shapes only; every CUDA tensor goes
+through it, so a fake tensor (the dry-run's) reaches no launch.
 """
 from __future__ import annotations
 
@@ -115,6 +118,12 @@ def planes_encode(xb: torch.Tensor, num_planes: int):
     if xb.device.type == "cpu":
         return planes_encode_plain(xb, num_planes)
     _check("planes_encode", xb, torch.float32)
+    return _encode_op(xb, num_planes)
+
+
+@torch.library.custom_op("repro_torch::planes_encode", mutates_args=(), device_types="cuda")
+def _encode_op(xb: torch.Tensor, num_planes: int) -> tuple[torch.Tensor, torch.Tensor,
+                                                           torch.Tensor]:
     lead, bs = tuple(xb.shape[:-1]), xb.shape[-1]
     x2 = _blocks(xb)
     nb = x2.shape[0]
@@ -133,6 +142,13 @@ def planes_encode(xb: torch.Tensor, num_planes: int):
             planes.reshape((num_planes,) + lead + (bs,)))
 
 
+@_encode_op.register_fake
+def _encode_shape(xb, num_planes):
+    lead = tuple(xb.shape[:-1])
+    return (xb.new_empty(lead, dtype=torch.float32), xb.new_empty(lead, dtype=torch.int32),
+            xb.new_empty((num_planes,) + tuple(xb.shape), dtype=torch.uint8))
+
+
 def planes_decode(mu: torch.Tensor, sexp: torch.Tensor, planes: torch.Tensor):
     """Inverse of :func:`planes_encode` -> (..., bs) float32; sexp int8,
     int16 or int32, read at its width."""
@@ -146,6 +162,12 @@ def planes_decode(mu: torch.Tensor, sexp: torch.Tensor, planes: torch.Tensor):
     if sexp.dtype not in SEXP_DTYPES:
         raise ValueError(f"planes_decode: sexp must be int8, int16 or int32, got {sexp.dtype}")
     _check("planes_decode", sexp, sexp.dtype)
+    return _decode_op(mu, sexp, planes)
+
+
+@torch.library.custom_op("repro_torch::planes_decode", mutates_args=(), device_types="cuda")
+def _decode_op(mu: torch.Tensor, sexp: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    num_planes = planes.shape[0]
     lead, bs = tuple(planes.shape[1:-1]), planes.shape[-1]
     p2 = _plane_blocks(planes)
     nb = p2.shape[1]
@@ -163,3 +185,8 @@ def planes_decode(mu: torch.Tensor, sexp: torch.Tensor, planes: torch.Tensor):
                 bs, num_planes, tab.data_ptr(), out.data_ptr())
         _count_launch("decode", which)
     return out.reshape(lead + (bs,))
+
+
+@_decode_op.register_fake
+def _decode_shape(mu, sexp, planes):
+    return planes.new_empty(tuple(planes.shape[1:]), dtype=torch.float32)

@@ -26,6 +26,7 @@ import math
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models import sharding as S
 
 
 @contextlib.contextmanager
@@ -204,9 +205,10 @@ def moe_ffn(p, x, cfg):
     y = y.reshape(b, s, d)
     if "shared_wi" in p:
         y = y + swiglu_mlp({"wi": p["shared_wi"], "wo": p["shared_wo"]}, x)
-    # Switch-style load-balance aux loss
-    me = probs.mean(dim=(0, 1))
-    ce = routed.to(torch.float32).mean(dim=(0, 1))
+    # Switch-style load-balance aux loss, over the whole batch where a
+    # sharded step splits it
+    me = S.batch_mean(probs, (0, 1))
+    ce = S.batch_mean(routed.to(torch.float32), (0, 1))
     return y, e_ * torch.sum(me * ce)
 
 

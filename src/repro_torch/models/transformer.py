@@ -159,18 +159,34 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None) -> Tra
     jax.random's."""
     model = Transformer(cfg, device=device)
     for name, w in model.named_parameters():
-        x = torch.empty(w.shape, dtype=torch.float32, device=w.device)
-        if name.endswith(".dt_bias"):
-            x.zero_()
-        elif name.endswith(".A_log"):
-            x.uniform_(1.0, 16.0, generator=generator).log_()
-        elif w.dim() == 1:
-            x.fill_(1.0)
-        else:
-            fan_in = cfg.d_model if name == "embed" else w.shape[-2]
-            x.normal_(generator=generator).mul_(fan_in ** -0.5)
-        w.copy_(x)
+        w.copy_(_draw(cfg, name, w.shape, generator, w.device))
     return model
+
+
+def _draw(cfg: ArchConfig, name: str, shape, generator: torch.Generator, device) -> torch.Tensor:
+    """One parameter's float32 values as :func:`init_params` draws them."""
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    if name.endswith(".dt_bias"):
+        x.zero_()
+    elif name.endswith(".A_log"):
+        x.uniform_(1.0, 16.0, generator=generator).log_()
+    elif len(shape) == 1:
+        x.fill_(1.0)
+    else:
+        fan_in = cfg.d_model if name == "embed" else shape[-2]
+        x.normal_(generator=generator).mul_(fan_in ** -0.5)
+    return x
+
+
+@torch.no_grad()
+def init_leaves(cfg: ArchConfig, generator: torch.Generator, device=None):
+    """(key path, tensor) of each parameter in :func:`init_params`' order
+    and with its values, one leaf alive at a time: the sharded training
+    state keeps a shard of each and drops the rest."""
+    device = resolve_device(device, "init_leaves")
+    dt = param_dtype(cfg)
+    for name, w in Transformer(cfg, device="meta").named_parameters():
+        yield tuple(name.split(".")), _draw(cfg, name, w.shape, generator, device).to(dt)
 
 
 @torch.no_grad()
@@ -220,6 +236,13 @@ def param_tree(model: Transformer) -> dict:
         return out
 
     return node(model)
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    """The parameter tree (:func:`param_tree`'s layout) as tensors on the
+    ``meta`` device: shapes and dtypes, nothing allocated and nothing
+    drawn -- the reference's ``jax.eval_shape`` of ``init_params``."""
+    return param_tree(Transformer(cfg, device="meta"))
 
 
 # ---------------------------------------------------------------------------

@@ -39,13 +39,14 @@ class AdamW(NamedTuple):
                           m=tree_map(zeros, params), v=tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, *, norm_fn=None):
         """One step: -> (params, state, {"grad_norm", "lr"}), the trees updated
-        in place."""
+        in place.  ``norm_fn`` (default :func:`global_norm`) takes the list
+        of float32 gradients; a sharded step passes its own."""
         g32 = [g.to(torch.float32) for g in leaves(grads)]
         scale = None
         if self.clip_norm:
-            gn = global_norm(g32)
+            gn = (norm_fn or global_norm)(g32)
             scale = torch.clamp(self.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
         else:
             gn = torch.zeros((), dtype=torch.float32, device=state.step.device)

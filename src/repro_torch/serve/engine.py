@@ -38,9 +38,20 @@ from repro_torch.core.codec.device import DeviceEncoding, resolve_device
 from repro_torch.core.codec.planes_codec import PlanesCodec
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.sharding import rules_active
 
 NEG_INF = -1e30
 DECODE_CHUNK = 2048
+
+
+def _reduce_scores(s):
+    """The reference's cast of the decode scores through bf16 under a
+    sharding-rules context (there it halves the wire bytes of the
+    cross-shard sum of head_dim-partial scores); outside one, ``s`` as it
+    is."""
+    if not rules_active():
+        return s
+    return s.to(torch.bfloat16).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +119,15 @@ def make_cache(cfg: ArchConfig, batch: int, seq_len: int, *, kv_mode: str = "den
     return cache
 
 
+def cache_specs(cfg: ArchConfig, batch: int, seq_len: int, **kw) -> dict:
+    """:func:`make_cache`'s tree on the ``meta`` device (nothing
+    allocated), with ``pos`` a 0-d int32 tensor as in the reference's
+    ``jax.eval_shape`` of its ``make_cache``."""
+    cache = make_cache(cfg, batch, seq_len, device="meta", **kw)
+    cache["pos"] = torch.empty((), dtype=torch.int32, device="meta")
+    return cache
+
+
 def cache_nbytes(cache: dict) -> int:
     """Bytes of the cache's slabs: the layers' K/V, SSM state and conv, and
     the cross-attention's K/V."""
@@ -161,7 +181,7 @@ def _slab_attend(q, kslab, vslab, slot_pos, qpos: int, *, window: int):
     hkv = kslab.shape[2]
     qg = q.reshape(b, hkv, hq // hkv, hd).to(torch.float32)
     s = torch.einsum("bhgd,bkhd->bhgk", qg, kslab.to(torch.float32)) / math.sqrt(hd)
-    s = _mask(s, slot_pos, qpos, window)
+    s = _mask(_reduce_scores(s), slot_pos, qpos, window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s > NEG_INF / 2, torch.exp(s - m), 0.0)
     out = torch.einsum("bhgk,bkhd->bhgd", p, vslab.to(torch.float32))
@@ -186,7 +206,7 @@ def _chunked_slab_attend(q, chunks, qpos: int, *, window: int):
         hkv = kc.shape[2]
         qg = q.reshape(b, hkv, hq // hkv, hd).to(torch.float32)
         s = torch.einsum("bhgd,bkhd->bhgk", qg, kc.to(torch.float32)) / math.sqrt(hd)
-        s = _mask(s, sp, qpos, window)
+        s = _mask(_reduce_scores(s), sp, qpos, window)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.where(s > NEG_INF / 2, torch.exp(s - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)

@@ -14,18 +14,40 @@ The state is ``{"params", "opt", "ef"}``: ``params`` the model's nested dict
 ``AdamWState`` and, for the compressed step, ``ef`` bf16 ``(2,) + shape``
 per parameter as in the reference, whose ``ef`` is split over a pod axis of
 2: row r is member r's residual.  The step updates the state in place and
-returns it.  ``state_specs`` (shardings) comes with the mesh slice.
+returns it.
+
+Sharded (``make_train_step(cfg, opt, mesh=...)`` over a ``DeviceMesh``):
+the state's leaves are ``DTensor``s placed by :func:`state_specs`
+(:func:`init_sharded_state` draws the same values as :func:`init_state`
+and keeps each rank's shards).  The step gathers each parameter where the
+model reads it, inside the layer, so that a recomputed layer (remat)
+gathers it again in the backward: :class:`_Gather`'s forward all-gathers
+the leaf over the mesh dims it is sharded on, its backward reduces the
+gradient to the leaf's placement -- over the data-parallel axes a
+reduce-scatter where the leaf is sharded on them and an all-reduce where
+it is not, along ``model`` a local slice -- and averages over the
+data-parallel size.  The batch is split over ``dp_axes``; compute along
+``model`` is redundant, the math of the reference's fully-manual fallback
+(``repro/train/step.py``: "the 'model' axis computes redundantly (params
+replicated)").  AdamW updates the local shards; its clip norm sums each
+gradient's squares in the unsharded order (the leaf gathered over
+``model``, then summed over the data-parallel axes it is sharded on).
+With ``compress_planes`` the step is the reference's ``per_pod``: a
+full-precision mean over ``data``, then ``compressed_psum_mean`` over the
+``pod`` axis's group with ``ef``'s local row as this pod's residual.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import grad_compress
-from repro_torch.core.pytree import leaves, tree_map, unflatten
-from repro_torch.models import layers as L, transformer as T
-from repro_torch.optim.adamw import AdamW
+from repro_torch.core.pytree import key_paths, leaves, tree_map, unflatten
+from repro_torch.models import layers as L, sharding, transformer as T
+from repro_torch.optim.adamw import AdamW, AdamWState
 
 EF_PODS = 2        # the reference's production mesh has 2 pods
 
@@ -53,11 +75,18 @@ def value_and_grad(cfg: ArchConfig, params, batch):
     return loss.detach(), unflatten(params, list(grads))
 
 
-def make_train_step(cfg: ArchConfig, opt: AdamW, *, group=None, compress_planes: int = 0):
+def make_train_step(cfg: ArchConfig, opt: AdamW, *, mesh=None, group=None,
+                    compress_planes: int = 0, batch_axes=None):
     """-> ``train_step(state, batch) -> (state, metrics)``; ``batch`` holds
     ``tokens`` and ``labels`` tensors on the parameters' device.  With
     ``compress_planes`` the gradient is averaged over ``group`` (default:
-    the whole world) through the compressed all-gather."""
+    the whole world) through the compressed all-gather.  With ``mesh`` the
+    step is the sharded one (module docstring): the state is sharded over
+    ``mesh`` and ``batch`` is the global batch, whose rows each rank
+    splits off for itself, over ``batch_axes`` (default ``dp_axes(mesh)``;
+    every mesh axis for the pure data-parallel profile)."""
+    if mesh is not None:
+        return _make_sharded_step(cfg, opt, mesh, compress_planes, batch_axes)
 
     if not compress_planes:
         def train_step(state, batch):
@@ -87,5 +116,286 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, *, group=None, compress_planes:
         del resid
         params, opt_state, metrics = opt.update(mean, state["opt"], state["params"])
         return ({"params": params, "opt": opt_state, "ef": ef}, {"loss": loss, **metrics})
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# the sharded step
+# ---------------------------------------------------------------------------
+
+def state_specs(cfg: ArchConfig, state_tree, mesh):
+    """Spec tree of a train state: ``opt.m``/``opt.v`` share the params'
+    specs, ``step`` is replicated and ``ef`` is split over ``pod``."""
+    from repro_torch.launch.mesh import P, param_specs_tree
+
+    pspecs = param_specs_tree(cfg, state_tree["params"], mesh)
+    out = {
+        "params": pspecs,
+        "opt": type(state_tree["opt"])(
+            step=P(),
+            m=param_specs_tree(cfg, state_tree["opt"].m, mesh),
+            v=param_specs_tree(cfg, state_tree["opt"].v, mesh),
+        ),
+    }
+    if "ef" in state_tree:
+        out["ef"] = tree_map(lambda s: P("pod", *s), pspecs)
+    return out
+
+
+def state_template(cfg: ArchConfig, *, ef_planes: int = 0) -> dict:
+    """The train state's tree on the ``meta`` device (nothing allocated)."""
+    params = T.param_specs(cfg)
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")  # noqa: E731
+    zeros = lambda p: meta(p.shape, torch.float32)  # noqa: E731
+    state = {"params": params, "opt": AdamWState(step=meta((), torch.int32),
+                                                 m=tree_map(zeros, params),
+                                                 v=tree_map(zeros, params))}
+    if ef_planes:
+        state["ef"] = tree_map(lambda p: meta((EF_PODS,) + tuple(p.shape), torch.bfloat16),
+                               params)
+    return state
+
+
+def sharded(local: torch.Tensor, spec, shape, mesh):
+    """A ``DTensor`` of global ``shape`` whose shard on this rank is
+    ``local``, placed by ``spec``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import _contiguous_stride, placements
+
+    return DTensor.from_local(local, mesh, placements(spec, mesh), run_check=False,
+                              shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
+def init_sharded_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator, mesh, *,
+                       ef_planes: int = 0, device=None) -> dict:
+    """:func:`init_state`'s values (the same draws from ``generator``) as
+    ``DTensor``s placed by :func:`state_specs` on ``mesh``: each parameter
+    is drawn whole, its shard kept and the rest dropped, so a rank holds
+    one whole leaf at most beside its shards."""
+    from repro_torch.launch.mesh import local_index, local_shape
+
+    specs = state_specs(cfg, state_template(cfg, ef_planes=ef_planes), mesh)
+    spec_at = dict(key_paths(specs["params"]))
+    coords = mesh.get_coordinate()
+    drawn = {}
+    for path, full in T.init_leaves(cfg, generator, device=device):
+        part = full[local_index(spec_at[path], full.shape, mesh, coords)]
+        drawn[path] = sharded(part if part.numel() == full.numel() else part.clone(),
+                              spec_at[path], full.shape, mesh)
+        del full
+    template = T.param_specs(cfg)
+    params = unflatten(template, [drawn[path] for path, _ in key_paths(template)])
+
+    def zeros(p, spec, lead=(), dtype=torch.float32):
+        shape = lead + tuple(p.shape)
+        local = torch.zeros(local_shape(spec, shape, mesh, coords), dtype=dtype,
+                            device=p.to_local().device)
+        return sharded(local, spec, shape, mesh)
+
+    dev = leaves(params)[0].to_local().device
+    state = {"params": params,
+             "opt": AdamWState(
+                 step=sharded(torch.zeros((), dtype=torch.int32, device=dev),
+                              specs["opt"].step, (), mesh),
+                 m=tree_map(zeros, params, specs["opt"].m),
+                 v=tree_map(zeros, params, specs["opt"].v))}
+    if ef_planes:
+        state["ef"] = tree_map(lambda p, s: zeros(p, s, (EF_PODS,), torch.bfloat16),
+                               params, specs["ef"])
+    return state
+
+
+class _Layout:
+    """Where a leaf's shards lie: ``shards`` is (mesh dim, tensor dim) for
+    each mesh dim the leaf is sharded on, in mesh order; ``reduce`` the mesh
+    dims its gradient is summed over."""
+
+    def __init__(self, placements, mesh, reduce_dims):
+        self.mesh = mesh
+        self.shards = [(i, p.dim) for i, p in enumerate(placements) if p.is_shard()]
+        self.reduce = reduce_dims
+        self.coords = mesh.get_coordinate()
+
+    def group(self, i):
+        return self.mesh.get_group(i)
+
+    def size(self, i) -> int:
+        return self.mesh.size(i)
+
+
+def _all_gather_dim(x: torch.Tensor, group, n: int, d: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=d)
+
+
+def _gather_full(x: torch.Tensor, layout: _Layout, dims=None) -> torch.Tensor:
+    """The leaf over the mesh dims it is sharded on (``dims``: only those),
+    minor mesh dims first so that each concatenation is of whole chunks."""
+    for i, d in reversed(layout.shards):
+        if (dims is None or i in dims) and layout.size(i) > 1:
+            x = _all_gather_dim(x, layout.group(i), layout.size(i), d)
+    return x
+
+
+def _chunk(x: torch.Tensor, n: int, d: int, k: int) -> torch.Tensor:
+    return x.narrow(d, k * (x.shape[d] // n), x.shape[d] // n)
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: the whole parameter from this rank's shard.  Backward: the
+    gradient reduced to the shard (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, local, layout: _Layout):
+        ctx.layout = layout
+        return _gather_full(local, layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        lay = ctx.layout
+        shard_dim = dict(lay.shards)
+        n_reduce = 1
+        for i in range(len(lay.coords)):
+            n = lay.size(i)
+            d = shard_dim.get(i)
+            if i in lay.reduce:
+                n_reduce *= n
+                if n == 1:
+                    continue
+                if d is None:
+                    g = sharding.all_reduce_sum(g.contiguous(), [lay.group(i)])
+                else:
+                    parts = [c.contiguous() for c in torch.chunk(g, n, dim=d)]
+                    out = torch.empty_like(parts[0])
+                    dist.reduce_scatter(out, parts, group=lay.group(i))
+                    g = out
+            elif d is not None and n > 1:
+                g = _chunk(g, n, d, lay.coords[i])
+        if n_reduce > 1:
+            g = g / n_reduce
+        return g.contiguous(), None
+
+
+class _Gathering(dict):
+    """A node of the parameter tree whose tensors are gathered where they
+    are read (``node["wq"]``)."""
+
+    def __getitem__(self, key):
+        v = dict.__getitem__(self, key)
+        if isinstance(v, tuple):
+            return _Gather.apply(*v)
+        return v
+
+
+def _gathering(tree):
+    """A tree of (shard, layout) leaves as :class:`_Gathering` nodes."""
+    if isinstance(tree, dict):
+        return _Gathering({k: _gathering(v) for k, v in tree.items()})
+    if isinstance(tree, list):
+        return [_gathering(v) for v in tree]
+    return tree
+
+
+def _dp_index(mesh, axes) -> tuple[int, int]:
+    """(index of this rank's batch shard, number of shards) over ``axes``."""
+    names = list(mesh.mesh_dim_names)
+    coords = mesh.get_coordinate()
+    idx, n = 0, 1
+    for a in axes:
+        i = names.index(a)
+        idx = idx * mesh.size(i) + coords[i]
+        n *= mesh.size(i)
+    return idx, n
+
+
+def _split_rows(batch: dict, idx: int, n: int) -> dict:
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not split over {n} ranks")
+        rows = v.shape[0] // n
+        out[k] = v.narrow(0, idx * rows, rows)
+    return out
+
+
+def _sharded_norm(grads, layouts) -> torch.Tensor:
+    """AdamW's global norm of sharded gradients, each leaf's sum of squares
+    taken over the leaf gathered along its non-reduced mesh dims (the
+    unsharded order), then summed over the reduced dims it is sharded on."""
+    total = None
+    for g, lay in zip(grads, layouts):
+        model_dims = {i for i, _ in lay.shards if i not in lay.reduce}
+        s = torch.sum(torch.square(_gather_full(g, lay, model_dims)))
+        dims = [i for i, _ in lay.shards if i in lay.reduce and lay.size(i) > 1]
+        if dims:
+            s = sharding.all_reduce_sum(s, [lay.group(i) for i in dims])
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
+                       batch_axes=None):
+    from repro_torch.launch.mesh import dp_axes
+
+    names = list(mesh.mesh_dim_names)
+    dp = tuple(batch_axes) if batch_axes is not None else dp_axes(mesh)
+    if compress_planes and "pod" not in names:
+        raise ValueError(f"the compressed sharded step needs a 'pod' axis; the mesh has "
+                         f"{tuple(names)}")
+    if compress_planes and mesh.size(names.index("pod")) > EF_PODS:
+        raise ValueError(f"error feedback has {EF_PODS} rows for a pod axis of "
+                         f"{mesh.size(names.index('pod'))}")
+    # the full-precision mean runs over these axes; with compression 'pod'
+    # is left to compressed_psum_mean
+    mean_axes = tuple(a for a in dp if not (compress_planes and a == "pod"))
+    reduce_dims = {names.index(a) for a in mean_axes}
+
+    def train_step(state, batch):
+        from torch.distributed.tensor import DTensor
+
+        shard_idx, n_shards = _dp_index(mesh, dp)
+        local = _split_rows({k: v.to_local() if isinstance(v, DTensor) else v
+                             for k, v in batch.items()}, shard_idx, n_shards)
+        plist = leaves(state["params"])
+        layouts = [_Layout(p.placements, mesh, reduce_dims) for p in plist]
+        xs = [p.to_local().detach().requires_grad_() for p in plist]
+        tree = _gathering(unflatten(state["params"], list(zip(xs, layouts))))
+        groups = [mesh.get_group(names.index(a)) for a in mean_axes]
+        n_mean = math.prod(mesh.size(names.index(a)) for a in mean_axes)
+        with L.exact_matmuls(), torch.enable_grad(), \
+                sharding.split_batch(groups, n_mean):
+            loss = T.loss_fn(tree, cfg, local)
+            grads = list(torch.autograd.grad(loss, xs))
+        del tree, xs
+        loss = loss.detach()
+        if n_mean > 1:
+            loss = sharding.all_reduce_sum(loss, groups) / n_mean
+        out = {}
+        if compress_planes:
+            pod = mesh.get_group(names.index("pod"))
+            n_pod = dist.get_world_size(pod)
+            ef = [e.to_local() for e in leaves(state["ef"])]
+            g_eff = [g.to(torch.float32) + e[0].to(torch.float32) for g, e in zip(grads, ef)]
+            del grads
+            grads, resid = grad_compress.compressed_psum_mean(g_eff, pod,
+                                                              num_planes=compress_planes)
+            del g_eff
+            for e, r in zip(ef, resid):
+                e[0].copy_(r.to(torch.bfloat16))
+            del resid
+            if n_pod > 1:
+                loss = sharding.all_reduce_sum(loss, [pod]) / n_pod
+            out["ef"] = state["ef"]
+        params = [p.to_local() for p in plist]
+        ost = state["opt"]
+        opt_local = AdamWState(step=ost.step.to_local(),
+                               m=[m.to_local() for m in leaves(ost.m)],
+                               v=[v.to_local() for v in leaves(ost.v)])
+        _, _, metrics = opt.update(grads, opt_local, params,
+                                   norm_fn=lambda g32: _sharded_norm(g32, layouts))
+        return ({"params": state["params"], "opt": ost, **out}, {"loss": loss, **metrics})
 
     return train_step

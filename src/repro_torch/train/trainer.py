@@ -8,6 +8,9 @@ Counterpart of ``repro/train/trainer.py``:
     pipeline is deterministic), at most ``max_restarts`` times;
   * stragglers: steps slower than ``straggler_factor`` x the trailing
     median are recorded;
+  * elastic restore: checkpoints hold whole leaves, so a run can resume
+    on another mesh or card count -- ``CheckpointManager.restore(...,
+    shardings=)`` gives each rank its shard of every leaf;
   * the loss / grad-norm history.
 A step ends when its loss is on the host (a synchronize of the loss's
 device, made with telemetry on or off); with telemetry on, the

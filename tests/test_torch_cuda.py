@@ -1055,3 +1055,98 @@ def test_families_gradients_on_card_match_cpu(card, name, remat):
     for (leaf, a), b in zip(pytree.leaf_paths(grads), pytree.leaves(kgrads)):
         assert b.device.type == "cuda", leaf
         assert (b.cpu() - a).abs().max() <= 1e-4 * a.abs().max(), leaf
+
+
+SHARDED_WORKER = r"""
+import sys
+from datetime import timedelta
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch import configs
+from repro_torch.core import pytree
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.optim import AdamW
+from repro_torch.train import step as S
+
+rank, n, backend, store, dest = sys.argv[1:6]
+rank, n = int(rank), int(n)
+dev = torch.device("cuda", rank) if backend == "nccl" else torch.device("cpu")
+if backend == "nccl":
+    torch.cuda.set_device(dev)
+    torch.use_deterministic_algorithms(True)
+dist.init_process_group(backend, store=dist.FileStore(store, n), rank=rank, world_size=n,
+                        timeout=timedelta(seconds=120))
+cfg = configs.get("llama3.2-1b").reduced()
+opt = AdamW(lr=1e-3, weight_decay=0.0)
+ds = SyntheticLM(DataConfig(cfg.vocab_size, 32, 2 * n, seed=3))
+batches = [{k: torch.as_tensor(v).to(dev) for k, v in ds.batch_at(i).items()} for i in range(3)]
+out = {}
+state = S.init_state(cfg, opt, torch.Generator(device=dev).manual_seed(7), device=dev)
+fn = S.make_train_step(cfg, opt)
+for i, b in enumerate(batches):
+    state, m = fn(state, b)
+    out[f"plain/loss{i}"] = m["loss"]
+out["plain/params"] = torch.cat([p.reshape(-1) for p in pytree.leaves(state["params"])])
+for shape in ((1, n), (n, 1)):
+    mesh = init_device_mesh(dev.type, shape, mesh_dim_names=("data", "model"))
+    state = S.init_sharded_state(cfg, opt, torch.Generator(device=dev).manual_seed(7), mesh,
+                                 device=dev)
+    fn = S.make_train_step(cfg, opt, mesh=mesh)
+    tag = "x".join(map(str, shape))
+    for i, b in enumerate(batches):
+        state, m = fn(state, b)
+        out[f"{tag}/loss{i}"] = m["loss"]
+    out[f"{tag}/params"] = torch.cat([p.full_tensor().reshape(-1)
+                                      for p in pytree.leaves(state["params"])])
+np.savez(dest, **{k: v.detach().cpu().numpy() for k, v in out.items()})
+dist.destroy_process_group()
+print("WORKER-OK")
+"""
+
+
+def test_sharded_step_across_cards_matches_gloo(card, tmp_path):
+    """With two or more cards: the sharded step on NCCL, one rank per card
+    (deterministic algorithms on), keeps what the same code keeps on gloo
+    on the CPU (tests/test_torch_sharded_step.py): on a 'model'-only mesh it
+    is bit-identical to the plain step on the same card, and over 'data' it
+    stays within that file's tolerance of it.  The card's and the CPU's
+    arithmetic differ in their last bits, so the gloo ranks' parameters are
+    held to the card's as tests/test_torch_families_train.py holds the
+    port's to the reference's (max 1e-3, 99 % within 1e-5)."""
+    import os
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    env = dict(os.environ, PYTHONPATH=str(__import__("pathlib").Path(__file__).parents[1] / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARDED_WORKER, str(r), str(n), backend,
+         str(tmp_path / f"store-{backend}"), str(tmp_path / f"{backend}{r}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for backend in ("nccl", "gloo") for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for log in logs:
+        assert "WORKER-OK" in log, log[-3000:]
+    atol = 1.1e-5                    # tests/test_torch_sharded_step.py's PARAM_ATOL
+    for r in range(n):
+        for backend in ("nccl", "gloo"):
+            got = np.load(tmp_path / f"{backend}{r}.npz")
+            tag = f"1x{n}"
+            assert np.array_equal(got[f"{tag}/params"].view(np.int32),
+                                  got["plain/params"].view(np.int32)), (backend, r)
+            for i in range(3):
+                assert got[f"{tag}/loss{i}"] == got[f"plain/loss{i}"]
+            np.testing.assert_allclose(got[f"{n}x1/params"], got["plain/params"], rtol=0, atol=atol)
+        nccl, gloo = np.load(tmp_path / f"nccl{r}.npz"), np.load(tmp_path / f"gloo{r}.npz")
+        d = np.abs(nccl[f"{n}x1/params"] - gloo[f"{n}x1/params"])
+        assert d.max() <= 1e-3 and (d <= 1e-5).mean() >= 0.99, (d.max(), (d <= 1e-5).mean())

@@ -1,0 +1,151 @@
+"""repro_torch's dry-run: rank 0's sharded step on fake tensors over a fake
+process group, and the serving cells' ideal bytes.
+
+``launch/dryrun.py::lower_cell`` runs a reduced dense, MoE and SSM train
+cell on a fake (2, 2) mesh here: it must complete without launching a
+kernel and without a real collective, and its argument bytes must be the
+spec arithmetic (rank 0's shard of every state leaf plus its batch rows).
+A decode cell is a SKIP whose ``ideal_bytes_per_device`` is the
+reference's arithmetic over its specs (``repro/launch/dryrun.py:199-204``)
+on the production mesh.  On this CPU-only build the fake tensors are CPU
+tensors (autograd on fake CUDA tensors needs a CUDA build); on the card the
+dry-run's default is ``--device cuda``.
+"""
+import json
+import math
+import types
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro import configs as rconfigs
+from repro.launch import mesh as rmesh
+from repro.models import transformer as RT
+from repro.roofline import analysis as ranalysis
+from repro.serve import engine as rengine
+from repro_torch import configs
+from repro_torch.configs.base import SHAPES, input_specs
+from repro_torch.core import pytree
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun, mesh as M
+from repro_torch.train import step as S
+
+TRAIN_CELLS = ["llama3.2-1b", "deepseek-moe-16b", "mamba2-1.3b"]
+
+
+def _spec_bytes(arch, shape=(2, 2)):
+    """Rank 0's state and batch bytes from the specs alone."""
+    cfg = configs.get(arch).reduced()
+    pm = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=shape)
+    template = S.state_template(cfg)
+    specs = S.state_specs(cfg, template, pm)
+    total = 0
+    for leaf, spec in zip(pytree.leaves(template), pytree.leaves(specs)):
+        total += math.prod(M.local_shape(spec, leaf.shape, pm)) * leaf.element_size()
+    batch = input_specs(cfg, "train_4k", reduced=True)
+    total += sum(v.numel() * v.element_size() // shape[0] for v in batch.values())
+    return total
+
+
+@pytest.mark.parametrize("arch", TRAIN_CELLS)
+def test_reduced_train_cell_on_a_fake_mesh(arch):
+    ops.reset_launch_counts()
+    rec = dryrun.lower_cell(arch, "train_4k", reduced=True, mesh_shape=(2, 2), device="cpu")
+    assert not dist.is_initialized()                     # the fake group is gone
+    assert not any(ops.launch_counts().values())
+    assert rec["status"] == "OK" and rec["mesh"] == "2x2" and rec["ops"] > 100
+    assert rec["memory"]["argument_size_in_bytes"] == _spec_bytes(arch)
+    assert rec["memory"]["temp_size_in_bytes"] > 0
+    rl = rec["roofline"]
+    cfg = configs.get(arch).reduced()
+    assert rl["model_flops_global"] == ranalysis.train_model_flops(rconfigs.get(arch).reduced(),
+                                                                   64 * 4)
+    # rank 0 runs its half of the batch through every weight, forward and
+    # backward (and the 'model' axis redundantly): at least 6 N D / 2
+    assert rl["flops_per_device"] >= 3 * cfg.active_param_count() * 64 * 4 / 2
+    by_axis = rl["collectives_by_axis"]
+    assert by_axis["model"]["all-gather"] > 0 and by_axis["data"]["all-reduce"] > 0
+    assert rl["collectives"]["all-gather"] == sum(v["all-gather"] for v in by_axis.values())
+    assert rl["bottleneck"] in ("compute", "memory", "collective")
+    # the memory floor: arguments read once, temporaries at their peak
+    # written once; every eager op's bytes are the ceiling beside it
+    mem = rec["memory"]
+    assert rl["hbm_bytes_per_device"] == mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    assert rl["hbm_bytes_eager_per_device"] > rl["hbm_bytes_per_device"]
+    json.dumps(rec)
+
+
+def test_compressed_and_pure_dp_cells():
+    rec = dryrun.lower_cell("llama3.2-1b", "train_4k", reduced=True, multi_pod=True,
+                            mesh_shape=(2, 1, 2), grad_compress=1, device="cpu")
+    assert rec["status"] == "OK" and rec["grad_compress"] == 1
+    assert rec["roofline"]["collectives_by_axis"]["pod"]["all-gather"] > 0
+    dp = dryrun.lower_cell("llama3.2-1b", "train_4k", reduced=True, mesh_shape=(2, 2),
+                           parallelism="dp", device="cpu")
+    assert dp["status"] == "OK"
+    # replicated parameters: nothing is gathered, the gradient all-reduced
+    assert dp["roofline"]["collectives"]["all-gather"] == 0
+    assert dp["memory"]["argument_size_in_bytes"] > _spec_bytes("llama3.2-1b")
+
+
+@pytest.mark.parametrize("arch,shape,kv_mode", [
+    ("deepseek-moe-16b", "decode_32k", "dense"),
+    ("llama3.2-1b", "decode_32k", "compressed"),
+    ("hymba-1.5b", "prefill_32k", "dense"),
+    ("whisper-medium", "decode_32k", "dense"),
+])
+def test_serving_cells_are_skips_with_the_reference_ideal_bytes(arch, shape, kv_mode):
+    rec = dryrun.lower_cell(arch, shape, kv_mode=kv_mode, device="cpu")
+    assert rec["status"] == "SKIP" and "later slice" in rec["reason"]
+    rcfg = rconfigs.get(arch)
+    rm = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty((16, 16)))
+    params = RT.param_specs(rcfg)
+    cache = rengine.cache_specs(rcfg, SHAPES[shape]["global_batch"], SHAPES[shape]["seq_len"],
+                                kv_mode=kv_mode, num_planes=1)
+    want = (ranalysis.sharded_bytes_per_device(params, rmesh.param_specs_tree(rcfg, params, rm),
+                                               rm)
+            + ranalysis.sharded_bytes_per_device(cache, rmesh.cache_specs_tree(rcfg, rm, cache),
+                                                 rm))
+    assert rec["ideal_bytes_per_device"] == want
+
+
+def test_shape_skips_and_an_existing_group():
+    rec = dryrun.lower_cell("llama3.2-1b", "long_500k", device="cpu")
+    assert rec["status"] == "SKIP"
+    assert rec["reason"] == configs.get("llama3.2-1b").shape_skips["long_500k"]
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="already initialized"):
+            dryrun.lower_cell("llama3.2-1b", "train_4k", reduced=True, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_main_writes_a_record(tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "mamba2-1.3b", "--shape", "decode_32k", "--device", "cpu",
+                     "--out", str(tmp_path)])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert "[SKIP] mamba2-1.3b|decode_32k|single" in out and "0 OK, 1 SKIP, 0 FAIL" in out
+    rec = json.loads((tmp_path / "mamba2-1.3b.decode_32k.single.json").read_text())
+    assert rec["ideal_bytes_per_device"] > 0 and rec["wall_s"] >= 0
+
+
+def test_make_production_mesh_is_a_function():
+    """Importing the modules makes no group; the production mesh needs its
+    256 (512) ranks."""
+    import importlib
+
+    importlib.reload(M)
+    assert not dist.is_initialized()
+    dryrun.fake_process_group(512)
+    try:
+        mesh = M.make_production_mesh(multi_pod=True, device_type="cpu")
+        assert mesh.mesh_dim_names == ("pod", "data", "model") and tuple(mesh.shape) == (2, 16, 16)
+        assert M.dp_axes(mesh) == ("pod", "data")
+    finally:
+        dist.destroy_process_group()
+    assert torch.distributed.is_available()

@@ -47,6 +47,9 @@ def test_import_loads_nothing_of_the_reference():
         "import repro_torch.data.scidata, repro_torch.serve.service\n"
         "import repro_torch.serve.store_service, repro_torch.serve.client\n"
         "import repro_torch.core.metrics\n"
+        "import repro_torch.models.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.roofline.analysis\n"
+        "import repro_torch.roofline.hlo_cost\n"
         "repro_torch.configs.all_configs()\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None\n"
         "          and any(m == b or m.startswith(b + '.') for b in %r)]\n"
