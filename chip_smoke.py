@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--edge 512] [--reps 50]
                           [--store-kernels | --ingest | --service | --families |
-                           --enc-vlm | --families-train | --examples | --sharding]
+                           --enc-vlm | --families-train | --examples | --sharding |
+                           --sharded-serve]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It imports nothing of the JAX package.  In order it:
@@ -143,7 +144,7 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      and deepseek-moe-16b (28 layers, 64 experts top-6 and 2 shared, 16.88 B
      float32 weights, 67.5 GB, last, on a card the earlier phases freed);
      weights from --seed on the card, bf16 compute, 4 prompts of 2048 tokens
-     and 64 greedy steps with a dense cache and, where there is attention,
+     and 16 greedy steps with a dense cache and, where there is attention,
      SZx-planes caches at P = 1 and 2.  Launch counters are zeroed just
      before and read after: the flash kernel once per attention layer a
      prefill and never in decode, the planes kernels as in phase 9 (vector
@@ -159,10 +160,11 @@ toolkit.  It imports nothing of the JAX package.  In order it:
  15. serves and trains the audio encoder-decoder and the VLM at full width
      and depth: whisper-medium (24 encoder and 24 decoder layers, d_model
      1024, 16 heads of 64, vocab 51865; 4 x 1500 stub frame embeddings from
-     --seed, the encoder's 30 s of audio, then 384-token prompts and 64
-     greedy steps, Whisper's 448-position text context) and internvl2-1b
-     (24 layers, d_model 896, 14 query heads over 2, vocab 151655, tied
-     embeddings; 4 x 256 stub image embeddings and 1792 tokens, 64 steps);
+     --seed, the encoder's 30 s of audio, then 384-token prompts and 16
+     greedy steps, within Whisper's 448-position text context) and
+     internvl2-1b (24 layers, d_model 896, 14 query heads over 2, vocab
+     151655, tied embeddings; 4 x 256 stub image embeddings and 1792
+     tokens, 16 steps);
      float32 weights from --seed on the card, bf16 compute, dense and
      SZx-planes caches at P = 1 and 2 (whisper's cross K/V dense in all
      three).  Launch counters are zeroed just before and read after: the
@@ -228,7 +230,31 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      each record on a line with its wall time, then deepseek-moe-16b's
      state bytes a card on a (4, 1) mesh from the specs.  Launch counters
      are zeroed before (a) and read after (c): flash, planes, encode and
-     decode_body must each have run (``--sharding`` runs this phase alone).
+     decode_body must each have run (``--sharding`` runs this phase alone);
+ 19. serves under a device mesh (one-rank NCCL group, one-member (1, 1)
+     data x model meshes, the parameters ``DTensor``s placed by the
+     reference's spec trees, ``models.sharding.use_rules``): (a)
+     llama3.2-1b at full width and depth under ``DEFAULT_RULES``, 4 x 2048
+     prompts and 16 decode steps (the unsharded engine's greedy tokens),
+     dense and P = 1 caches: the prefill's logits and cache bit for bit the
+     unsharded engine's where it repeats itself (deterministic algorithms
+     on), the decode logits within a stated share of the largest logit
+     (the scores rounded to bf16 under rules are the one difference), and
+     again with the scores summed in float32 within 1e-5 of it;
+     prefill and decode-step ms beside the unsharded engine's, and the
+     device's busy share of a sharded decode step, and the host clock of
+     sharded and unsharded decode steps timed in turns (ABBA, 4 rounds of
+     16 steps); (b) deepseek-moe-16b at
+     full width on 4 of its 28 layers, a prefill and 8 decode steps under
+     ``DEFAULT_RULES`` (dense cache, fsdp specs) and ``SERVE_MOE_RULES``
+     (P = 1, ``serve_param_specs_tree``), prefill bit for bit, the decode
+     with float32 scores within 1e-5 (the bf16 one reported); (c) with the
+     group destroyed, the dry-run's serving cells on fake CUDA tensors on
+     (16, 16): llama3.2-1b prefill_32k and decode_32k (dense and
+     compressed), deepseek-moe-16b decode_32k with ``serve_layout``,
+     arctic-480b decode_32k.  Launch counters are set to 0 before each
+     sharded run and read after it: flash, planes_encode and planes_decode
+     must each have run there (``--sharded-serve`` runs this phase alone).
 
 Phase 2 also holds the planes kernels against their plain versions on both
 routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
@@ -251,6 +277,7 @@ are the kernels JSON and the result JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import io
 import json
@@ -3031,6 +3058,7 @@ def phase_service(args) -> dict:
 # smallest first; deepseek-moe-16b's 16.88 B f32 weights (67.5 GB) last, on
 # a card the earlier phases have freed (configs/*.py, full width and depth)
 FAMILY_ARCHS = ("mamba2-1.3b", "hymba-1.5b", "deepseek-moe-16b")
+FAMILY_SERVE_STEPS = 16            # greedy steps a mode; phase 9 keeps SERVE_STEPS
 TEACHER_PROMPTS = (4, 3, 2, 1)     # the float32 checks take as many as fit
 
 
@@ -3217,12 +3245,12 @@ def family_teacher_checks(model, cfg, prompts, runs: dict) -> dict:
 def phase_families(args) -> dict:
     """Phase 14: mamba2-1.3b, hymba-1.5b and deepseek-moe-16b at full width
     and depth, float32 weights from --seed on the card, bf16 compute: 4
-    prompts of 2048 tokens and 64 greedy decode steps with a dense cache
-    (and SZx-planes caches at P = 1, 2 where there is attention); launch
-    counts, cache bytes, finite logits; decode vs forward over the same
-    tokens (``family_teacher_checks``); peak memory; a profile of a dense
-    prefill and 2 decode steps.  Returns the phase's launch counts
-    and each model's flash launches."""
+    prompts of 2048 tokens and FAMILY_SERVE_STEPS greedy decode steps with
+    a dense cache (and SZx-planes caches at P = 1, 2 where there is
+    attention); launch counts, cache bytes, finite logits; decode vs
+    forward over the same tokens (``family_teacher_checks``); peak memory;
+    a profile of a dense prefill and 2 decode steps.  Returns the phase's
+    launch counts and each model's flash launches."""
     import gc
 
     import torch
@@ -3252,19 +3280,20 @@ def phase_families(args) -> dict:
         log(f"families {arch} ({cfg.family}): {nparams} parameters, "
             f"{nparams * 4 / 1e9:.2f} GB f32, made on the card in {t_init:.2f} s "
             f"({free / 1e9:.2f} of {total / 1e9:.2f} GB free before); {cfg.n_layers} layers "
-            f"(full depth), {SERVE_BATCH} prompts of {SERVE_PROMPT} tokens, {SERVE_STEPS} "
-            f"greedy steps")
+            f"(full depth), {SERVE_BATCH} prompts of {SERVE_PROMPT} tokens, "
+            f"{FAMILY_SERVE_STEPS} greedy steps")
         t_first = timed(lambda: serve_and_check(model, cfg, prompts, "dense", 1, 1, 0) and None)[1]
         log(f"families {arch}: first prefill and step (allocator and cuBLAS warm-up) "
             f"{t_first * 1e3:.1f} ms")
         runs = {}
         for mode, P in family_modes(cfg):
             cache, toks, dec, t_pre, t_dec = serve_and_check(model, cfg, prompts, mode, P,
-                                                          SERVE_STEPS, TEACHER_STEPS)
+                                                          FAMILY_SERVE_STEPS, TEACHER_STEPS)
             log(f"families {arch} kv={mode} P={P}: prefill {t_pre * 1e3:.1f} ms "
-                f"({SERVE_BATCH * SERVE_PROMPT / t_pre:.0f} tok/s), decode {SERVE_STEPS} steps "
-                f"in {t_dec:.3f} s = {SERVE_BATCH * SERVE_STEPS / t_dec:.1f} tok/s "
-                f"({t_dec / SERVE_STEPS * 1e3:.2f} ms a step), cache {E.cache_nbytes(cache)} B "
+                f"({SERVE_BATCH * SERVE_PROMPT / t_pre:.0f} tok/s), decode {FAMILY_SERVE_STEPS} "
+                f"steps in {t_dec:.3f} s = {SERVE_BATCH * FAMILY_SERVE_STEPS / t_dec:.1f} tok/s "
+                f"({t_dec / FAMILY_SERVE_STEPS * 1e3:.2f} ms a step), cache "
+                f"{E.cache_nbytes(cache)} B "
                 f"({E.cache_nbytes(cache) / 2**20:.1f} MiB), sample row {toks[0, :8].tolist()}")
             runs[(mode, P)] = (toks, dec)
             del cache
@@ -3303,9 +3332,9 @@ def phase_families(args) -> dict:
 ENC_VLM_ARCHS = ("whisper-medium", "internvl2-1b")
 # per model: text prompt, decode steps, training sequence.  whisper-medium:
 # 30 s of audio (1500 encoder frames) and Whisper's 448-position text
-# context, a 384-token prompt and 64 steps; internvl2-1b: 256 image
-# embeddings and 1792 tokens (phase 9's 2048 positions) and 64 steps
-ENC_VLM_TRAFFIC = {"whisper-medium": (384, 64, 448), "internvl2-1b": (1792, 64, 1792)}
+# context, a 384-token prompt and 16 steps; internvl2-1b: 256 image
+# embeddings and 1792 tokens (phase 9's 2048 positions) and 16 steps
+ENC_VLM_TRAFFIC = {"whisper-medium": (384, 16, 448), "internvl2-1b": (1792, 16, 1792)}
 ENC_VLM_TRAIN_STEPS = 3            # through launch.train: the first one warms up
 # the leaves whose first 64 x 64 values must move in training
 ENC_VLM_WATCH = {"whisper-medium": ("frontend_proj", "layers/0/attn/wq", "layers/0/cross/wk",
@@ -3542,7 +3571,7 @@ def phase_enc_vlm(args) -> tuple:
     """Phase 15: whisper-medium and internvl2-1b at full width and depth,
     float32 weights from --seed on the card, bf16 compute, B 4: prefill
     (whisper: 1500 stub frames through the encoder, a 384-token prompt;
-    internvl2-1b: 256 stub image embeddings and 1792 tokens) and 64 greedy
+    internvl2-1b: 256 stub image embeddings and 1792 tokens) and 16 greedy
     steps with a dense and SZx-planes (P = 1, 2) caches; launch counts,
     cache bytes (the cross K/V apart), finite logits; decode vs forward over
     the same tokens in float32 compute, held to TEACHER_TOL, with the bf16
@@ -4161,6 +4190,269 @@ def phase_sharding(args) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 19: serving under a device mesh
+# ---------------------------------------------------------------------------
+
+SHARDED_SERVE_STEPS = 16           # 19a's decode steps
+MOE_SERVE_STEPS = 8                # 19b's
+# decode logits under rules vs the unsharded engine's, a share of the largest
+# logit: the scores are rounded to bf16 before their (here one-member) sum,
+# so the bf16 run is held loosely (19a) or only reported (19b, whose top-k can
+# flip on a rounded score); with the scores summed in float32 a one-member
+# mesh runs the unsharded engine's ops, and both are held tightly
+SHARDED_DECODE_TOL = 0.05
+SHARDED_DECODE_F32_TOL = 1e-5
+SHARDED_TIMED_STEPS = 17           # 19a's ABBA timing: steps a run, the first dropped
+SHARDED_TIMED_ROUNDS = 4
+SERVE_DRYRUN_CELLS = (("llama3.2-1b", "prefill_32k", "dense", False),   # (arch, shape,
+                      ("llama3.2-1b", "decode_32k", "dense", False),    #  kv_mode,
+                      ("llama3.2-1b", "decode_32k", "compressed", False),   # serve_layout)
+                      ("deepseek-moe-16b", "decode_32k", "dense", True),
+                      ("arctic-480b", "decode_32k", "dense", False))
+
+
+def local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def serve_teacher(params, cfg, prompts, mode: str, P: int, steps: int, toks=None, counts=None):
+    """A prefill of ``prompts`` and ``steps`` decode steps, each on a column
+    of ``toks`` (the unsharded run's greedy tokens) or greedy without them.
+    Returns (prefill logits, the cache slabs after the prefill (clones),
+    the decode logits (steps, B, V) in float32, the generated tokens,
+    prefill s, decode s a step).  With ``counts`` the launch counters are
+    set to 0 before the run and its launches added to ``counts`` after."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine as E
+
+    if counts is not None:
+        ops.reset_launch_counts()
+    (cache, logits), t_pre = timed(lambda: E.prefill(
+        params, cfg, prompts, seq_len=prompts.shape[1] + steps, kv_mode=mode, num_planes=P))
+    pre = local(logits).clone()
+    slabs = {k: local(v).clone() for k, v in cache["layers"].items()}
+    tok = torch.argmax(pre[:, -1:], -1) if toks is None else toks[:, :1]
+    out, gen, times = [], [], []
+    for i in range(steps):
+        gen.append(tok)
+        (logits, cache), t = timed(lambda: E.decode_step(params, cfg, cache, tok, kv_mode=mode,
+                                                         num_planes=P))
+        times.append(t)
+        lg = local(logits)[:, -1].float()
+        out.append(lg)
+        tok = torch.argmax(lg, -1)[:, None] if toks is None or i + 1 == steps else \
+            toks[:, i + 1:i + 2]
+    if counts is not None:
+        for k, v in ops.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+    del cache
+    return pre, slabs, torch.stack(out), torch.cat(gen, dim=1), t_pre, times
+
+
+def same_prefill(a, b) -> bool:
+    """Logits and every cache slab bit for bit."""
+    return same_bits(a[0], b[0]) and a[1].keys() == b[1].keys() and all(
+        same_bits(a[1][k], b[1][k]) for k in a[1])
+
+
+def prefill_spread(a, b) -> float:
+    return max([float((a[0] - b[0]).abs().max())] + [
+        float((a[1][k].float() - b[1][k].float()).abs().max()) for k in a[1]])
+
+
+def sharded_vs_plain(tag, model, cfg, prompts, steps, rules_specs, counts, decode_tol=None):
+    """One model's unsharded runs (twice, to see whether the prefill
+    repeats itself) and its sharded runs on a (1, 1) mesh for each (mode,
+    P, rules name, rules, spec function) of ``rules_specs`` against them;
+    prints the times.  The sharded decode runs twice: as it is (the scores
+    rounded to bf16 under rules; its logits held to ``decode_tol`` where it
+    is given, else reported) and with ``engine._reduce_scores`` summing the
+    scores in float32, whose logits are held to SHARDED_DECODE_F32_TOL.
+    Only the first sharded run's launches are counted.  Returns the last
+    run's mesh and parameters."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import sharding as SH, transformer as T
+    from repro_torch.serve import engine as E
+
+    mesh = one_member_mesh(("data", "model"))
+    tree = T.param_tree(model)
+    vocab = cfg.vocab_size
+    bf16_reduce = E._reduce_scores
+    for mode, P, name, rules, specs_of in rules_specs:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            a = serve_teacher(model, cfg, prompts, mode, P, steps)
+            b = serve_teacher(model, cfg, prompts, mode, P, steps, a[3])
+            params = mesh_lib.shard_tree(tree, specs_of(cfg, tree, mesh), mesh)
+            with SH.use_rules(mesh, rules):
+                sh = serve_teacher(params, cfg, prompts, mode, P, steps, a[3], counts)
+                E._reduce_scores = lambda s, dims=(): SH.all_reduce(s, dims)  # noqa: E731
+                try:
+                    f32 = serve_teacher(params, cfg, prompts, mode, P, steps, a[3])
+                finally:
+                    E._reduce_scores = bf16_reduce
+        finally:
+            torch.use_deterministic_algorithms(False)
+        spread = prefill_spread(a, b)
+        if spread == 0:
+            verdict = "bit for bit (the unsharded prefill repeats itself)"
+            check(same_prefill(sh, a), f"{tag} {mode} P={P} {name}: the sharded prefill differs "
+                  f"from the unsharded one by {prefill_spread(sh, a):.3e}")
+        else:
+            verdict = f"within the unsharded prefill's own run-to-run spread {spread:.3e}"
+            check(prefill_spread(sh, a) <= spread, f"{tag} {mode} P={P} {name}: sharded prefill "
+                  f"{prefill_spread(sh, a):.3e} outside the spread {spread:.3e}")
+
+        def rel(run):
+            return teacher_rel(b[2][:, :, :vocab].transpose(0, 1),
+                               run[2][:, :, :vocab].transpose(0, 1), vocab)
+
+        r16, r32 = rel(sh), rel(f32)
+        check(all(math.isfinite(r) for r in r16) and max(r16) <= (decode_tol or math.inf),
+              f"{tag} {mode} P={P} {name}: sharded decode vs unsharded {r16}")
+        check(max(r32) <= SHARDED_DECODE_F32_TOL, f"{tag} {mode} P={P} {name}: sharded decode "
+              f"with float32 scores vs unsharded {r32}")
+        mean = lambda ts: sum(ts[1:]) / len(ts[1:])   # noqa: E731  (the first step warms up)
+        log(f"{tag} {cfg.name} ({cfg.n_layers} layers) kv={mode} P={P} under {name} on a (1, 1) "
+            f"mesh: prefill {sh[4] * 1e3:.1f} ms sharded, {a[4] * 1e3:.1f} / {b[4] * 1e3:.1f} ms "
+            f"unsharded; decode {mean(sh[5]) * 1e3:.2f} ms a step sharded, "
+            f"{mean(a[5]) * 1e3:.2f} / {mean(b[5]) * 1e3:.2f} unsharded ({len(sh[5])} steps, "
+            f"host clock, synchronized); prefill logits and cache {verdict}; decode logits vs "
+            f"the unsharded engine's on its tokens, max |d| / max |logit|, bf16 scores "
+            + ", ".join(f"{r:.5f}" for r in r16)
+            + (f" (tolerance {decode_tol})" if decode_tol else " (reported, not held)")
+            + f"; float32 scores max {max(r32):.3e} (tolerance {SHARDED_DECODE_F32_TOL})")
+        del a, b, sh, f32
+        torch.cuda.empty_cache()
+    return mesh, params
+
+
+def sharded_busy(model, params, cfg, prompts, mesh) -> None:
+    """The device's busy share and kernel launches of PROFILE_STEPS decode
+    steps (dense cache), unsharded and sharded in turns (torch.profiler,
+    the card's activity only, as profile_serve reads it); then the host
+    clock of SHARDED_TIMED_STEPS decode steps a run, each synchronized, in
+    SHARDED_TIMED_ROUNDS rounds alternating unsharded and sharded (ABBA),
+    medians and quartiles a side."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import sharding as SH
+    from repro_torch.serve import engine as E
+
+    def run(p, rules, n, traced):
+        with SH.use_rules(mesh, rules) if rules is not False else contextlib.nullcontext():
+            cache, logits = E.prefill(p, cfg, prompts, seq_len=prompts.shape[1] + n)
+            tok = torch.argmax(local(logits)[:, -1:], -1)
+            torch.cuda.synchronize()
+            times = []
+            with profile(activities=[ProfilerActivity.CUDA]) if traced else \
+                    contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    t1 = time.perf_counter()
+                    logits, cache = E.decode_step(p, cfg, cache, tok)
+                    tok = torch.argmax(local(logits), -1)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t1)
+                wall = time.perf_counter() - t0
+        return prof, wall, times
+
+    def busy(p, rules):
+        prof, wall, _ = run(p, rules, PROFILE_STEPS, True)
+        evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = sum(e.self_device_time_total for e in evs) / 1e6
+        share = f"{100 * dev / wall:.1f}%" if dev else "not measured: no device events"
+        return (f"wall {wall * 1e3:.1f} ms, device busy {dev * 1e3:.1f} ms ({share}), "
+                f"{sum(e.count for e in evs)} kernel launches")
+
+    sides = (("unsharded", model, False), ("sharded", params, None))
+    for name, p, rules in sides + sides[::-1]:
+        log(f"sharded serve 19a profile {cfg.name} dense, {PROFILE_STEPS} {name} decode steps: "
+            + busy(p, rules))
+    got = {"unsharded": [], "sharded": []}
+    for r in range(SHARDED_TIMED_ROUNDS):
+        for name, p, rules in (sides if r % 2 == 0 else sides[::-1]):
+            got[name] += run(p, rules, SHARDED_TIMED_STEPS, False)[2][1:]   # the first warms up
+    quart = {k: statistics.quantiles([t * 1e3 for t in v], n=4) for k, v in got.items()}
+    log(f"sharded serve 19a timed {cfg.name} dense, {SHARDED_TIMED_ROUNDS} rounds ABBA of "
+        f"{SHARDED_TIMED_STEPS} decode steps (the first of each dropped), host clock, each step "
+        f"synchronized: " + "; ".join(
+            f"{k} median {q[1]:.2f} ms, quartiles {q[0]:.2f}-{q[2]:.2f}" for k, q in quart.items())
+        + f"; sharded - unsharded medians {quart['sharded'][1] - quart['unsharded'][1]:+.2f} ms")
+
+
+def serve_dryrun_cells() -> None:
+    """19c: the dry-run's serving cells on fake CUDA tensors on (16, 16),
+    each record a line of its own with its wall time."""
+    from repro_torch.launch import dryrun
+
+    for arch, shape, kv_mode, serve_layout in SERVE_DRYRUN_CELLS:
+        rec, t = timed(lambda: dryrun.lower_cell(arch, shape, kv_mode=kv_mode,
+                                                 serve_layout=serve_layout))
+        check(rec["status"] == "OK", f"19c: dry-run {arch} {shape} {kv_mode}: {rec}")
+        check(shape != "decode_32k" or "floor_fraction" in rec["roofline"],
+              f"19c: {arch} {shape}: no floor fraction")
+        log(f"sharded serve 19c dry-run {arch} {shape} kv={kv_mode} serve_layout={serve_layout} "
+            f"mesh {rec['mesh']}: wall {t:.1f} s; " + json.dumps(rec))
+
+
+def phase_sharded_serve(args) -> dict:
+    """Phase 19 (``--sharded-serve`` runs it alone): 19a-19b in a one-rank
+    NCCL group on one-member meshes, then (the group destroyed) 19c's
+    dry-run cells.  Returns the launches of the sharded runs, which must
+    include the flash and both planes kernels."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import sharding as SH, transformer as T
+
+    counts = {}
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        cfg = configs.get(SERVE_ARCH)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 90)
+        model = T.init_params(cfg, gen, "cuda")
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
+                                generator=gen)
+        mesh, params = sharded_vs_plain(
+            "sharded serve 19a", model, cfg, prompts, SHARDED_SERVE_STEPS,
+            [(mode, P, "DEFAULT_RULES", None, mesh_lib.param_specs_tree)
+             for mode, P in (("dense", 1), ("compressed", 1))], counts, SHARDED_DECODE_TOL)
+        sharded_busy(model, params, cfg, prompts, mesh)
+        del model, params
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(configs.get(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 91)
+        model = T.init_params(cfg, gen, "cuda")
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
+                                generator=gen)
+        sharded_vs_plain(
+            "sharded serve 19b", model, cfg, prompts, MOE_SERVE_STEPS,
+            [("dense", 1, "DEFAULT_RULES", None, mesh_lib.param_specs_tree),
+             ("compressed", 1, "SERVE_MOE_RULES", SH.SERVE_MOE_RULES,
+              mesh_lib.serve_param_specs_tree)], counts)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    counts = {k: v for k, v in counts.items() if v}
+    log(f"phase 19 launches on the sharded serving path: {counts}")
+    for k in ("flash_attention",) + PLANES_KERNELS:
+        check(counts.get(k, 0) > 0, f"kernel {k} was not launched on the sharded serving path")
+    serve_dryrun_cells()
+    return counts
+
+
 def dispatch_cost(reps: int, rounds: int = 5) -> dict:
     """``--dispatch``: the cost of the custom operator that every flash and
     planes call goes through.  Each wrapper call, through its operator,
@@ -4264,6 +4556,9 @@ def main() -> int:
     ap.add_argument("--sharding", action="store_true",
                     help="build, run phase 18 alone (the sharded training step on one-member "
                          "meshes, sharded checkpoints, the dry-run) and stop")
+    ap.add_argument("--sharded-serve", action="store_true",
+                    help="build, run phase 19 alone (serving under one-member meshes, the "
+                         "dry-run's serving cells) and stop")
     args = ap.parse_args()
 
     import torch
@@ -4362,6 +4657,10 @@ def main() -> int:
         return 0
     if args.sharding:
         phase_sharding(args)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.sharded_serve:
+        phase_sharded_serve(args)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -4471,7 +4770,10 @@ def main() -> int:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     log(f"phase 18 starts {time.perf_counter() - t_start:.1f} s into the run")
     sharding_launches = phase_sharding(args)
-    for counts in (train_launches, example_launches, sharding_launches):
+    log(f"phase 19 starts {time.perf_counter() - t_start:.1f} s into the run")
+    sharded_serve_launches = phase_sharded_serve(args)
+    for counts in (train_launches, example_launches, sharding_launches,
+                   sharded_serve_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     for arch, n in train_flash.items():

@@ -13,10 +13,19 @@ constants).  Nothing is allocated at full size; the reference sets
 ``XLA_FLAGS`` at import, the port makes its fake group inside
 :func:`lower_cell` and destroys it after.
 
-``prefill``/``decode`` cells need serving under a mesh, a later slice:
-they are recorded as ``SKIP`` with that reason, with
-``ideal_bytes_per_device`` -- the parameters and the cache a device would
-hold, from ``param_specs_tree`` and ``cache_specs_tree``.
+A ``prefill``/``decode`` cell of the dense and MoE families runs rank 0's
+sharded ``engine.prefill``/``engine.decode_step`` the same way, inside the
+rule table the reference's ``lower_cell`` picks for the cell
+(``DEFAULT_RULES``, ``PURE_DP_RULES`` for ``parallelism="dp"``,
+``SERVE_MOE_RULES`` over it with ``serve_layout``; the training step
+enters no rules context): the parameters placed by ``param_specs_tree``
+(``serve_param_specs_tree`` with ``serve_layout``, replicated with
+``dp``), the cache by ``cache_specs_tree``.  Each serving record holds
+``ideal_bytes_per_device`` -- the parameters and the cache a device holds
+-- and a decode record its ``floor_fraction``.  The SSM, hybrid, audio and
+VLM families' serving cells and ``long_500k`` (a window sequence-sharded
+over 'data') wait for a later slice: ``SKIP`` with the reason and the
+ideal bytes.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -42,8 +51,12 @@ from repro_torch.configs.base import SHAPES, input_specs
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.roofline import analysis as roofline
 
-SERVE_SKIP = ("serving under a mesh is a later slice of the port (ROADMAP.md); "
-              "ideal_bytes_per_device is the sharded parameters and cache a device holds")
+SERVE_SKIP = ("serving the SSM, hybrid, audio and VLM families under a mesh is a later "
+              "slice of the port (ROADMAP.md queue 1); ideal_bytes_per_device is the sharded "
+              "parameters and cache a device holds")
+LONG_SKIP = ("long-context serving under a mesh (the window sequence-sharded over 'data', "
+             "LONG_CONTEXT_RULES) is a later slice of the port (ROADMAP.md queue 1); "
+             "ideal_bytes_per_device is the sharded parameters and cache a device holds")
 
 
 def fake_process_group(world_size: int):
@@ -70,12 +83,11 @@ def fake_state(cfg, mesh, specs, template, device: str):
     import torch
 
     from repro_torch.core.pytree import tree_map
-    from repro_torch.train.step import sharded
 
     def leaf(t, spec):
         local = torch.empty(mesh_lib.local_shape(spec, t.shape, mesh), dtype=t.dtype,
                             device=device)
-        return sharded(local, spec, t.shape, mesh)
+        return mesh_lib.from_local(local, spec, t.shape, mesh)
 
     return tree_map(leaf, template, specs)
 
@@ -108,6 +120,8 @@ def lower_cell(
     from repro_torch.serve import engine
     from repro_torch.train import step as train_step_mod
 
+    from repro_torch.models import sharding
+
     cfg = configs.get(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -126,6 +140,11 @@ def lower_cell(
     if reduced:                                   # input_specs' cut
         seq_len, global_batch = min(seq_len, 64), min(global_batch, 4)
     long_ctx = shape_name == "long_500k"
+    rules = dict(sharding.LONG_CONTEXT_RULES if long_ctx else sharding.DEFAULT_RULES)
+    if parallelism == "dp":
+        rules = dict(sharding.PURE_DP_RULES)
+    if serve_layout and cfg.n_experts:
+        rules.update(sharding.SERVE_MOE_RULES)
     rec = {
         "arch": arch,
         "shape": shape_name,
@@ -149,16 +168,9 @@ def lower_cell(
             return mesh_lib.param_specs_tree(cfg, tree, mesh)
 
         if kind != "train":
-            params = T.param_specs(dataclasses.replace(cfg, param_dtype="bfloat16")
-                                   if serve_bf16 else cfg)
-            cache = engine.cache_specs(cfg, global_batch, seq_len, kv_mode=kv_mode,
-                                       num_planes=num_planes)
-            ideal = (roofline.sharded_bytes_per_device(params, pspecs_of(params), mesh)
-                     + roofline.sharded_bytes_per_device(
-                         cache, mesh_lib.cache_specs_tree(cfg, mesh, cache,
-                                                          long_context=long_ctx), mesh))
-            return {**rec, "status": "SKIP", "reason": SERVE_SKIP,
-                    "ideal_bytes_per_device": ideal}
+            return {**rec, **_serve_cell(cfg, mesh, pspecs_of, rules, kind, batch, seq_len,
+                                         global_batch, long_ctx, kv_mode, num_planes,
+                                         serve_bf16, device)}
 
         from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -200,6 +212,76 @@ def lower_cell(
                 "roofline": rl.to_dict()}
     finally:
         dist.destroy_process_group()
+
+
+def _serve_cell(cfg, mesh, pspecs_of, rules, kind, batch, seq_len, global_batch, long_ctx,
+                kv_mode, num_planes, serve_bf16, device) -> dict:
+    """A prefill or decode cell's record (module docstring)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import sharding, transformer as T
+    from repro_torch.roofline import hlo_cost
+    from repro_torch.serve import engine
+
+    params = T.param_specs(dataclasses.replace(cfg, param_dtype="bfloat16")
+                           if serve_bf16 else cfg)
+    pspecs = pspecs_of(params)
+    cache = engine.cache_specs(cfg, global_batch, seq_len, kv_mode=kv_mode,
+                               num_planes=num_planes)
+    skip = SERVE_SKIP if not engine.mesh_served(cfg) else LONG_SKIP if long_ctx else None
+    if skip:
+        cspecs = mesh_lib.cache_specs_tree(cfg, mesh, cache, long_context=long_ctx)
+    else:
+        with sharding.use_rules(mesh, rules):
+            cspecs = mesh_lib.serve_cache_specs(mesh, cache)
+    ideal = (roofline.sharded_bytes_per_device(params, pspecs, mesh)
+             + roofline.sharded_bytes_per_device(cache, cspecs, mesh))
+    if skip:
+        return {"status": "SKIP", "reason": skip, "ideal_bytes_per_device": ideal}
+    names = mesh.mesh_dim_names
+    with sharding.use_rules(mesh, rules):
+        rows = tuple(names[i] for i in sharding.mesh_dims("act_batch"))
+    bspecs = {k: mesh_lib._sanitize(mesh_lib.P(rows or None, *((None,) * (v.dim() - 1))),
+                                    v.shape, mesh) for k, v in batch.items()}
+    arg_bytes = (roofline.sharded_bytes_per_device(params, pspecs, mesh)
+                 + roofline.sharded_bytes_per_device(batch, bspecs, mesh)
+                 + (roofline.sharded_bytes_per_device(cache, cspecs, mesh)
+                    if kind == "decode" else 0))
+    if device == "cpu":
+        # the plain planes versions' cached table, made real before the fake
+        # mode so that the cache never holds a fake tensor
+        from repro_torch.kernels import ref
+
+        ref.planes_scale_table(device)
+    t0 = time.time()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fparams = fake_state(cfg, mesh, pspecs, params, device)
+        inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=device) for k, v in batch.items()}
+        with sharding.use_rules(mesh, rules), hlo_cost.OpCounter(mesh) as counter:
+            if kind == "prefill":
+                engine.prefill(fparams, cfg, inputs["tokens"], seq_len=seq_len, kv_mode=kv_mode,
+                               num_planes=num_planes)
+            else:
+                fcache = {"pos": seq_len - 1,
+                          **fake_state(cfg, mesh, {k: v for k, v in cspecs.items() if k != "pos"},
+                                       {k: v for k, v in cache.items() if k != "pos"}, device)}
+                engine.decode_step(fparams, cfg, fcache, inputs["token"], kv_mode=kv_mode,
+                                   num_planes=num_planes)
+    t_trace = time.time() - t0
+    model_flops = (2.0 * cfg.active_param_count() * seq_len * global_batch
+                   if kind == "prefill" else roofline.decode_model_flops(cfg, global_batch))
+    rl = roofline.analyze(counter, model_flops=model_flops, chips=mesh.size(),
+                          argument_bytes=arg_bytes)
+    extra = {"ideal_bytes_per_device": ideal}
+    if kind == "decode":
+        extra["floor_fraction"] = roofline.decode_floor_fraction(ideal, rl)
+    return {"status": "OK", "trace_s": round(t_trace, 1), "ops": counter.ops,
+            "ideal_bytes_per_device": ideal,
+            "memory": {"argument_size_in_bytes": arg_bytes,
+                       "temp_size_in_bytes": float(counter.peak_live),
+                       "peak_size_in_bytes": arg_bytes + counter.peak_live},
+            "roofline": {**rl.to_dict(), **extra}}
 
 
 def main(argv=None) -> None:
@@ -244,8 +326,9 @@ def main(argv=None) -> None:
         extra = ""
         if status == "OK":
             r = rec["roofline"]
+            frac = r.get("floor_fraction", r["roofline_fraction"])
             extra = (f" trace={rec['trace_s']}s bottleneck={r['bottleneck']}"
-                     f" frac={r['roofline_fraction']:.3f}"
+                     f" frac={frac:.3f}"
                      f" args={rec['memory']['argument_size_in_bytes'] / 1e9:.2f}GB")
         elif status == "FAIL":
             extra = " " + rec["error"][:120]

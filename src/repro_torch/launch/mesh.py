@@ -23,6 +23,7 @@ import math
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.pytree import key_paths, tree_map
+from repro_torch.models import sharding
 
 MESH_SHAPES = {False: ((16, 16), ("data", "model")),
                True: ((2, 16, 16), ("pod", "data", "model"))}
@@ -245,13 +246,25 @@ def spec_mesh_dims(spec: P, mesh) -> dict[int, int]:
     return out
 
 
+def spec_layout(spec: P, mesh) -> tuple:
+    """``spec`` as a layout (``models/sharding.py``): one entry a tensor
+    dim, the mesh dim indices it is split over in mesh order."""
+    out = [()] * len(spec)
+    for i, d in sorted(spec_mesh_dims(spec, mesh).items()):
+        out[d] += (i,)
+    return tuple(out)
+
+
 def placements(spec: P, mesh) -> tuple:
     """``DTensor`` placements of ``spec`` on ``mesh``, one per mesh dim."""
-    from torch.distributed.tensor import Replicate, Shard
+    return sharding.placements(spec_layout(spec, mesh), mesh)
 
-    dims = spec_mesh_dims(spec, mesh)
-    return tuple(Shard(dims[i]) if i in dims else Replicate()
-                 for i in range(len(mesh.mesh_dim_names)))
+
+def layout_spec(layout, mesh) -> P:
+    """A layout (``models/sharding.py``) as a spec: :func:`spec_layout`'s
+    inverse."""
+    names = mesh.mesh_dim_names
+    return P(*(tuple(names[i] for i in dims) or None for dims in layout))
 
 
 def local_index(spec: P, shape, mesh, coords) -> tuple:
@@ -274,6 +287,51 @@ def local_shape(spec: P, shape, mesh, coords=None) -> tuple:
     return tuple(s.stop - s.start for s in idx)
 
 
+def from_local(local, spec: P, shape, mesh):
+    """A ``DTensor`` of global ``shape`` whose shard on this rank is
+    ``local``, placed by ``spec``."""
+    return sharding.from_local(local, spec_layout(spec, mesh), shape, mesh)
+
+
+def shard_tree(tree, spec_tree, mesh):
+    """A tree of whole tensors (``param_tree`` of ``params_from_jax`` or
+    ``init_params``) as ``DTensor``s of this rank's shards placed by
+    ``spec_tree``: no communication.  A shard that is the whole leaf shares
+    its storage; any other is a copy of its slice, so the rank keeps no
+    whole leaf beyond the caller's."""
+    import torch
+
+    def leaf(full, spec):
+        if not isinstance(full, torch.Tensor):
+            return full
+        part = full[local_index(spec, full.shape, mesh, mesh.get_coordinate())]
+        part = part if part.numel() == full.numel() else part.clone()
+        return from_local(part, spec, full.shape, mesh)
+
+    return tree_map(leaf, tree, spec_tree)
+
+
+def shard_cache(cache: dict, spec_tree, mesh) -> dict:
+    """:func:`shard_tree` for a cache made by ``serve.engine.make_cache``
+    (or a prefill's), placed by ``spec_tree`` (``cache_specs_tree``'s over
+    ``engine.cache_specs``); ``pos`` stays the Python int it is."""
+    out = shard_tree({k: v for k, v in cache.items() if k != "pos"},
+                     {k: v for k, v in spec_tree.items() if k != "pos"}, mesh)
+    return {"pos": cache["pos"], **out}
+
+
+def serve_cache_specs(mesh, cache_tree):
+    """The specs the serving engine keeps a cache (``engine.cache_specs``'
+    tree) in under the active rules (``engine.cache_layout``):
+    :func:`cache_specs_tree`'s under ``DEFAULT_RULES``, the batch over
+    ``act_batch``'s axes and head_dim over ``act_hd``'s under another
+    table."""
+    from repro_torch.serve.engine import cache_layout
+
+    return _map_with_path(lambda path, leaf: layout_spec(cache_layout(path[-1], leaf.shape),
+                                                         mesh), cache_tree)
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A spec on a mesh: ``jax.sharding.NamedSharding``'s counterpart."""
@@ -292,16 +350,5 @@ class NamedSharding:
     def shard(self, full):
         """A ``DTensor`` of ``full`` (the whole tensor, present on every
         rank) keeping only this rank's shard: no communication."""
-        from torch.distributed.tensor import DTensor
-
-        local = full[self.local_index(full.shape)].contiguous()
-        return DTensor.from_local(local, self.mesh, self.placements, run_check=False,
-                                  shape=full.shape, stride=_contiguous_stride(full.shape))
-
-
-def _contiguous_stride(shape) -> tuple:
-    stride, acc = [], 1
-    for n in reversed(tuple(shape)):
-        stride.append(acc)
-        acc *= n
-    return tuple(reversed(stride))
+        return from_local(full[self.local_index(full.shape)].contiguous(), self.spec,
+                          full.shape, self.mesh)

@@ -9,8 +9,10 @@ the prefix too.
         --reduced --kv-mode compressed --tokens 16 --device cpu
 
 Without ``--device`` it runs on the card, and fails without one.
-arctic-480b's weights (960 GB in bf16) do not fit one card: it runs with
-``--reduced`` until the model shards (ROADMAP.md queue 1 item 7).
+arctic-480b's weights (960 GB in bf16) do not fit one card: the launcher
+runs it with ``--reduced``, as the reference's launcher, which takes no
+mesh; the engine serves it sharded under ``models.sharding.use_rules``, and
+the dry-run (``launch/dryrun.py``) traces its serving cells whole.
 """
 import argparse
 import time

@@ -10,9 +10,18 @@ tensor and through its plain version on a CPU tensor.  The MoE layer
 ``jnp`` outside any Pallas kernel (its SSD chunk is a ``lax.scan`` body,
 here a Python loop over chunks).
 
-Not carried here: ``shard_activation`` (``repro/models/sharding.py:66``) is
-an exact no-op outside a sharding-rules context, as it is on one card, so
-the calls to it are dropped (the mesh comes with the multi-card slice).
+Under a sharding-rules context (``models/sharding.use_rules``, the
+parameters ``DTensor``s) the attention, the SwiGLU MLP and the MoE layer
+compute tensor-parallel on each rank's local shards: a column-parallel
+projection keeps its output split as the weight's columns are, a
+row-parallel one all-reduces its partial sums, and the activations are
+gathered or sliced at the points where the reference places its
+``shard_activation`` hints (q over ``act_heads``, the MLP's hidden over
+``act_ff``, the MoE's dispatch over ``act_expert`` and ``act_moe_batch``).
+Every split is read from the parameters' placements.  On plain tensors
+(outside a rules context) every one of those helpers is the identity, so
+the same functions compute what they always did.  The Mamba2 layers have
+no sharded form yet.
 
 Precision on the card: :func:`exact_matmuls` turns off TF32 and bf16
 reduced-precision reductions for the ``dense`` products while a forward
@@ -24,6 +33,7 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models import sharding as S
@@ -45,6 +55,7 @@ def exact_matmuls():
 
 def rms_norm(x, scale, eps: float = 1e-5):
     dt = x.dtype
+    scale = S.to_local(scale)              # a replicated DTensor under a mesh
     x = x.to(torch.float32)
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * scale.to(torch.float32)).to(dt)
@@ -87,19 +98,59 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
+def column_whole(x, w, size: int):
+    """x @ w for a column-parallel ``w``: the local columns, gathered whole
+    (``size`` of them) over the mesh dims ``w``'s columns are split on."""
+    wl, lay = S.weight(w, keep=(1,))
+    return S.gather(dense(x, wl), -1, lay[1], size)
+
+
+def row_parallel(h, w):
+    """h @ w for a row-parallel ``w`` (K, N), ``h`` whole along K: this
+    rank's rows of ``h`` times its rows of ``w``, the partial sums
+    all-reduced over the mesh dims the rows are split on."""
+    wl, lay = S.weight(w, keep=(0,))
+    return S.all_reduce(dense(S.take(h, -1, lay[0]), wl), lay[0])
+
+
+def kv_for_heads(k, h0: int, h1: int, g: int):
+    """The kv heads query heads [h0, h1) read (head h reads kv head h // g):
+    all of ``k`` for all the heads, a slice where the range holds whole
+    groups, else one kv head a query head."""
+    if h0 == 0 and h1 == k.shape[2] * g:
+        return k
+    if h0 % g == 0 and h1 % g == 0:
+        return k[:, :, h0 // g:h1 // g]
+    idx = torch.arange(h0, h1, device=k.device) // g
+    return k.index_select(2, idx)
+
+
 def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=None):
     """p: {'wq','wk','wv','wo'}; x: (B,S,D).
 
     kv_override: (k, v) already projected (whisper's cross-attention, from
     :func:`cross_kv`); they get no rotary embedding, and q gets one only
     where ``positions`` is given.  Returns (B,S,D) and the (k, v) tensors
-    for cache construction."""
+    for cache construction.
+
+    Under a mesh (module docstring) q goes over the query heads of
+    ``act_heads``; K and V are gathered whole over the mesh dims ``wk``/``wv``
+    split them on (the cache takes them whole), and the flash kernel runs on
+    the local heads with their kv heads; ``wo`` is row-parallel, so the
+    output is all-reduced."""
     b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    q = dense(x, p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    heads = S.mesh_dims("act_heads")
+    wq, lq = S.weight(p["wq"], keep=(1,))
+    q = dense(x, wq)
+    h0, h1 = S.chunk_range(hq, heads)
+    if lq[1] == heads and hq % S.mesh_size(heads) == 0:
+        q = q.reshape(b, s, h1 - h0, hd)          # the columns hold this rank's heads
+    else:
+        q = S.take(S.gather(q, -1, lq[1], hq * hd).reshape(b, s, hq, hd), 2, heads)
     if kv_override is None:
-        k = dense(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-        v = dense(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+        k = column_whole(x, p["wk"], hkv * hd).reshape(b, s, hkv, hd)
+        v = column_whole(x, p["wv"], hkv * hd).reshape(b, s, hkv, hd)
         if positions is None:
             positions = torch.arange(s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
@@ -108,9 +159,18 @@ def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=Non
         k, v = kv_override
         if positions is not None:
             q = rope(q, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window if causal else 0)
-    o = dense(o.reshape(b, s, cfg.n_heads * hd), p["wo"])
-    return o, (k, v)
+    if h1 > h0:
+        g = hq // hkv
+        o = flash_attention(q, kv_for_heads(k, h0, h1, g), kv_for_heads(v, h0, h1, g),
+                            causal=causal, window=cfg.sliding_window if causal else 0)
+    else:
+        o = q                                      # no head on this rank
+    wo, lo = S.weight(p["wo"], keep=(0,))
+    o = o.reshape(b, s, (h1 - h0) * hd)
+    if S.chunk_range(hq * hd, lo[0]) != (h0 * hd, h1 * hd):
+        o = S.take(S.gather(o.reshape(b, s, h1 - h0, hd), 2, heads, hq).reshape(b, s, hq * hd),
+                   -1, lo[0])
+    return S.all_reduce(dense(o, wo), lo[0]), (k, v)
 
 
 def cross_kv(p, enc_out, cfg):
@@ -128,9 +188,52 @@ def cross_kv(p, enc_out, cfg):
 # ---------------------------------------------------------------------------
 
 def swiglu_mlp(p, x):
-    """p: {'wi': (D, 2F), 'wo': (F, D)} -- fused gate+up projection."""
-    gate, up = torch.chunk(dense(x, p["wi"]), 2, dim=-1)
-    return dense(_silu_gate(gate, up), p["wo"])
+    """p: {'wi': (D, 2F), 'wo': (F, D)} -- fused gate+up projection.  Under a
+    mesh ``wi`` is column-parallel, the hidden goes over ``wo``'s row split
+    (``act_ff``) and ``wo`` is row-parallel, with an all-reduce after it."""
+    wi, li = S.weight(p["wi"], keep=(1,))
+    wo, lo = S.weight(p["wo"], keep=(0,))
+    gate, up = gate_up(dense(x, wi), li[1], p["wo"].shape[0], lo[0])
+    return S.all_reduce(dense(_silu_gate(gate, up), wo), lo[0])
+
+
+def gate_up(gu, src, f: int, dst):
+    """The fused [gate | up] columns (..., 2F) split over mesh dims ``src``
+    -> (gate, up), each F split over ``dst``.  A contiguous split of 2F
+    gives a rank gate columns, up columns or parts of each, not matching
+    halves, so the activations are resharded (the weights keep the
+    reference's layout): over one mesh dim of n members with F % n == 0,
+    rank r's two F/n-column pieces go to the ranks whose gate or up chunk
+    they are (one all-to-all, 2F/n columns a rank); otherwise the columns
+    are gathered whole and each half sliced."""
+    src, dst = S.members(src), S.members(dst)
+    if not src and not dst:
+        return torch.chunk(gu, 2, dim=-1)
+    mesh = S.current_mesh()
+    if src == dst and len(src) == 1 and f % S.mesh_size(src) == 0:
+        n = S.mesh_size(src)
+        c = f // n
+        # my flat pieces are 2r and 2r + 1 (units of c); piece j is gate chunk
+        # j (j < n) or up chunk j - n, and goes to that chunk's rank.  The
+        # all-to-all sends in rank order, so where piece 2r + 1 goes to a
+        # lower rank than piece 2r (2r + 1 = n, n odd) the two swap places.
+        # Rank t receives its gate chunk from rank t // 2 before its up
+        # chunk from the higher rank (n + t) // 2.
+        r = S.coordinate(src[0])
+        to = [0] * n
+        for j in (2 * r, 2 * r + 1):
+            to[j % n] += c
+        frm = [c * ((t == r // 2) + (t == (n + r) // 2)) for t in range(n)]
+        x = gu.movedim(-1, 0)
+        if (2 * r + 1) % n < (2 * r) % n:
+            x = torch.cat([x[c:], x[:c]])
+        x = x.contiguous()
+        out = x.new_empty((2 * c,) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x, output_split_sizes=frm, input_split_sizes=to,
+                               group=mesh.get_group(src[0]))
+        return torch.chunk(out.movedim(0, -1), 2, dim=-1)
+    gate, up = torch.chunk(S.gather(gu, -1, src, 2 * f), 2, dim=-1)
+    return S.take(gate, -1, dst), S.take(up, -1, dst)
 
 
 def _silu_gate(gate, up):
@@ -143,7 +246,9 @@ def moe_route(x, router, cfg):
     idx (B,S,K) the top-k experts of each token, gate_full (B,S,E) its
     renormalized gates, routed (B,S,E), src (B,E,C) each expert's token ids
     in FIFO order, valid (B,E,C)); ``src`` is 0 where not ``valid``."""
-    probs = torch.softmax(dense(x, router).to(torch.float32), dim=-1)
+    w, lay = S.weight(router, keep=(1,))
+    logits = S.gather(dense(x, w), -1, lay[1], cfg.n_experts)   # column-parallel over E
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
     _gate, idx = torch.topk(probs, cfg.top_k, dim=-1)
     return dispatch(probs, idx, cfg)
 
@@ -177,39 +282,60 @@ def moe_ffn(p, x, cfg):
     dtype (made on every call, as the reference casts), the gated
     scatter-add, the shared experts, the Switch aux loss.
 
+    Under a mesh the router's columns (E) are gathered, so each rank routes
+    its tokens whole: the top-k and the FIFO capacity are the unsharded
+    layer's, row by row.  A rank runs the experts its ``wi``/``wo`` shards
+    hold (E over ``act_expert``'s dims, each expert's F over ``wo``'s
+    split) on the tokens of ``act_moe_batch`` (less the experts' and F's
+    mesh dims, over which each token must meet every expert); the partial
+    ``y`` is all-reduced over the expert and F dims, and each rank keeps
+    its ``act_batch`` rows.  The balance loss is then over the rank's
+    tokens (serving drops it).
+
     p: {'router': (D,E), 'wi': (E,D,2Fe), 'wo': (E,Fe,D) [, 'shared_wi',
     'shared_wo']}; x: (B,S,D).  Returns (out (B,S,D), aux_loss)."""
-    b, s, d = x.shape
-    e_ = cfg.n_experts
-    probs, _idx, gate_full, routed, src, valid = moe_route(x, p["router"], cfg)
+    bl, s, d = x.shape
+    wi, lwi = S.weight(p["wi"], keep=(0, 2))
+    wo, lwo = S.weight(p["wo"], keep=(0, 1))
+    e_dims, f_in, f_out = lwi[0], lwi[2], lwo[1]
+    if lwo[0] != e_dims:                          # the experts where wi holds them
+        wo = S.reshard(wo, lwo, (e_dims, f_out, ()), p["wo"].shape)
+    b_all = bl * S.mesh_size(S.mesh_dims("act_batch"))
+    t_dims = tuple(i for i in S.mesh_dims("act_moe_batch") if i not in e_dims + f_in + f_out)
+    xt = S.shard_activation(x, (t_dims, None, None), src=("act_batch", None, None),
+                            shape=(b_all, s, d))
+    b = xt.shape[0]
+    probs, _idx, gate_full, routed, src, valid = moe_route(xt, p["router"], cfg)
     cap = src.shape[-1]
+    e0, e1 = S.chunk_range(cfg.n_experts, e_dims)
     # expert-major (E, B*C, ...) so each expert's rows are one bmm operand
-    src_e, valid_e = src.transpose(0, 1), valid.transpose(0, 1)       # (E,B,C)
+    src_e, valid_e = src.transpose(0, 1)[e0:e1], valid.transpose(0, 1)[e0:e1]   # (E,B,C)
     bidx = torch.arange(b, device=x.device)[None, :, None]
-    xin = x[bidx, src_e] * valid_e[..., None].to(x.dtype)            # (E,B,C,D) gather
-    gu = torch.bmm(xin.reshape(e_, b * cap, d), p["wi"].to(x.dtype))
+    xin = xt[bidx, src_e] * valid_e[..., None].to(x.dtype)          # (E,B,C,D) gather
+    gu = torch.bmm(xin.reshape(e1 - e0, b * cap, d), wi.to(x.dtype))
     del xin
-    g_, u_ = torch.chunk(gu, 2, dim=-1)
-    h = _silu_gate(g_, u_)
-    del gu, g_, u_
-    xout = torch.bmm(h, p["wo"].to(x.dtype))                         # (E,B*C,D)
+    h = _silu_gate(*gate_up(gu, f_in, p["wo"].shape[1], f_out))
+    del gu
+    xout = torch.bmm(h, wo.to(x.dtype))                             # (E,B*C,D)
     del h
     # per-slot gate weight: gate_full[b, src[b,e,c], e]
     gate_slot = torch.gather(gate_full.transpose(1, 2), 2, src)      # (B,E,C)
-    w_slot = (gate_slot * valid).to(x.dtype).transpose(0, 1).reshape(e_, b * cap, 1)
+    w_slot = (gate_slot * valid).to(x.dtype).transpose(0, 1)[e0:e1].reshape(e1 - e0, b * cap, 1)
     upd = xout * w_slot
     del xout
     flat = (src_e + bidx * s).reshape(-1)                            # rows of (B*S, D)
     y = torch.zeros((b * s, d), dtype=x.dtype, device=x.device)
     y.index_add_(0, flat, upd.reshape(-1, d))
-    y = y.reshape(b, s, d)
+    y = S.all_reduce(y.reshape(b, s, d), tuple(sorted(set(e_dims + f_out))))
+    y = S.shard_activation(y, ("act_batch", None, None), src=(t_dims, None, None),
+                           shape=(b_all, s, d))
     if "shared_wi" in p:
         y = y + swiglu_mlp({"wi": p["shared_wi"], "wo": p["shared_wo"]}, x)
     # Switch-style load-balance aux loss, over the whole batch where a
     # sharded step splits it
     me = S.batch_mean(probs, (0, 1))
     ce = S.batch_mean(routed.to(torch.float32), (0, 1))
-    return y, e_ * torch.sum(me * ce)
+    return y, cfg.n_experts * torch.sum(me * ce)
 
 
 # ---------------------------------------------------------------------------

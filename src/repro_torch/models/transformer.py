@@ -26,6 +26,12 @@ body) and
 recomputed in the backward).  :func:`param_tree` gives the parameters as a
 nested dict of tensors (the module's own storage) for the optimizer, the
 gradient and the checkpoint.
+
+Under a sharding-rules context (serving under a mesh, the parameters
+``DTensor``s) :func:`embed_tokens` and :func:`logits_for` are
+vocab-parallel: a masked local lookup all-reduced over the vocabulary's
+mesh dims, and local logits gathered whole over them, so every rank holds
+the whole logits of its batch rows.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.codec.device import resolve_device
-from repro_torch.models import layers as L
+from repro_torch.models import layers as L, sharding as S
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -327,7 +333,21 @@ def _run_layers_train(layers, h, cfg, *, causal: bool, enc_out=None):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg, tokens):
-    return params["embed"][tokens.long()].to(compute_dtype(cfg))
+    """The tokens' rows of ``embed`` in the compute dtype.  Under a mesh
+    vocab-parallel: each rank looks up the tokens its rows hold (zeros for
+    the rest) and the rows are all-reduced over the mesh dims the
+    vocabulary is split on -- a sum of one row and zeros, exact."""
+    w, lay = S.weight(params["embed"], keep=(0,))
+    v0, v1 = S.chunk_range(cfg.padded_vocab, lay[0])
+    if (v0, v1) == (0, cfg.padded_vocab):
+        return w[tokens.long()].to(compute_dtype(cfg))
+    ids = tokens.long() - v0
+    inside = (ids >= 0) & (ids < v1 - v0)
+    if v1 > v0:
+        rows = w[ids.clamp(0, v1 - v0 - 1)].to(compute_dtype(cfg))
+    else:                                          # no rows of the vocabulary here
+        rows = w.new_zeros(tuple(ids.shape) + (w.shape[1],), dtype=compute_dtype(cfg))
+    return S.all_reduce(torch.where(inside[..., None], rows, 0), lay[0])
 
 
 def _inputs(params, cfg: ArchConfig, tokens, frames, image_embeds, run_layers):
@@ -387,7 +407,11 @@ def lm_head_weight(params, cfg):
 def logits_for(params, cfg, h):
     """Logits in float32 over the padded vocabulary; the padding columns get
     -1e9."""
-    out = L.dense(h, lm_head_weight(params, cfg)).to(torch.float32)
+    key, col = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
+    w, lay = S.weight(params[key], keep=(col,))
+    w = w.T if cfg.tie_embeddings else w
+    # under a mesh vocab-parallel: this rank's columns, gathered whole
+    out = S.gather(L.dense(h, w), -1, lay[col], cfg.padded_vocab).to(torch.float32)
     if cfg.padded_vocab != cfg.vocab_size:
         mask = torch.zeros(cfg.padded_vocab, dtype=torch.float32, device=out.device)
         mask[cfg.vocab_size:] = 1e9

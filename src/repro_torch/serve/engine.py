@@ -17,6 +17,23 @@ by the prefill and read-only after, dense in both cache modes, as the
 reference keeps them.  The VLM's prefix positions are cached as the tokens'
 are.
 
+Under a mesh (inside ``models.sharding.use_rules(mesh, rules)``, the
+parameters a tree of ``DTensor``s placed by ``param_specs_tree`` or
+``serve_param_specs_tree``) :func:`prefill` and :func:`decode_step`
+compute tensor-parallel on each rank's shards, for the dense and MoE
+families: the batch split over ``act_batch``, the cache placed as
+``cache_specs_tree`` places it (K/V (L, B, W, Hkv, hd) with hd over
+``act_hd``'s axes, mu/sexp whole over them, the planes with hd split), and
+the prefill's cache and logits come back as ``DTensor``s (the logits each
+rank's batch rows, the whole vocabulary).  A decode step takes the
+token's K/V whole over ``model``, writes this rank's hd columns (the
+compressed cache encodes whole hd blocks, so mu and sexp are the
+unsharded encode's, and keeps this rank's columns of the planes), and
+attends with hd-partial scores all-reduced in bf16 (:func:`_reduce_scores`)
+and the output gathered over hd.  The same functions serve with and
+without a mesh: on plain tensors outside a rules context every split,
+gather and all-reduce they call is the identity.
+
 Where the port differs from the reference:
   - the cache is updated in place: :func:`prefill` builds it, and
     :func:`decode_step` writes the new token's slot into the slabs and
@@ -36,7 +53,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.codec.device import DeviceEncoding, resolve_device
 from repro_torch.core.codec.planes_codec import PlanesCodec
-from repro_torch.models import layers as L
+from repro_torch.models import layers as L, sharding as S
 from repro_torch.models import transformer as T
 from repro_torch.models.sharding import rules_active
 
@@ -44,14 +61,15 @@ NEG_INF = -1e30
 DECODE_CHUNK = 2048
 
 
-def _reduce_scores(s):
-    """The reference's cast of the decode scores through bf16 under a
-    sharding-rules context (there it halves the wire bytes of the
-    cross-shard sum of head_dim-partial scores); outside one, ``s`` as it
-    is."""
+def _reduce_scores(s, dims=()):
+    """Scores that are partial sums over head_dim split across mesh
+    ``dims`` made whole, as the reference's are under a sharding-rules
+    context: cast to bf16 (halving the wire bytes of the cross-shard sum),
+    all-reduced over ``dims`` and cast back to float32.  Outside a rules
+    context, ``s`` as it is."""
     if not rules_active():
         return s
-    return s.to(torch.bfloat16).to(torch.float32)
+    return S.all_reduce(s.to(torch.bfloat16), dims).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -84,26 +102,30 @@ def cache_window(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def make_cache(cfg: ArchConfig, batch: int, seq_len: int, *, kv_mode: str = "dense",
-               num_planes: int = 1, dtype=torch.bfloat16, device=None) -> dict:
+               num_planes: int = 1, dtype=torch.bfloat16, device=None,
+               head_cols: int | None = None) -> dict:
     """Zero-initialized cache on ``device`` (default the card): K/V slabs
     for the attention families, state and conv slabs for the SSM ones, the
     cross-attention's K/V for the encoder-decoder; an attention-free
-    model's ``slot_pos`` has one slot."""
+    model's ``slot_pos`` has one slot.  ``head_cols`` is the head_dim
+    columns the self-attention slabs hold (all by default; a rank's share
+    under a mesh)."""
     if kv_mode not in ("dense", "compressed"):
         raise ValueError(f"unknown kv_mode {kv_mode!r}")
     if device is None:
         device = resolve_device(None, "make_cache")
     w = cache_window(cfg, seq_len)
     hd, nl, hkv = cfg.resolved_head_dim, cfg.n_layers, cfg.n_kv_heads
+    cols = hd if head_cols is None else head_cols
     lay = {}
     attn = T.has_attention(cfg)
     for nm in ("k", "v") if attn else ():
         if kv_mode == "dense":
-            lay[nm] = torch.zeros((nl, batch, w, hkv, hd), dtype=dtype, device=device)
+            lay[nm] = torch.zeros((nl, batch, w, hkv, cols), dtype=dtype, device=device)
         else:
             lay[nm + "mu"] = torch.zeros((nl, batch, w, hkv), dtype=torch.float32, device=device)
             lay[nm + "sexp"] = torch.zeros((nl, batch, w, hkv), dtype=torch.int8, device=device)
-            lay[nm + "pl"] = torch.zeros((nl, num_planes, batch, w, hkv, hd), dtype=torch.uint8,
+            lay[nm + "pl"] = torch.zeros((nl, num_planes, batch, w, hkv, cols), dtype=torch.uint8,
                                          device=device)
     if T.has_ssm(cfg):
         lay["state"] = torch.zeros((nl, batch, cfg.ssm_n_heads, cfg.ssm_state, cfg.ssm_head_dim),
@@ -135,10 +157,12 @@ def cache_nbytes(cache: dict) -> int:
                for part in ("layers", "cross") for t in cache.get(part, {}).values())
 
 
-def fill_cache(cache: dict, k, v, *, kv_mode: str = "dense", num_planes: int = 1) -> dict:
+def fill_cache(cache: dict, k, v, *, kv_mode: str = "dense", num_planes: int = 1,
+               hd=slice(None)) -> dict:
     """Write a prefill's K/V (L, B, S, Hkv, hd) into a fresh cache: the last
     min(W, S) positions, at slot pos % W; then pos = S.  Compressed caches
-    get one encode over all layers for K and one for V."""
+    get one encode over all layers for K and one for V, on whole head_dim
+    blocks.  ``hd`` is the slice of head_dim the slabs (the planes) hold."""
     lay = cache["layers"]
     w = cache["slot_pos"].shape[0]
     s = k.shape[2]
@@ -148,14 +172,14 @@ def fill_cache(cache: dict, k, v, *, kv_mode: str = "dense", num_planes: int = 1
     slots = src_pos % w
     k_t, v_t = k[:, :, s - take:], v[:, :, s - take:]
     if kv_mode == "dense":
-        lay["k"][:, :, slots] = k_t.to(lay["k"].dtype)
-        lay["v"][:, :, slots] = v_t.to(lay["v"].dtype)
+        lay["k"][:, :, slots] = k_t[..., hd].to(lay["k"].dtype)
+        lay["v"][:, :, slots] = v_t[..., hd].to(lay["v"].dtype)
     else:
         for nm, t in (("k", k_t), ("v", v_t)):
             mu, sexp, pl = _kv_encode(t, num_planes)         # pl: (P, L, B, take, Hkv, hd)
             lay[nm + "mu"][:, :, slots] = mu
             lay[nm + "sexp"][:, :, slots] = sexp
-            lay[nm + "pl"][:, :, :, slots] = pl.movedim(0, 1)
+            lay[nm + "pl"][:, :, :, slots] = pl[..., hd].movedim(0, 1)
     cache["pos"] = s
     slot_pos = torch.full((w,), -1, dtype=torch.int32, device=dev)
     slot_pos[slots] = src_pos.to(torch.int32)
@@ -174,19 +198,22 @@ def _mask(s, slot_pos, qpos: int, window: int):
     return torch.where(valid[None, None, None, :], s, NEG_INF)
 
 
-def _slab_attend(q, kslab, vslab, slot_pos, qpos: int, *, window: int):
+def _slab_attend(q, kslab, vslab, slot_pos, qpos: int, *, window: int, hd=None,
+                 hd_dims=()):
     """q: (B,1,Hq,hd); slabs: (B,W,Hkv,hd); slot_pos: (W,) absolute
-    positions.  Single-shot masked attention, float32 scores and p @ v."""
-    b, _, hq, hd = q.shape
+    positions.  Single-shot masked attention, float32 scores and p @ v.
+    Under a mesh q and the slabs hold the head_dim columns of mesh
+    ``hd_dims`` and ``hd`` is the whole head_dim (the scale's)."""
+    b, _, hq, hdl = q.shape
     hkv = kslab.shape[2]
-    qg = q.reshape(b, hkv, hq // hkv, hd).to(torch.float32)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, kslab.to(torch.float32)) / math.sqrt(hd)
-    s = _mask(_reduce_scores(s), slot_pos, qpos, window)
+    qg = q.reshape(b, hkv, hq // hkv, hdl).to(torch.float32)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, kslab.to(torch.float32)) / math.sqrt(hd or hdl)
+    s = _mask(_reduce_scores(s, hd_dims), slot_pos, qpos, window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s > NEG_INF / 2, torch.exp(s - m), 0.0)
     out = torch.einsum("bhgk,bkhd->bhgd", p, vslab.to(torch.float32))
     out = out / torch.clamp(p.sum(-1)[..., None], min=1e-30)
-    return out.reshape(b, 1, hq, hd).to(q.dtype)
+    return out.reshape(b, 1, hq, hdl).to(q.dtype)
 
 
 def _chunks(w: int, chunk: int) -> list[slice]:
@@ -194,19 +221,20 @@ def _chunks(w: int, chunk: int) -> list[slice]:
     return [slice(i, i + chunk) for i in range(0, w, chunk)]
 
 
-def _chunked_slab_attend(q, chunks, qpos: int, *, window: int):
+def _chunked_slab_attend(q, chunks, qpos: int, *, window: int, hd=None, hd_dims=()):
     """Online-softmax loop over ``chunks`` of the cache: (k (B,c,Hkv,hd),
     v, slot_pos (c,)) triples, dequantized already where the cache is
-    compressed."""
-    b, _, hq, hd = q.shape
+    compressed; ``hd`` and ``hd_dims`` as :func:`_slab_attend`'s."""
+    b, _, hq, hdl = q.shape
+    scale = math.sqrt(hd or hdl)
     m = torch.tensor(NEG_INF, device=q.device)          # broadcast to (B,Hkv,G)
     l = torch.zeros((), device=q.device)
     acc = torch.zeros((), device=q.device)
     for kc, vc, sp in chunks:
         hkv = kc.shape[2]
-        qg = q.reshape(b, hkv, hq // hkv, hd).to(torch.float32)
-        s = torch.einsum("bhgd,bkhd->bhgk", qg, kc.to(torch.float32)) / math.sqrt(hd)
-        s = _mask(_reduce_scores(s), sp, qpos, window)
+        qg = q.reshape(b, hkv, hq // hkv, hdl).to(torch.float32)
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, kc.to(torch.float32)) / scale
+        s = _mask(_reduce_scores(s, hd_dims), sp, qpos, window)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.where(s > NEG_INF / 2, torch.exp(s - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
@@ -215,39 +243,49 @@ def _chunked_slab_attend(q, chunks, qpos: int, *, window: int):
         acc = alpha[..., None] * acc + pv
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(b, 1, hq, hd).to(q.dtype)
+    return out.reshape(b, 1, hq, hdl).to(q.dtype)
 
 
 def decode_attention(p, x1, lc, cache_meta, cfg: ArchConfig, *, kv_mode: str,
                      num_planes: int):
     """One layer's decode attention, appending the token's K/V to the
-    layer's slabs ``lc`` in place.  Returns the attention output (B,1,D)."""
+    layer's slabs ``lc`` in place.  Returns the attention output (B,1,D).
+    Under a mesh (module docstring) q, k and v come whole over the model
+    axis, and this rank's head_dim columns (mesh dims
+    ``cache_meta["hd_dims"]``, the cache's split) are written and attended;
+    the output is gathered over head_dim and ``wo`` is row-parallel."""
     b = x1.shape[0]
-    hd = cfg.resolved_head_dim
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     pos, slot_pos, w = cache_meta["pos"], cache_meta["slot_pos"], cache_meta["w"]
+    hd_dims = cache_meta["hd_dims"]
     slot = pos % w
-    q = L.dense(x1, p["wq"]).reshape(b, 1, cfg.n_heads, hd)
-    k = L.dense(x1, p["wk"]).reshape(b, 1, cfg.n_kv_heads, hd)
-    v = L.dense(x1, p["wv"]).reshape(b, 1, cfg.n_kv_heads, hd)
+    q = L.column_whole(x1, p["wq"], hq * hd).reshape(b, 1, hq, hd)
+    k = L.column_whole(x1, p["wk"], hkv * hd).reshape(b, 1, hkv, hd)
+    v = L.column_whole(x1, p["wv"], hkv * hd).reshape(b, 1, hkv, hd)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x1.device)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
+    h0, h1 = S.chunk_range(hd, hd_dims)
+    q = q[..., h0:h1]
     window = cfg.sliding_window
     if kv_mode == "dense":
-        lc["k"][:, slot] = k[:, 0]
-        lc["v"][:, slot] = v[:, 0]
+        lc["k"][:, slot] = k[:, 0, :, h0:h1]
+        lc["v"][:, slot] = v[:, 0, :, h0:h1]
         if w <= DECODE_CHUNK * 2:
-            out = _slab_attend(q, lc["k"], lc["v"], slot_pos, pos, window=window)
+            out = _slab_attend(q, lc["k"], lc["v"], slot_pos, pos, window=window, hd=hd,
+                               hd_dims=hd_dims)
         else:
             out = _chunked_slab_attend(
                 q, ((lc["k"][:, sl], lc["v"][:, sl], slot_pos[sl])
-                    for sl in _chunks(w, DECODE_CHUNK)), pos, window=window)
+                    for sl in _chunks(w, DECODE_CHUNK)), pos, window=window, hd=hd,
+                hd_dims=hd_dims)
     else:
         for nm, t in (("k", k), ("v", v)):
-            mu, sexp, pl = _kv_encode(t[:, 0], num_planes)   # (B,Hkv), (B,Hkv), (P,B,Hkv,hd)
+            # whole head_dim blocks: (B,Hkv), (B,Hkv), (P,B,Hkv,hd)
+            mu, sexp, pl = _kv_encode(t[:, 0], num_planes)
             lc[nm + "mu"][:, slot] = mu
             lc[nm + "sexp"][:, slot] = sexp
-            lc[nm + "pl"][:, :, slot] = pl
+            lc[nm + "pl"][:, :, slot] = pl[..., h0:h1]
 
         def dequant(nm, sl):
             return _kv_decode(lc[nm + "mu"][:, sl], lc[nm + "sexp"][:, sl],
@@ -255,8 +293,10 @@ def decode_attention(p, x1, lc, cache_meta, cfg: ArchConfig, *, kv_mode: str,
 
         out = _chunked_slab_attend(
             q, ((dequant("k", sl), dequant("v", sl), slot_pos[sl])
-                for sl in _chunks(w, min(w, DECODE_CHUNK))), pos, window=window)
-    return L.dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
+                for sl in _chunks(w, min(w, DECODE_CHUNK))), pos, window=window, hd=hd,
+            hd_dims=hd_dims)
+    out = S.gather(out, -1, hd_dims, hd)
+    return L.row_parallel(out.reshape(b, 1, hq * hd), p["wo"])
 
 
 def _cross_attend(p, x1, cross_k, cross_v, cfg: ArchConfig):
@@ -283,23 +323,49 @@ def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
     logits of the last position (B, 1, V)).  ``frames`` (B, T, D) feed the
     encoder-decoder's encoder, ``image_embeds`` (B, P, D) the VLM's prefix;
     the cache is sized for ``seq_len`` positions (default all of them, the
-    prefix included), and a shorter one is a ring that evicts."""
-    h, enc_out = T._inputs(params, cfg, tokens, frames, image_embeds, T._run_layers)
+    prefix included), and a shorter one is a ring that evicts.  Under a
+    mesh (module docstring) the cache and logits are ``DTensor``s: the
+    cache in :func:`cache_layout`'s layout, made from the layers' K/V,
+    which come whole over 'model', so the dense slabs take this rank's
+    head_dim columns and the compressed cache encodes whole blocks."""
+    meshed = rules_active()
+    bdims = S.mesh_dims("act_batch")
+    b_all = tokens.shape[0]
+    if meshed:
+        _check_family(cfg)
+        if S.dividing(bdims, b_all) != bdims:
+            raise ValueError(f"a batch of {b_all} does not split over the mesh dims {bdims} "
+                             f"of act_batch")
+    h, enc_out = T._inputs(params, cfg, _batch_rows(tokens, bdims), frames, image_embeds,
+                           T._run_layers)
     h, _, caps = T._run_layers(params["layers"], h, cfg, causal=True, enc_out=enc_out,
                                capture=True)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = T.logits_for(params, cfg, h[:, -1:])
     b, s = h.shape[0], h.shape[1]
+    hd = cfg.resolved_head_dim
+    if meshed:
+        whole = cache_specs(cfg, b_all, seq_len or s, kv_mode=kv_mode, num_planes=num_planes)
+        lays = {name: cache_layout(name, t.shape) for name, t in whole["layers"].items()}
+        h0, h1 = S.chunk_range(hd, lays["k" if kv_mode == "dense" else "kpl"][-1])
+    else:
+        h0, h1 = 0, hd
     cache = make_cache(cfg, b, seq_len or s, kv_mode=kv_mode, num_planes=num_planes,
-                       dtype=h.dtype, device=h.device)
+                       dtype=h.dtype, device=h.device, head_cols=h1 - h0)
     if "k" in caps:
-        fill_cache(cache, caps["k"], caps["v"], kv_mode=kv_mode, num_planes=num_planes)
+        fill_cache(cache, caps["k"], caps["v"], kv_mode=kv_mode, num_planes=num_planes,
+                   hd=slice(h0, h1))
     cache["pos"] = s
     if "state" in caps:
         cache["layers"]["state"].copy_(caps["state"])
         cache["layers"]["conv"].copy_(caps["conv"])
     if cfg.encoder_decoder:
         cache["cross"] = {"k": caps["cross_k"].to(h.dtype), "v": caps["cross_v"].to(h.dtype)}
+    if meshed:
+        cache["slot_pos"] = S.from_local(cache["slot_pos"], ((),), whole["slot_pos"].shape)
+        cache["layers"] = {name: S.from_local(t, lays[name], whole["layers"][name].shape)
+                           for name, t in cache["layers"].items()}
+        logits = S.from_local(logits, (bdims, (), ()), (b_all,) + tuple(logits.shape[1:]))
     return cache, logits
 
 
@@ -308,18 +374,31 @@ def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
 def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "dense",
                 num_planes: int = 1):
     """One token (B, 1) for every sequence in the batch.  Returns (logits
-    (B, 1, V), cache), the cache updated in place."""
-    h = T.embed_tokens(params, cfg, token)
+    (B, 1, V), cache), the cache updated in place (under a mesh its local
+    shards, the logits a ``DTensor``; the cache's batch split must be
+    ``act_batch``'s)."""
+    slabs = {name: S.placed(t) for name, t in cache["layers"].items()}
+    bdims = S.mesh_dims("act_batch")
+    hd_dims = ()
+    if rules_active():
+        _check_family(cfg)
+        lead = slabs["k" if kv_mode == "dense" else "kpl"][1]
+        if S.members(lead[1 if kv_mode == "dense" else 2]) != S.members(bdims):
+            raise ValueError(f"the cache's batch is split over mesh dims "
+                             f"{lead[1 if kv_mode == 'dense' else 2]}, the rules' act_batch "
+                             f"over {bdims}")
+        hd_dims = lead[-1]
+    h = T.embed_tokens(params, cfg, _batch_rows(token, bdims))
     pos = cache["pos"]
-    slot_pos = cache["slot_pos"]
+    slot_pos = S.to_local(cache["slot_pos"])
     w = slot_pos.shape[0]
     # mark the current token's slot before the layers so attention sees the
     # token it is appending (self-attention to position `pos`)
     slot_pos[pos % w] = pos
-    meta = {"pos": pos, "slot_pos": slot_pos, "w": w}
+    meta = {"pos": pos, "slot_pos": slot_pos, "w": w, "hd_dims": hd_dims}
     attn = T.has_attention(cfg)
     for i, lp in enumerate(params["layers"]):
-        lc = {name: slab[i] for name, slab in cache["layers"].items()}
+        lc = {name: slab[i] for name, (slab, _lay) in slabs.items()}
         hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
         mix = None
         if attn:
@@ -338,4 +417,52 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
         h, _ = T.ffn_part(lp, h, cfg)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     cache["pos"] = pos + 1
-    return T.logits_for(params, cfg, h), cache
+    logits = T.logits_for(params, cfg, h)
+    if rules_active():
+        logits = S.from_local(logits, (bdims, (), ()),
+                              (token.shape[0],) + tuple(logits.shape[1:]))
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# serving under a mesh (module docstring)
+# ---------------------------------------------------------------------------
+
+def mesh_served(cfg: ArchConfig) -> bool:
+    """Whether the engine serves ``cfg``'s family under a mesh: the dense
+    and MoE families (the SSM, hybrid, audio and VLM ones wait for a later
+    slice, ROADMAP.md)."""
+    return not (T.has_ssm(cfg) or cfg.encoder_decoder or cfg.prefix_embeds)
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if not mesh_served(cfg):
+        raise NotImplementedError(f"{cfg.name} ({cfg.family}): serving under a mesh covers the "
+                                  f"dense and MoE families; the SSM, hybrid, audio and VLM "
+                                  f"families wait for a later slice (ROADMAP.md)")
+
+
+def cache_layout(name: str, shape) -> tuple:
+    """The layout (``models/sharding.py``) the engine keeps a cache leaf
+    ``name`` of whole ``shape`` in under the active rules: the batch over
+    ``act_batch``'s mesh dims and head_dim over ``act_hd``'s, each where it
+    divides the dim -- ``launch/mesh.cache_specs_tree``'s layout under
+    ``DEFAULT_RULES``: K/V (L, B, W, Hkv, hd), mu/sexp (L, B, W, Hkv) whole
+    over head_dim's dims, the planes (L, P, B, W, Hkv, hd)."""
+    lay = [()] * len(shape)
+    if name in ("k", "v") or name[1:] in ("mu", "sexp", "pl"):
+        bi = 2 if name.endswith("pl") else 1
+        lay[bi] = S.dividing(S.mesh_dims("act_batch"), shape[bi])
+        if name in ("k", "v") or name.endswith("pl"):
+            lay[-1] = S.dividing(S.mesh_dims("act_hd"), shape[-1])
+    elif name not in ("pos", "slot_pos"):
+        raise ValueError(f"no serving cache layout for {name}")
+    return tuple(lay)
+
+
+def _batch_rows(t, dims):
+    """This rank's rows (over mesh ``dims``) of a (B, ...) input given whole
+    or as a ``DTensor``."""
+    if type(t) is not torch.Tensor and hasattr(t, "full_tensor"):
+        t = t.full_tensor()
+    return S.take(t, 0, dims)

@@ -157,24 +157,13 @@ def state_template(cfg: ArchConfig, *, ef_planes: int = 0) -> dict:
     return state
 
 
-def sharded(local: torch.Tensor, spec, shape, mesh):
-    """A ``DTensor`` of global ``shape`` whose shard on this rank is
-    ``local``, placed by ``spec``."""
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.launch.mesh import _contiguous_stride, placements
-
-    return DTensor.from_local(local, mesh, placements(spec, mesh), run_check=False,
-                              shape=torch.Size(shape), stride=_contiguous_stride(shape))
-
-
 def init_sharded_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator, mesh, *,
                        ef_planes: int = 0, device=None) -> dict:
     """:func:`init_state`'s values (the same draws from ``generator``) as
     ``DTensor``s placed by :func:`state_specs` on ``mesh``: each parameter
     is drawn whole, its shard kept and the rest dropped, so a rank holds
     one whole leaf at most beside its shards."""
-    from repro_torch.launch.mesh import local_index, local_shape
+    from repro_torch.launch.mesh import from_local, local_index, local_shape
 
     specs = state_specs(cfg, state_template(cfg, ef_planes=ef_planes), mesh)
     spec_at = dict(key_paths(specs["params"]))
@@ -182,8 +171,8 @@ def init_sharded_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator, 
     drawn = {}
     for path, full in T.init_leaves(cfg, generator, device=device):
         part = full[local_index(spec_at[path], full.shape, mesh, coords)]
-        drawn[path] = sharded(part if part.numel() == full.numel() else part.clone(),
-                              spec_at[path], full.shape, mesh)
+        drawn[path] = from_local(part if part.numel() == full.numel() else part.clone(),
+                                 spec_at[path], full.shape, mesh)
         del full
     template = T.param_specs(cfg)
     params = unflatten(template, [drawn[path] for path, _ in key_paths(template)])
@@ -192,13 +181,13 @@ def init_sharded_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator, 
         shape = lead + tuple(p.shape)
         local = torch.zeros(local_shape(spec, shape, mesh, coords), dtype=dtype,
                             device=p.to_local().device)
-        return sharded(local, spec, shape, mesh)
+        return from_local(local, spec, shape, mesh)
 
     dev = leaves(params)[0].to_local().device
     state = {"params": params,
              "opt": AdamWState(
-                 step=sharded(torch.zeros((), dtype=torch.int32, device=dev),
-                              specs["opt"].step, (), mesh),
+                 step=from_local(torch.zeros((), dtype=torch.int32, device=dev),
+                                 specs["opt"].step, (), mesh),
                  m=tree_map(zeros, params, specs["opt"].m),
                  v=tree_map(zeros, params, specs["opt"].v))}
     if ef_planes:

@@ -1,15 +1,16 @@
-"""repro_torch's dry-run: rank 0's sharded step on fake tensors over a fake
-process group, and the serving cells' ideal bytes.
+"""repro_torch's dry-run: rank 0's sharded step, prefill or decode step on
+fake tensors over a fake process group.
 
 ``launch/dryrun.py::lower_cell`` runs a reduced dense, MoE and SSM train
 cell on a fake (2, 2) mesh here: it must complete without launching a
 kernel and without a real collective, and its argument bytes must be the
 spec arithmetic (rank 0's shard of every state leaf plus its batch rows).
-A decode cell is a SKIP whose ``ideal_bytes_per_device`` is the
-reference's arithmetic over its specs (``repro/launch/dryrun.py:199-204``)
-on the production mesh.  On this CPU-only build the fake tensors are CPU
-tensors (autograd on fake CUDA tensors needs a CUDA build); on the card the
-dry-run's default is ``--device cuda``.
+A serving cell of the dense and MoE families runs rank 0's sharded
+prefill or decode step (``OK``); the other families' are a SKIP.  Either
+way its ``ideal_bytes_per_device`` is the reference's arithmetic over its
+specs (``repro/launch/dryrun.py:199-204``).  On this CPU-only build the
+fake tensors are CPU tensors (autograd on fake CUDA tensors needs a CUDA
+build); on the card the dry-run's default is ``--device cuda``.
 """
 import json
 import math
@@ -90,25 +91,62 @@ def test_compressed_and_pure_dp_cells():
     assert dp["memory"]["argument_size_in_bytes"] > _spec_bytes("llama3.2-1b")
 
 
-@pytest.mark.parametrize("arch,shape,kv_mode", [
-    ("deepseek-moe-16b", "decode_32k", "dense"),
-    ("llama3.2-1b", "decode_32k", "compressed"),
-    ("hymba-1.5b", "prefill_32k", "dense"),
-    ("whisper-medium", "decode_32k", "dense"),
+@pytest.mark.parametrize("arch,shape,kv_mode,serve_layout,reduced,status", [
+    ("deepseek-moe-16b", "decode_32k", "dense", False, False, "OK"),
+    ("llama3.2-1b", "decode_32k", "compressed", False, False, "OK"),
+    ("hymba-1.5b", "prefill_32k", "dense", False, False, "SKIP"),
+    ("whisper-medium", "decode_32k", "dense", False, False, "SKIP"),
+    # the plain flash version's 64 x 32 chunk pairs a layer at S 32768 take
+    # ~10 min on fake CPU tensors: the prefill cell runs reduced on (2, 2)
+    ("llama3.2-1b", "prefill_32k", "dense", False, True, "OK"),
+    ("deepseek-moe-16b", "decode_32k", "compressed", True, False, "OK"),
 ])
-def test_serving_cells_are_skips_with_the_reference_ideal_bytes(arch, shape, kv_mode):
-    rec = dryrun.lower_cell(arch, shape, kv_mode=kv_mode, device="cpu")
-    assert rec["status"] == "SKIP" and "later slice" in rec["reason"]
-    rcfg = rconfigs.get(arch)
-    rm = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty((16, 16)))
+def test_serving_cells_trace_or_skip_with_the_reference_ideal_bytes(arch, shape, kv_mode,
+                                                                     serve_layout, reduced,
+                                                                     status):
+    """The dense and MoE families' serving cells trace rank 0's sharded
+    prefill or decode step (``OK``, a decode cell with its floor fraction);
+    the others are a ``SKIP`` naming the later slice.  Either way
+    ``ideal_bytes_per_device`` is the reference's arithmetic over its specs
+    (``repro/launch/dryrun.py:199-204``)."""
+    ops.reset_launch_counts()
+    mesh_shape = (2, 2) if reduced else (16, 16)
+    rec = dryrun.lower_cell(arch, shape, kv_mode=kv_mode, serve_layout=serve_layout,
+                            reduced=reduced, mesh_shape=mesh_shape, device="cpu")
+    assert not dist.is_initialized() and not any(ops.launch_counts().values())
+    assert rec["status"] == status
+    rcfg = rconfigs.get(arch).reduced() if reduced else rconfigs.get(arch)
+    rm = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty(mesh_shape))
     params = RT.param_specs(rcfg)
-    cache = rengine.cache_specs(rcfg, SHAPES[shape]["global_batch"], SHAPES[shape]["seq_len"],
-                                kv_mode=kv_mode, num_planes=1)
-    want = (ranalysis.sharded_bytes_per_device(params, rmesh.param_specs_tree(rcfg, params, rm),
-                                               rm)
+    seq, batch = SHAPES[shape]["seq_len"], SHAPES[shape]["global_batch"]
+    if reduced:
+        seq, batch = min(seq, 64), min(batch, 4)
+    cache = rengine.cache_specs(rcfg, batch, seq, kv_mode=kv_mode, num_planes=1)
+    pspecs = (rmesh.serve_param_specs_tree(rcfg, params, rm) if serve_layout
+              else rmesh.param_specs_tree(rcfg, params, rm))
+    want = (ranalysis.sharded_bytes_per_device(params, pspecs, rm)
             + ranalysis.sharded_bytes_per_device(cache, rmesh.cache_specs_tree(rcfg, rm, cache),
                                                  rm))
     assert rec["ideal_bytes_per_device"] == want
+    if status == "SKIP":
+        assert "later slice" in rec["reason"] and "SSM, hybrid, audio and VLM" in rec["reason"]
+        return
+    rl = rec["roofline"]
+    cfg = configs.get(arch).reduced() if reduced else configs.get(arch)
+    assert rec["kind"] == SHAPES[shape]["kind"] and rec["ops"] > 100
+    if rec["kind"] == "decode":
+        assert rl["model_flops_global"] == ranalysis.decode_model_flops(rcfg, batch)
+        assert 0 < rl["floor_fraction"] <= 1
+        # the bf16 scores are all-reduced over 'model', a step's hot collective
+        assert rl["collectives_by_axis"]["model"]["all-reduce"] >= (
+            cfg.n_layers * batch // mesh_shape[0] * cfg.n_heads * seq * 2)
+    else:
+        assert rl["model_flops_global"] == 2.0 * rcfg.active_param_count() * seq * batch
+        assert "floor_fraction" not in rl
+    # the memory floor reads the parameters, the batch rows (and the cache) once
+    assert rec["memory"]["argument_size_in_bytes"] >= (
+        rec["ideal_bytes_per_device"] if rec["kind"] == "decode" else 0)
+    json.dumps(rec)
 
 
 def test_shape_skips_and_an_existing_group():
