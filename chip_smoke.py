@@ -3727,7 +3727,7 @@ def train_moe_cut(args) -> dict:
         f"{full.param_count() * TRAIN_STATE_BYTES / 1e9:.1f} GB of f32 weights, gradients and "
         f"AdamW moments against the card's {total / 1e9:.1f} GB; {MOE_TRAIN_LAYERS} layers have "
         f"{cfg.param_count()} ({cfg.param_count() * TRAIN_STATE_BYTES / 1e9:.1f} GB). Full "
-        f"depth waits for sharding (ROADMAP.md queue 1 item 7)")
+        f"depth needs four cards (ROADMAP.md queue 1 item 12)")
     opt = AdamW(lr=TRAIN_LR)
     ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 50)
@@ -3867,8 +3867,12 @@ def phase_examples() -> dict:
 PHASE16_MOE_PEAK_GB = 50.33
 SHARD_CKPT_DIR = CKPT_DIR / "sharded"
 DRYRUN_CELLS = (("deepseek-moe-16b", "train_4k", False, 0),   # (arch, shape, multi_pod, P)
-                ("yi-6b", "train_4k", False, 0),
                 ("llama3.2-1b", "train_4k", True, 1))
+# the same cells traced by the parent tree's step, which gathered every
+# parameter whole and ran the whole model on each 'model' rank: (flops a
+# device, useful_flops_ratio) on fake CUDA tensors (PERF.md section 6)
+DRYRUN_PARENT = {("deepseek-moe-16b", False): (1730096578691072.0, 0.04020907627361635),
+                 ("llama3.2-1b", True): (353634722250752.0, 0.042939383266332266)}
 
 
 def one_member_mesh(names):
@@ -3877,11 +3881,13 @@ def one_member_mesh(names):
     return init_device_mesh("cuda", (1,) * len(names), mesh_dim_names=names)
 
 
-def shard_runs(cfg, opt, ds, mesh, seed: int, *, P: int = 0):
+def shard_runs(cfg, opt, ds, mesh, seed: int, *, P: int = 0, watch=(), init=None):
     """TRAIN_STEPS steps (B 4 x S 2048 from ``ds``) from ``seed``'s state:
-    plain (``mesh`` None) or sharded on ``mesh``.  Returns (state, losses,
-    step seconds)."""
+    plain (``mesh`` None) or sharded on ``mesh``; the initial corners of the
+    ``watch`` leaves go into ``init``.  Returns (state, losses, step
+    seconds)."""
     import torch
+    from repro_torch.core import pytree
     from repro_torch.train import step as step_mod
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -3889,6 +3895,9 @@ def shard_runs(cfg, opt, ds, mesh, seed: int, *, P: int = 0):
         state = step_mod.init_state(cfg, opt, gen, device="cuda")
     else:
         state = step_mod.init_sharded_state(cfg, opt, gen, mesh, ef_planes=P, device="cuda")
+    if watch:
+        leaves = dict(pytree.leaf_paths(state["params"]))
+        init.update({n: corner(local(leaves[n])) for n in watch})
     fn = step_mod.make_train_step(cfg, opt, mesh=mesh, compress_planes=P)
     losses, times = [], []
     for s in range(TRAIN_STEPS):
@@ -3900,28 +3909,29 @@ def shard_runs(cfg, opt, ds, mesh, seed: int, *, P: int = 0):
 
 
 def flat_params(state):
+    """The parameters' local tensors: the whole leaves on a one-member mesh."""
     from repro_torch.core import pytree
 
-    return [p.full_tensor() if hasattr(p, "full_tensor") else p
-            for p in pytree.leaves(state["params"])]
+    return [local(p) for p in pytree.leaves(state["params"])]
 
 
 def max_diff(a, b) -> float:
     return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
 
 
-def sharded_llama(args, opt):
-    """18a: llama3.2-1b through the sharded step on a (1, 1) data x model
-    mesh against two runs of the plain step from the same seed; returns the
-    sharded state (for 18d) and the mesh."""
+def against_plain(tag, cfg, ds, seed: int, opt, watch=()):
+    """TRAIN_STEPS steps of ``cfg`` from ``seed``, deterministic algorithms
+    on: the plain step twice (runs A and B), then the sharded step on a
+    (1, 1) data x model mesh.  Where A and B agree bit for bit the sharded
+    parameters and losses must equal A's; else lie within A's spread to B.
+    The flash kernel runs twice a layer a step (forward and remat).
+    Returns the sharded state, the mesh and what to log; ``watch`` names
+    leaves whose corner must move from its initial value."""
     import torch
-    from repro_torch import configs
-    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.core import pytree
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import step as step_mod
 
-    cfg = configs.get(TRAIN_ARCH)
-    ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
-    seed = args.seed + 80
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         state, loss_a, t_a = shard_runs(cfg, opt, ds, None, seed)
@@ -3936,7 +3946,8 @@ def sharded_llama(args, opt):
         mesh = one_member_mesh(("data", "model"))
         torch.cuda.reset_peak_memory_stats()
         flash0 = fa.LAUNCHES
-        state, loss_s, t_s = shard_runs(cfg, opt, ds, mesh, seed)
+        init = {}
+        state, loss_s, t_s = shard_runs(cfg, opt, ds, mesh, seed, watch=watch, init=init)
         flash = fa.LAUNCHES - flash0
         peak = torch.cuda.max_memory_allocated()
     finally:
@@ -3947,34 +3958,55 @@ def sharded_llama(args, opt):
     if spread == 0 and loss_spread == 0:
         verdict = "bit for bit (the plain step repeats itself)"
         check(diff == 0 and loss_diff == 0,
-              f"18a: the sharded step differs from the plain step by {diff:.3e} "
+              f"{tag}: the sharded step differs from the plain step by {diff:.3e} "
               f"(losses {loss_diff:.3e}) where the plain step repeats itself bit for bit")
     else:
         verdict = (f"within the plain step's own run-to-run spread (parameters "
                    f"{spread:.3e}, losses {loss_spread:.3e})")
         check(diff <= spread and loss_diff <= loss_spread,
-              f"18a: sharded vs plain {diff:.3e} (losses {loss_diff:.3e}) outside the plain "
+              f"{tag}: sharded vs plain {diff:.3e} (losses {loss_diff:.3e}) outside the plain "
               f"step's run-to-run spread {spread:.3e} ({loss_spread:.3e})")
+    check(all(math.isfinite(v) for v in loss_s), f"{tag}: losses {loss_s}")
     check(flash == 2 * cfg.n_layers * TRAIN_STEPS,
-          f"18a: {flash} flash launches in {TRAIN_STEPS} sharded steps (forward + remat)")
+          f"{tag}: {flash} flash launches in {TRAIN_STEPS} sharded steps (forward + remat)")
+    leaves = dict(pytree.leaf_paths(state["params"]))
+    moved = {n: float((corner(local(leaves[n])) - c).abs().max()) for n, c in init.items()}
+    check(all(v > 0 for v in moved.values()), f"{tag}: the watched leaves did not move {moved}")
+    route = step_mod.sharded_route(cfg)
+    check(route == "tensor-parallel", f"{tag}: {cfg.name} takes the {route} route")
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"sharding 18a {TRAIN_ARCH} on a (1, 1) data x model mesh, B {TRAIN_BATCH} x S "
-        f"{TRAIN_SEQ}, deterministic algorithms on: sharded steps "
-        + ", ".join(f"{t * 1e3:.1f}" for t in t_s) + " ms; plain run A "
-        + ", ".join(f"{t * 1e3:.1f}" for t in t_a) + " ms, run B "
-        + ", ".join(f"{t * 1e3:.1f}" for t in t_b) + " ms (first step of each warms up; "
-        f"{tokens / (sum(t_s[1:]) / len(t_s[1:])):.0f} tokens/s sharded); losses "
-        + ", ".join(f"{v:.6f}" for v in loss_s) + f"; max |sharded - plain| {diff:.3e}, "
-        f"plain A vs B {spread:.3e}: {verdict}; flash launches {flash}; peak "
-        f"{peak / 1e9:.2f} GB")
+    text = (f"{route} route, B {TRAIN_BATCH} x S {TRAIN_SEQ}, deterministic algorithms on: "
+            "sharded steps " + ", ".join(f"{t * 1e3:.1f}" for t in t_s) + " ms; plain run A "
+            + ", ".join(f"{t * 1e3:.1f}" for t in t_a) + " ms, run B "
+            + ", ".join(f"{t * 1e3:.1f}" for t in t_b) + " ms (first step of each warms up; "
+            f"{tokens / (sum(t_s[1:]) / len(t_s[1:])):.0f} tokens/s sharded); losses "
+            + ", ".join(f"{v:.6f}" for v in loss_s) + f"; max |sharded - plain| {diff:.3e}, "
+            f"plain A vs B {spread:.3e}: {verdict}; flash launches {flash}; peak "
+            f"{peak / 1e9:.2f} GB")
+    if moved:
+        text += "; max |d w| " + ", ".join(f"{n} {v:.3e}" for n, v in moved.items())
+    return state, mesh, text
+
+
+def sharded_llama(args, opt):
+    """18a: llama3.2-1b through the sharded step on a (1, 1) data x model
+    mesh against two runs of the plain step from the same seed; returns the
+    sharded state (for 18d) and the mesh."""
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    cfg = configs.get(TRAIN_ARCH)
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
+    state, mesh, text = against_plain("18a", cfg, ds, args.seed + 80, opt)
+    log(f"sharding 18a {TRAIN_ARCH} on a (1, 1) data x model mesh, {text}")
     return state, mesh
 
 
 def sharded_moe(args, opt):
     """18b: deepseek-moe-16b at full width on MOE_TRAIN_LAYERS layers
     through the sharded step (its config's fsdp, ``_moe_rule`` on the
-    experts) on a (1, 1) mesh: TRAIN_STEPS steps, losses finite, the
-    experts moved; the peak beside phase 16's."""
+    experts) on a (1, 1) mesh against two runs of the plain step, as 18a:
+    the experts moved; the peak beside phase 16's."""
     import dataclasses
 
     import torch
@@ -3982,38 +4014,19 @@ def sharded_moe(args, opt):
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import transformer as T
-    from repro_torch.train import step as step_mod
 
     cfg = dataclasses.replace(configs.get(MOE_TRAIN_ARCH), n_layers=MOE_TRAIN_LAYERS)
     check(cfg.fsdp, f"{MOE_TRAIN_ARCH} is configured with fsdp")
-    mesh = one_member_mesh(("data", "model"))
-    specs = mesh_lib.param_specs_tree(cfg, T.param_specs(cfg), mesh)
+    specs = mesh_lib.param_specs_tree(cfg, T.param_specs(cfg), one_member_mesh(("data", "model")))
     wi = specs["layers"][0]["moe"]["wi"]
     check(tuple(wi) == ("model", "data", None), f"18b: moe/wi spec {wi}")
     ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device="cuda").manual_seed(args.seed + 81)
-    state = step_mod.init_sharded_state(cfg, opt, gen, mesh, device="cuda")
-    w0 = {n: corner(state["params"]["layers"][0]["moe"][n].to_local()) for n in ("wi", "wo")}
-    fn = step_mod.make_train_step(cfg, opt, mesh=mesh)
-    losses, times = [], []
-    for s in range(TRAIN_STEPS):
-        batch = train_batch(ds, s)
-        (state, m), t = timed(lambda: fn(state, batch))
-        losses.append(float(m["loss"]))
-        times.append(t)
-    peak = torch.cuda.max_memory_allocated()
-    moved = {n: float((corner(state["params"]["layers"][0]["moe"][n].to_local()) - w0[n])
-                      .abs().max()) for n in w0}
-    check(all(math.isfinite(v) for v in losses), f"18b: losses {losses}")
-    check(all(v > 0 for v in moved.values()), f"18b: the experts did not move {moved}")
+    state, _mesh, text = against_plain("18b", cfg, ds, args.seed + 81, opt,
+                                       watch=("layers/0/moe/wi", "layers/0/moe/wo"))
     log(f"sharding 18b {MOE_TRAIN_ARCH} at full width on {MOE_TRAIN_LAYERS} layers, sharded "
-        f"(fsdp, moe/wi {tuple(wi)}) on a (1, 1) mesh: steps "
-        + ", ".join(f"{t * 1e3:.1f}" for t in times) + " ms; losses "
-        + ", ".join(f"{v:.4f}" for v in losses) + "; max |d w| "
-        + ", ".join(f"moe/{n} {v:.3e}" for n, v in moved.items())
-        + f"; peak {peak / 1e9:.2f} GB beside phase 16's plain {PHASE16_MOE_PEAK_GB} GB")
+        f"(fsdp, moe/wi {tuple(wi)}) on a (1, 1) mesh, {text} (phase 16's plain peak "
+        f"{PHASE16_MOE_PEAK_GB} GB)")
     del state
     torch.cuda.empty_cache()
 
@@ -4135,6 +4148,15 @@ def dryrun_cells():
         rec, t = timed(lambda: dryrun.lower_cell(arch, shape, multi_pod=multi_pod,
                                                  grad_compress=P))
         check(rec["status"] == "OK", f"18e: dry-run {arch} {shape}: {rec}")
+        rl = rec["roofline"]
+        flops, useful = DRYRUN_PARENT[(arch, multi_pod)]
+        log(f"sharding 18e dry-run {arch} {shape} mesh {rec['mesh']} grad_compress {P}: "
+            f"flops_per_device {rl['flops_per_device']:.6g} (parent {flops:.6g}), "
+            f"useful_flops_ratio {rl['useful_flops_ratio']:.6f} (parent {useful:.6f})")
+        # a tensor-parallel rank runs its share of the model, not all of it
+        check(rl["flops_per_device"] < flops / 2,
+              f"18e: {arch} runs {rl['flops_per_device']:.6g} flops a device, the parent's "
+              f"redundant step {flops:.6g}")
         log(f"sharding 18e dry-run {arch} {shape} mesh {rec['mesh']} grad_compress {P}: wall "
             f"{t:.1f} s; " + json.dumps(rec))
     cfg = configs.get(MOE_TRAIN_ARCH)

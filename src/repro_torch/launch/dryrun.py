@@ -1,7 +1,9 @@
 """Multi-pod dry-run harness with an H100 roofline.
 
 Counterpart of ``repro/launch/dryrun.py``.  For a train cell it runs rank
-0's sharded training step (``train.step.make_train_step(mesh=...)``) under
+0's sharded training step (``train.step.make_train_step(mesh=...)``:
+tensor-parallel along 'model' for the dense and MoE families, each
+parameter gathered whole at use for the others) under
 ``FakeTensorMode`` on a fake process group of ``mesh.size`` ranks: the
 state, the batch and every intermediate are fake tensors (shape, dtype and
 device only), every collective is a no-op of the fake group, and the
@@ -18,7 +20,7 @@ sharded ``engine.prefill``/``engine.decode_step`` the same way, inside the
 rule table the reference's ``lower_cell`` picks for the cell
 (``DEFAULT_RULES``, ``PURE_DP_RULES`` for ``parallelism="dp"``,
 ``SERVE_MOE_RULES`` over it with ``serve_layout``; the training step
-enters no rules context): the parameters placed by ``param_specs_tree``
+picks its own): the parameters placed by ``param_specs_tree``
 (``serve_param_specs_tree`` with ``serve_layout``, replicated with
 ``dp``), the cache by ``cache_specs_tree``.  Each serving record holds
 ``ideal_bytes_per_device`` -- the parameters and the cache a device holds

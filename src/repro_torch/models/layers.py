@@ -11,17 +11,22 @@ tensor and through its plain version on a CPU tensor.  The MoE layer
 here a Python loop over chunks).
 
 Under a sharding-rules context (``models/sharding.use_rules``, the
-parameters ``DTensor``s) the attention, the SwiGLU MLP and the MoE layer
-compute tensor-parallel on each rank's local shards: a column-parallel
+parameters ``DTensor``s or the training step's ``sharding.Shard``s) the
+attention, the SwiGLU MLP and the MoE layer compute tensor-parallel on each
+rank's local shards, in serving and in training alike: a column-parallel
 projection keeps its output split as the weight's columns are, a
 row-parallel one all-reduces its partial sums, and the activations are
 gathered or sliced at the points where the reference places its
 ``shard_activation`` hints (q over ``act_heads``, the MLP's hidden over
 ``act_ff``, the MoE's dispatch over ``act_expert`` and ``act_moe_batch``).
-Every split is read from the parameters' placements.  On plain tensors
-(outside a rules context) every one of those helpers is the identity, so
-the same functions compute what they always did.  The Mamba2 layers have
-no sharded form yet.
+Each rank runs its own query heads, hidden columns and experts.  Every
+split is read from the parameters' placements.  Under autograd the
+collectives carry Megatron's convention (``models/sharding.py``): a whole
+activation enters split work through ``sharding.enter``, whose backward
+sums the ranks' partial cotangents, and a row-parallel exit passes the
+cotangent through.  On plain tensors (outside a rules context) every one
+of those helpers is the identity, so the same functions compute what they
+always did.  The Mamba2 layers have no sharded form yet.
 
 Precision on the card: :func:`exact_matmuls` turns off TF32 and bf16
 reduced-precision reductions for the ``dense`` products while a forward
@@ -33,7 +38,6 @@ import contextlib
 import math
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.kernels import ops
 from repro_torch.models import sharding as S
@@ -98,11 +102,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return ops.flash_attention(q, k, v, causal=causal, window=window)
 
 
+def entry(x):
+    """``sharding.enter`` of ``x`` for each set of mesh dims it is asked
+    for, made once a set: branches split over the same dims (q, k and v)
+    share one all-reduce of their cotangent."""
+    made = {}
+
+    def over(dims):
+        key = S.members(dims)
+        if key not in made:
+            made[key] = S.enter(x, key)
+        return made[key]
+
+    return over
+
+
 def column_whole(x, w, size: int):
     """x @ w for a column-parallel ``w``: the local columns, gathered whole
-    (``size`` of them) over the mesh dims ``w``'s columns are split on."""
+    (``size`` of them) over the mesh dims ``w``'s columns are split on.
+    ``x`` is a tensor or an :func:`entry` of one."""
     wl, lay = S.weight(w, keep=(1,))
-    return S.gather(dense(x, wl), -1, lay[1], size)
+    xin = x(lay[1]) if callable(x) else S.enter(x, lay[1])
+    return S.gather(dense(xin, wl), -1, lay[1], size)
 
 
 def row_parallel(h, w):
@@ -113,10 +134,13 @@ def row_parallel(h, w):
     return S.all_reduce(dense(S.take(h, -1, lay[0]), wl), lay[0])
 
 
-def kv_for_heads(k, h0: int, h1: int, g: int):
+def kv_for_heads(k, h0: int, h1: int, g: int, dims=()):
     """The kv heads query heads [h0, h1) read (head h reads kv head h // g):
     all of ``k`` for all the heads, a slice where the range holds whole
-    groups, else one kv head a query head."""
+    groups, else one kv head a query head.  ``k`` is whole and the query
+    heads split over mesh ``dims``: each rank reads only its heads' kv
+    heads, so the cotangent of ``k`` is all-reduced over ``dims``."""
+    k = S.enter(k, dims)
     if h0 == 0 and h1 == k.shape[2] * g:
         return k
     if h0 % g == 0 and h1 % g == 0:
@@ -141,16 +165,17 @@ def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=Non
     b, s, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     heads = S.mesh_dims("act_heads")
+    xin = entry(x)
     wq, lq = S.weight(p["wq"], keep=(1,))
-    q = dense(x, wq)
+    q = dense(xin(lq[1]), wq)
     h0, h1 = S.chunk_range(hq, heads)
     if lq[1] == heads and hq % S.mesh_size(heads) == 0:
         q = q.reshape(b, s, h1 - h0, hd)          # the columns hold this rank's heads
     else:
         q = S.take(S.gather(q, -1, lq[1], hq * hd).reshape(b, s, hq, hd), 2, heads)
     if kv_override is None:
-        k = column_whole(x, p["wk"], hkv * hd).reshape(b, s, hkv, hd)
-        v = column_whole(x, p["wv"], hkv * hd).reshape(b, s, hkv, hd)
+        k = column_whole(xin, p["wk"], hkv * hd).reshape(b, s, hkv, hd)
+        v = column_whole(xin, p["wv"], hkv * hd).reshape(b, s, hkv, hd)
         if positions is None:
             positions = torch.arange(s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
@@ -159,12 +184,12 @@ def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=Non
         k, v = kv_override
         if positions is not None:
             q = rope(q, positions, cfg.rope_theta)
+    g = hq // hkv
+    kh, vh = kv_for_heads(k, h0, h1, g, heads), kv_for_heads(v, h0, h1, g, heads)
     if h1 > h0:
-        g = hq // hkv
-        o = flash_attention(q, kv_for_heads(k, h0, h1, g), kv_for_heads(v, h0, h1, g),
-                            causal=causal, window=cfg.sliding_window if causal else 0)
+        o = flash_attention(q, kh, vh, causal=causal, window=cfg.sliding_window if causal else 0)
     else:
-        o = q                                      # no head on this rank
+        o = S.tie(q, kh, vh)                       # no head on this rank
     wo, lo = S.weight(p["wo"], keep=(0,))
     o = o.reshape(b, s, (h1 - h0) * hd)
     if S.chunk_range(hq * hd, lo[0]) != (h0 * hd, h1 * hd):
@@ -193,7 +218,7 @@ def swiglu_mlp(p, x):
     (``act_ff``) and ``wo`` is row-parallel, with an all-reduce after it."""
     wi, li = S.weight(p["wi"], keep=(1,))
     wo, lo = S.weight(p["wo"], keep=(0,))
-    gate, up = gate_up(dense(x, wi), li[1], p["wo"].shape[0], lo[0])
+    gate, up = gate_up(dense(S.enter(x, li[1]), wi), li[1], p["wo"].shape[0], lo[0])
     return S.all_reduce(dense(_silu_gate(gate, up), wo), lo[0])
 
 
@@ -204,12 +229,12 @@ def gate_up(gu, src, f: int, dst):
     halves, so the activations are resharded (the weights keep the
     reference's layout): over one mesh dim of n members with F % n == 0,
     rank r's two F/n-column pieces go to the ranks whose gate or up chunk
-    they are (one all-to-all, 2F/n columns a rank); otherwise the columns
-    are gathered whole and each half sliced."""
+    they are (one all-to-all, 2F/n columns a rank, whose backward is the
+    inverse exchange); otherwise the columns are gathered whole and each
+    half sliced."""
     src, dst = S.members(src), S.members(dst)
     if not src and not dst:
         return torch.chunk(gu, 2, dim=-1)
-    mesh = S.current_mesh()
     if src == dst and len(src) == 1 and f % S.mesh_size(src) == 0:
         n = S.mesh_size(src)
         c = f // n
@@ -227,18 +252,17 @@ def gate_up(gu, src, f: int, dst):
         x = gu.movedim(-1, 0)
         if (2 * r + 1) % n < (2 * r) % n:
             x = torch.cat([x[c:], x[:c]])
-        x = x.contiguous()
-        out = x.new_empty((2 * c,) + tuple(x.shape[1:]))
-        dist.all_to_all_single(out, x, output_split_sizes=frm, input_split_sizes=to,
-                               group=mesh.get_group(src[0]))
+        out = S.all_to_all(x, to, frm, src[0])
         return torch.chunk(out.movedim(0, -1), 2, dim=-1)
     gate, up = torch.chunk(S.gather(gu, -1, src, 2 * f), 2, dim=-1)
     return S.take(gate, -1, dst), S.take(up, -1, dst)
 
 
 def _silu_gate(gate, up):
-    """silu(gate) in float32, back in the activation dtype, times up."""
-    return torch.nn.functional.silu(gate.to(torch.float32)).to(up.dtype) * up
+    """silu(gate) in float32 (float64 inputs in their own dtype), back in
+    the activation dtype, times up."""
+    dt = torch.promote_types(gate.dtype, torch.float32)
+    return torch.nn.functional.silu(gate.to(dt)).to(up.dtype) * up
 
 
 def moe_route(x, router, cfg):
@@ -247,7 +271,8 @@ def moe_route(x, router, cfg):
     renormalized gates, routed (B,S,E), src (B,E,C) each expert's token ids
     in FIFO order, valid (B,E,C)); ``src`` is 0 where not ``valid``."""
     w, lay = S.weight(router, keep=(1,))
-    logits = S.gather(dense(x, w), -1, lay[1], cfg.n_experts)   # column-parallel over E
+    logits = S.gather(dense(S.enter(x, lay[1]), w), -1, lay[1],
+                      cfg.n_experts)                            # column-parallel over E
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     _gate, idx = torch.topk(probs, cfg.top_k, dim=-1)
     return dispatch(probs, idx, cfg)
@@ -311,7 +336,10 @@ def moe_ffn(p, x, cfg):
     # expert-major (E, B*C, ...) so each expert's rows are one bmm operand
     src_e, valid_e = src.transpose(0, 1)[e0:e1], valid.transpose(0, 1)[e0:e1]   # (E,B,C)
     bidx = torch.arange(b, device=x.device)[None, :, None]
-    xin = xt[bidx, src_e] * valid_e[..., None].to(x.dtype)          # (E,B,C,D) gather
+    # a rank's experts (and F columns) give partial cotangents of xt and of
+    # the gates: they enter the split work through sharding.enter
+    xe = S.enter(xt, tuple(sorted(set(e_dims + f_in))))
+    xin = xe[bidx, src_e] * valid_e[..., None].to(x.dtype)          # (E,B,C,D) gather
     gu = torch.bmm(xin.reshape(e1 - e0, b * cap, d), wi.to(x.dtype))
     del xin
     h = _silu_gate(*gate_up(gu, f_in, p["wo"].shape[1], f_out))
@@ -319,7 +347,8 @@ def moe_ffn(p, x, cfg):
     xout = torch.bmm(h, wo.to(x.dtype))                             # (E,B*C,D)
     del h
     # per-slot gate weight: gate_full[b, src[b,e,c], e]
-    gate_slot = torch.gather(gate_full.transpose(1, 2), 2, src)      # (B,E,C)
+    gate_e = S.enter(gate_full, tuple(sorted(set(e_dims + f_out))))
+    gate_slot = torch.gather(gate_e.transpose(1, 2), 2, src)         # (B,E,C)
     w_slot = (gate_slot * valid).to(x.dtype).transpose(0, 1)[e0:e1].reshape(e1 - e0, b * cap, 1)
     upd = xout * w_slot
     del xout

@@ -1,5 +1,5 @@
-"""Logical-axis activation sharding, the collectives of serving under a
-mesh, and the batch statistics of a data-parallel step.
+"""Logical-axis activation sharding and the collectives of tensor-parallel
+serving and training under a mesh, differentiable.
 
 Counterpart of ``repro/models/sharding.py``, whose model code calls
 ``shard_activation(x, logical_axes)`` with *logical* names while its
@@ -7,10 +7,11 @@ launcher installs a rule table mapping logical -> mesh axes through
 ``use_rules``; GSPMD then inserts the collectives.  The port computes on
 each rank's local shards and issues the collectives itself: inside
 ``use_rules(mesh, rules)`` (a ``DeviceMesh`` over a process group) the
-serving path (``serve/engine.py``'s ``prefill``/``decode_step`` and the
-dense and MoE layers under them) reads its parameters' and cache's
-``DTensor`` placements (once a tensor, :func:`placed`), computes on the
-local tensors and gathers, slices or all-reduces over the mesh dims that
+model code (``serve/engine.py``'s ``prefill``/``decode_step``, the
+training step's ``loss_fn``, and the dense and MoE layers under them)
+reads its parameters' placements (a ``DTensor``'s once, :func:`placed`;
+the training step hands :class:`Shard`s), computes on the local tensors
+and gathers, slices or all-reduces over the mesh dims that
 :func:`mesh_dims` resolves for a logical axis.  Nothing runs through
 ``DTensor``'s sharding propagation.  On plain tensors outside a rules
 context every function here is the identity, so the same model code
@@ -24,13 +25,28 @@ tensor in the layout the previous op left it in and returns it in the
 layout the rule names, gathering over the mesh dims it leaves and slicing
 over those it enters.
 
-:func:`split_batch` is the port's own: the sharded training step
-(``train.step.make_train_step(mesh=...)``) runs each rank on its shard of
-the batch, and inside it :func:`batch_mean` averages over the whole batch
-(an all-reduce over the mesh's data-parallel axes whose backward
-all-reduces the cotangent), so a statistic of the batch -- the MoE's
-balance loss -- is the unsharded step's and not a mean of per-shard ones.
-The training step enters no rules context.
+Under autograd the collectives hold one invariant, Megatron's: a tensor
+that a rank holds whole carries the *whole* cotangent on every rank in the
+backward, and a rank's chunk of a split tensor carries its chunk's.  So
+:func:`gather` (an all-gather) takes back this rank's chunk, :func:`take`
+(a slice) all-gathers the chunks' cotangents (the padding of uneven chunks
+as the forward's), :func:`all_reduce` at the exit of a row-parallel
+product passes the cotangent through, and :func:`enter` -- the identity --
+all-reduces it where a whole activation feeds work split over ranks (each
+rank's cotangent there is a partial sum).  :func:`all_to_all`'s backward
+is the inverse exchange.  On a dim of one member every op returns its
+input unchanged both ways, so a one-member mesh computes the unsharded
+model's bits.
+
+The data-parallel axes keep the other convention: a rank's cotangent is
+its batch shard's.  :func:`split_batch` (the sharded training step,
+``train.step.make_train_step(mesh=...)``) names them; :func:`weight`
+gathers a parameter over them at use (FSDP) and reduce-scatters its
+gradient with a sum, :func:`batch_grad` sums the gradient of a leaf
+replicated over them and divides by their size, and :func:`batch_mean`
+averages a statistic over the whole batch (an all-reduce whose backward
+all-reduces the cotangent), so the MoE's balance loss is the unsharded
+step's and not a mean of per-shard ones.
 """
 from __future__ import annotations
 
@@ -74,6 +90,11 @@ PURE_DP_RULES = dict(
 # follow the weights' E-sharding (replicate the token dim, shard E over 'data')
 SERVE_MOE_RULES = dict(act_expert="data", act_moe_batch=None)
 
+# every logical axis whole: the model computes as on one device, while the
+# training step gathers each parameter whole where it is read (the families
+# with no tensor-parallel form, train/step.py)
+WHOLE_RULES = dict.fromkeys(DEFAULT_RULES)
+
 
 class _Rules:
     """An active rules context: the mesh, its rule table, and what they
@@ -102,6 +123,30 @@ def use_rules(mesh, rules: dict | None = None):
         yield
     finally:
         _state.ctx = prev
+
+
+def snapshot() -> tuple:
+    """The calling thread's rules context and batch split."""
+    return getattr(_state, "ctx", None), getattr(_state, "split", None)
+
+
+@contextlib.contextmanager
+def restored(snap):
+    """Inside: the rules context and batch split of :func:`snapshot` in
+    this thread.  Autograd runs a CUDA tensor's backward, and so a remat
+    recompute, on a device thread of its own, which holds neither."""
+    prev = snapshot()
+    _state.ctx, _state.split = snap
+    try:
+        yield
+    finally:
+        _state.ctx, _state.split = prev
+
+
+def recompute_context():
+    """``torch.utils.checkpoint``'s ``context_fn``: the recompute runs under
+    the rules context and batch split its forward ran under."""
+    return contextlib.nullcontext(), restored(snapshot())
 
 
 def rules_active() -> bool:
@@ -145,13 +190,32 @@ _dtensor = None
 _placed = {}            # id(DTensor) -> (weak reference, (local tensor, layout))
 
 
+class Shard:
+    """A parameter as the sharded training step hands it to the model: this
+    rank's local tensor (the leaf the step differentiates), its layout and
+    the parameter's global shape.  :func:`placed` and :func:`weight` read it
+    as they read a ``DTensor``; it lives for one step, so nothing of a
+    step's graph outlives it."""
+
+    __slots__ = ("local", "layout", "shape")
+
+    def __init__(self, local: torch.Tensor, layout: tuple, shape):
+        self.local, self.layout, self.shape = local, tuple(layout), torch.Size(shape)
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+
 def placed(t) -> tuple:
     """``(local tensor, layout)`` of a ``DTensor`` -- read from its
     placements once and remembered for the object's life, as neither
-    changes -- or ``(t, whole layout)`` of a plain tensor."""
+    changes -- or of a :class:`Shard`, or ``(t, whole layout)`` of a plain
+    tensor."""
     global _dtensor
     if type(t) is torch.Tensor:
         return t, ((),) * t.dim()
+    if type(t) is Shard:
+        return t.local, t.layout
     if _dtensor is None:
         from torch.distributed.tensor import DTensor
 
@@ -183,12 +247,12 @@ def to_local(t) -> torch.Tensor:
 
 def placements(layout, mesh) -> tuple:
     """``DTensor`` placements of ``layout`` on ``mesh``, one a mesh dim."""
-    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import Replicate, Shard as ShardPlacement
 
     out = [Replicate()] * len(mesh.mesh_dim_names)
     for d, dims in enumerate(layout):
         for i in dims:
-            out[i] = Shard(d)
+            out[i] = ShardPlacement(d)
     return tuple(out)
 
 
@@ -237,6 +301,22 @@ def chunk_range(size: int, dims) -> tuple[int, int]:
     return lo, hi
 
 
+def _groups(dims) -> list:
+    """The process groups of the dims of ``dims`` with more than one member."""
+    mesh = current_mesh()
+    return [mesh.get_group(i) for i in members(dims)]
+
+
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x``: only then does a collective
+    go through its ``autograd.Function`` (serving runs the plain ops)."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# the collectives, each with its backward (module docstring)
+# ---------------------------------------------------------------------------
+
 def _gather_dim(x: torch.Tensor, d: int, i: int, size: int) -> torch.Tensor:
     """``x``, this rank's chunk of a dim of ``size`` along mesh dim ``i``,
     gathered whole: each member's chunk padded to ceil(size / n), so the
@@ -253,13 +333,7 @@ def _gather_dim(x: torch.Tensor, d: int, i: int, size: int) -> torch.Tensor:
     return torch.cat(parts, dim=d).narrow(d, 0, size)
 
 
-def gather(x: torch.Tensor, d: int, dims, size: int) -> torch.Tensor:
-    """``x`` split along tensor dim ``d`` over mesh ``dims`` (a dim of
-    ``size`` whole) gathered whole along ``d``, minor mesh dims first."""
-    if not dims:
-        return x
-    dims = tuple(dims)
-    d = d % x.dim()
+def _gather(x: torch.Tensor, d: int, dims, size: int) -> torch.Tensor:
     for k in reversed(range(len(dims))):
         if _state.ctx.sizes[dims[k]] > 1:
             lo, hi = chunk_range(size, dims[:k])
@@ -267,14 +341,64 @@ def gather(x: torch.Tensor, d: int, dims, size: int) -> torch.Tensor:
     return x
 
 
-def take(x: torch.Tensor, d: int, dims) -> torch.Tensor:
-    """This rank's chunk along tensor dim ``d`` (whole in ``x``) when it is
-    split over mesh ``dims``: a view, no communication."""
+def _take(x: torch.Tensor, d: int, dims) -> torch.Tensor:
+    lo, hi = chunk_range(x.shape[d], members(dims))
+    return x if (lo, hi) == (0, x.shape[d]) else x.narrow(d, lo, hi - lo)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather; backward: this rank's chunk of the whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, d, dims, size):
+        ctx.d, ctx.dims, ctx.snap = d, dims, snapshot()
+        return _gather(x, d, dims, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        with restored(ctx.snap):
+            return _take(g, ctx.d, ctx.dims), None, None, None
+
+
+class _Take(torch.autograd.Function):
+    """This rank's chunk; backward: the chunks' cotangents gathered whole."""
+
+    @staticmethod
+    def forward(ctx, x, d, dims):
+        ctx.d, ctx.dims, ctx.size, ctx.snap = d, dims, x.shape[d], snapshot()
+        return _take(x, d, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        with restored(ctx.snap):
+            return _gather(g, ctx.d, ctx.dims, ctx.size), None, None
+
+
+def gather(x: torch.Tensor, d: int, dims, size: int) -> torch.Tensor:
+    """``x`` split along tensor dim ``d`` over mesh ``dims`` (a dim of
+    ``size`` whole) gathered whole along ``d``, minor mesh dims first."""
+    dims = members(dims)
     if not dims:
         return x
     d = d % x.dim()
-    lo, hi = chunk_range(x.shape[d], members(dims))
-    return x if (lo, hi) == (0, x.shape[d]) else x.narrow(d, lo, hi - lo)
+    if _tracked(x):
+        return _Gather.apply(x, d, dims, size)
+    return _gather(x, d, dims, size)
+
+
+def take(x: torch.Tensor, d: int, dims) -> torch.Tensor:
+    """This rank's chunk along tensor dim ``d`` (whole in ``x``) when it is
+    split over mesh ``dims``: a view, no communication (its backward
+    all-gathers)."""
+    dims = members(dims)
+    if not dims:
+        return x
+    d = d % x.dim()
+    if chunk_range(x.shape[d], dims) == (0, x.shape[d]):
+        return x
+    if _tracked(x):
+        return _Take.apply(x, d, dims)
+    return _take(x, d, dims)
 
 
 def reshard(x: torch.Tensor, src, dst, shape) -> torch.Tensor:
@@ -296,28 +420,175 @@ def reshard(x: torch.Tensor, src, dst, shape) -> torch.Tensor:
     return x
 
 
+def all_reduce_sum(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` summed over each process group of ``groups`` in turn, in place."""
+    for g in groups:
+        dist.all_reduce(x, group=g)
+    return x
+
+
+class _Exit(torch.autograd.Function):
+    """Sum of partial products; backward: the whole cotangent passes to
+    every rank's partial."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return all_reduce_sum(x.clone(), groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity; backward: the partial cotangents summed."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(memory_format=torch.contiguous_format), ctx.groups), None
+
+
 def all_reduce(x: torch.Tensor, dims) -> torch.Tensor:
-    """``x`` summed over mesh ``dims`` in place (each dim's group in mesh
-    order); a one-member dim moves nothing."""
-    if not dims:
+    """``x``, partial sums over mesh ``dims``, summed (each dim's group in
+    mesh order; in place outside autograd); a one-member dim moves
+    nothing.  Backward: the identity."""
+    groups = _groups(dims)
+    if not groups:
         return x
-    mesh = current_mesh()
-    return all_reduce_sum(x, [mesh.get_group(i) for i in members(dims)])
+    if _tracked(x):
+        return _Exit.apply(x, groups)
+    return all_reduce_sum(x, groups)
+
+
+def enter(x: torch.Tensor, dims) -> torch.Tensor:
+    """``x`` (held whole) where it feeds work split over mesh ``dims``: the
+    identity, whose backward all-reduces the cotangent over ``dims`` --
+    each rank's share of the split work gives a partial sum of it."""
+    if not dims or not _tracked(x):
+        return x
+    groups = _groups(dims)
+    return _Enter.apply(x, groups) if groups else x
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, *others):
+        ctx.others = [(o.shape, o.dtype, o.device) for o in others]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + tuple(torch.zeros(s, dtype=t, device=v) for s, t, v in ctx.others)
+
+
+def tie(x: torch.Tensor, *others) -> torch.Tensor:
+    """``x``, with ``others`` joined to the graph at a zero cotangent: a
+    rank whose share of split work is empty (no query head) still runs the
+    backward of what produced ``others``, and so joins its collectives."""
+    if not _tracked(x) and not any(_tracked(o) for o in others):
+        return x
+    return _Tie.apply(x, *others)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` along dim 0; backward: the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, to, frm, group):
+        ctx.to, ctx.frm, ctx.group = to, frm, group
+        return _all_to_all(x, to, frm, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.frm, ctx.to, ctx.group), None, None, None
+
+
+def _all_to_all(x, to, frm, group):
+    x = x.contiguous()
+    out = x.new_empty((sum(frm),) + tuple(x.shape[1:]))
+    dist.all_to_all_single(out, x, output_split_sizes=list(frm), input_split_sizes=list(to),
+                           group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, to, frm, i: int) -> torch.Tensor:
+    """Rows of ``x`` (dim 0) sent over mesh dim ``i``: ``to[t]`` of them,
+    in order, to member t; ``frm[t]`` received from member t, in member
+    order."""
+    group = current_mesh().get_group(i)
+    if _tracked(x):
+        return _AllToAll.apply(x, tuple(to), tuple(frm), group)
+    return _all_to_all(x, to, frm, group)
+
+
+def _reduce_scatter_dim(g: torch.Tensor, d: int, i: int) -> torch.Tensor:
+    """``g`` (whole along ``d``) summed over mesh dim ``i``'s members, each
+    keeping its chunk of ceil(size / n) (``_gather_dim``'s padding)."""
+    n, size = _state.ctx.sizes[i], g.shape[d]
+    step = -(-size // n)
+    if step * n > size:
+        pad = list(g.shape)
+        pad[d] = step * n - size
+        g = torch.cat([g, g.new_zeros(pad)], dim=d)
+    parts = [c.contiguous() for c in torch.split(g, step, dim=d)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=current_mesh().get_group(i))
+    lo = min(_state.ctx.coords[i] * step, size)
+    return out.narrow(d, 0, min(lo + step, size) - lo)
+
+
+def _gather_dims(t, lay, dims_of, shape):
+    for d in dims_of:
+        t = _gather(t, d, members(lay[d]), shape[d])
+    return t
+
+
+class _Weight(torch.autograd.Function):
+    """FSDP's gather at use; backward: over the data-parallel dims a
+    reduce-scatter (a sum), over any other a take of this rank's chunk."""
+
+    @staticmethod
+    def forward(ctx, t, lay, dims_of, shape, dp):
+        ctx.lay, ctx.dims_of, ctx.dp, ctx.snap = lay, dims_of, dp, snapshot()
+        return _gather_dims(t, lay, dims_of, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        with restored(ctx.snap):
+            for d in reversed(ctx.dims_of):
+                for i in members(ctx.lay[d]):              # major to minor
+                    g = _reduce_scatter_dim(g, d, i) if i in ctx.dp else _take(g, d, (i,))
+        return g, None, None, None, None
+
+
+def _dp_dims() -> tuple:
+    split = getattr(_state, "split", None)
+    return split[2] if split is not None else ()
 
 
 def weight(w, keep=()) -> tuple[torch.Tensor, tuple]:
     """A parameter's local tensor and layout, gathered over every mesh dim
     it is split on along a tensor dim not in ``keep`` (FSDP's gather at
-    use): the layer computes on the split it keeps.  A plain tensor comes
-    back as it is, whole."""
+    use): the layer computes on the split it keeps.  A split over a
+    data-parallel dim of :func:`split_batch` is never kept (the ranks along
+    it hold other batch rows).  A plain tensor comes back as it is, whole."""
     t, lay = placed(w)
     if not any(lay):
         return t, lay
-    keep = {k % len(lay) for k in keep}
-    for d, dims in enumerate(lay):
-        if dims and d not in keep:
-            t = gather(t, d, dims, w.shape[d])
-    return t, tuple(dims if d in keep else () for d, dims in enumerate(lay))
+    dp = _dp_dims()
+    keep = {k % len(lay) for k in keep if not set(lay[k % len(lay)]) & set(dp)}
+    dims_of = tuple(d for d, dims in enumerate(lay) if members(dims) and d not in keep)
+    out = tuple(dims if d in keep else () for d, dims in enumerate(lay))
+    if not dims_of:
+        return t, out
+    if _tracked(t):
+        return _Weight.apply(t, lay, dims_of, tuple(w.shape), dp), out
+    return _gather_dims(t, lay, dims_of, tuple(w.shape)), out
 
 
 def shard_activation(x, logical_axes, *, src=None, shape=None):
@@ -336,16 +607,16 @@ def shard_activation(x, logical_axes, *, src=None, shape=None):
     return reshard(x, resolve(src), resolve(logical_axes), shape)
 
 
+def all_reduce_max(x: torch.Tensor, dims) -> torch.Tensor:
+    """``x`` (no gradient) maximized over mesh ``dims``, in place."""
+    for g in _groups(dims):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # the batch split of a data-parallel step
 # ---------------------------------------------------------------------------
-
-def all_reduce_sum(x: torch.Tensor, groups) -> torch.Tensor:
-    """``x`` summed over each process group of ``groups`` in turn."""
-    for g in groups:
-        dist.all_reduce(x, group=g)
-    return x
-
 
 class _AllReduceSum(torch.autograd.Function):
     """Sum over ``groups``; the cotangent is summed over them as well, so
@@ -363,11 +634,12 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 @contextlib.contextmanager
-def split_batch(groups, members: int):
-    """Inside: the batch is split over ``members`` ranks, one shard a rank,
-    and ``groups`` are the process groups of the data-parallel mesh axes."""
+def split_batch(groups, members: int, dims=()):
+    """Inside: the batch is split over ``members`` ranks, one shard a rank;
+    ``groups`` are the process groups of the data-parallel mesh axes and
+    ``dims`` their mesh dims (:func:`weight` reduce-scatters over them)."""
     prev = getattr(_state, "split", None)
-    _state.split = (tuple(groups), members)
+    _state.split = (tuple(groups), members, tuple(dims))
     try:
         yield
     finally:
@@ -382,5 +654,20 @@ def batch_mean(x: torch.Tensor, dims) -> torch.Tensor:
     local = x.mean(dim=dims)
     if split is None or split[1] == 1:
         return local
-    groups, members = split
+    groups, members = split[:2]
     return _AllReduceSum.apply(local, groups) / members
+
+
+def batch_grad(g: torch.Tensor, layout) -> torch.Tensor:
+    """A leaf's gradient over the whole batch of :func:`split_batch`: its
+    sum over the data-parallel dims the leaf is split on was taken in
+    :func:`weight`'s backward; here it is summed over the others and
+    divided by the split's members (each shard's loss is its own mean)."""
+    split = getattr(_state, "split", None)
+    if split is None or split[1] == 1:
+        return g
+    held = {i for dims in layout for i in dims}
+    groups = _groups(tuple(i for i in split[2] if i not in held))
+    if groups:
+        g = all_reduce_sum(g.contiguous(), groups)
+    return g / split[1]

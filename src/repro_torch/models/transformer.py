@@ -27,11 +27,14 @@ recomputed in the backward).  :func:`param_tree` gives the parameters as a
 nested dict of tensors (the module's own storage) for the optimizer, the
 gradient and the checkpoint.
 
-Under a sharding-rules context (serving under a mesh, the parameters
-``DTensor``s) :func:`embed_tokens` and :func:`logits_for` are
+Under a sharding-rules context (serving or training under a mesh, the
+parameters ``DTensor``s or the training step's ``sharding.Shard``s)
+:func:`embed_tokens`, :func:`logits_for` and :func:`chunked_ce_loss` are
 vocab-parallel: a masked local lookup all-reduced over the vocabulary's
-mesh dims, and local logits gathered whole over them, so every rank holds
-the whole logits of its batch rows.
+mesh dims; local logits gathered whole over them, so every serving rank
+holds the whole logits of its batch rows; and the loss from each rank's
+logit columns, its logsumexp assembled from the ranks' maxima and sums of
+exponentials, so that no rank holds a chunk's whole (B, 512, V) logits.
 """
 from __future__ import annotations
 
@@ -314,14 +317,16 @@ def _run_layers(layers, h, cfg, *, causal: bool, enc_out=None, capture: bool = F
 def _run_layers_train(layers, h, cfg, *, causal: bool, enc_out=None):
     """:func:`_run_layers` with gradients.  With ``cfg.remat`` each layer
     keeps only its inputs for the backward and runs again there
-    (``torch.utils.checkpoint``, non-reentrant), as the reference's
-    ``jax.checkpoint`` of its scan body."""
+    (``torch.utils.checkpoint``, non-reentrant, under the forward's
+    sharding rules), as the reference's ``jax.checkpoint`` of its scan
+    body."""
     aux = 0.0
     for lp in layers:
         if cfg.remat:
             h, a = checkpoint(lambda x, e, lp=lp: _block(lp, x, cfg, causal=causal,
                                                          enc_out=e)[:2],
-                              h, enc_out, use_reentrant=False)
+                              h, enc_out, use_reentrant=False,
+                              context_fn=S.recompute_context)
         else:
             h, a, _caps = _block(lp, h, cfg, causal=causal, enc_out=enc_out)
         aux = aux + a
@@ -397,21 +402,22 @@ def forward_train(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=
     return L.rms_norm(h, params["final_ln"], cfg.norm_eps), aux
 
 
-def lm_head_weight(params, cfg):
-    if cfg.tie_embeddings:
-        return params["embed"].T
-    return params["lm_head"]
+def head_weight(params, cfg):
+    """The output projection's local columns (D, V / n) -- ``embed``'s rows
+    transposed where tied -- and the mesh dims the vocabulary is split
+    over (``()`` whole)."""
+    key, col = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
+    w, lay = S.weight(params[key], keep=(col,))
+    return (w.T if cfg.tie_embeddings else w), S.members(lay[col])
 
 
 @L.exact_matmuls()
 def logits_for(params, cfg, h):
     """Logits in float32 over the padded vocabulary; the padding columns get
     -1e9."""
-    key, col = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
-    w, lay = S.weight(params[key], keep=(col,))
-    w = w.T if cfg.tie_embeddings else w
+    w, dims = head_weight(params, cfg)
     # under a mesh vocab-parallel: this rank's columns, gathered whole
-    out = S.gather(L.dense(h, w), -1, lay[col], cfg.padded_vocab).to(torch.float32)
+    out = S.gather(L.dense(S.enter(h, dims), w), -1, dims, cfg.padded_vocab).to(torch.float32)
     if cfg.padded_vocab != cfg.vocab_size:
         mask = torch.zeros(cfg.padded_vocab, dtype=torch.float32, device=out.device)
         mask[cfg.vocab_size:] = 1e9
@@ -423,9 +429,15 @@ def logits_for(params, cfg, h):
 # loss
 # ---------------------------------------------------------------------------
 
+def _loss_dtype(x) -> torch.dtype:
+    """The logits' dtype in the loss: float32, or float64 inputs' own."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _ce_chunk(hx, w, lx, vocab: int):
     """Summed negative log-likelihood and token count of one chunk."""
-    logits = L.dense(hx, w).to(torch.float32)                  # (B, c, V)
+    logits = L.dense(hx, w)
+    logits = logits.to(_loss_dtype(logits))                    # (B, c, V)
     mask = lx >= 0
     lse = torch.logsumexp(logits[..., :vocab], dim=-1)
     gold = torch.gather(logits, -1, lx.clamp(min=0).long()[..., None])[..., 0]
@@ -433,18 +445,48 @@ def _ce_chunk(hx, w, lx, vocab: int):
     return nll.sum(), mask.sum()
 
 
+def _ce_chunk_split(hx, w, lx, vocab: int, v0: int, dims):
+    """:func:`_ce_chunk` on this rank's logit columns [v0, v0 + w.shape[1])
+    of a vocabulary split over mesh ``dims``: the padding columns (from
+    ``vocab``) masked in the rank's own range, the logsumexp from the
+    ranks' maxima and sums of exponentials, the gold logit from the rank
+    that holds the label's column.  ``hx`` enters the split work, so its
+    cotangent is summed over ``dims``."""
+    logits = L.dense(S.enter(hx, dims), w)
+    logits = logits.to(_loss_dtype(logits))                    # (B, c, V / n)
+    cols = v0 + torch.arange(logits.shape[-1], device=logits.device)
+    logits = torch.where(cols < vocab, logits, float("-inf"))
+    mask = lx >= 0
+    m = S.all_reduce_max(logits.detach().amax(dim=-1), dims)
+    lse = m + torch.log(S.all_reduce(torch.exp(logits - m[..., None]).sum(-1), dims))
+    ids = lx.clamp(min=0).long() - v0
+    inside = (ids >= 0) & (ids < logits.shape[-1])
+    gold = torch.gather(logits, -1, ids.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    gold = S.all_reduce(torch.where(inside, gold, 0.0), dims)
+    nll = torch.where(mask, lse - gold, 0.0)
+    return nll.sum(), mask.sum()
+
+
 def chunked_ce_loss(params, cfg: ArchConfig, h, labels, *, chunk: int = 512):
     """Cross-entropy without materializing (B, S, V): ``chunk`` positions at
     a time, each chunk's logits recomputed in the backward.  labels: (B, S),
-    -1 = ignore.  Returns (loss_sum, token_count)."""
+    -1 = ignore.  Returns (loss_sum, token_count).  Under a mesh each rank
+    computes its vocabulary columns' share (:func:`_ce_chunk_split`)."""
     s = h.shape[1]
     c = min(chunk, s)
-    w = lm_head_weight(params, cfg)
+    w, dims = head_weight(params, cfg)
     loss = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    if dims:
+        v0, _ = S.chunk_range(cfg.padded_vocab, dims)
     for i in range(0, s, c):
-        part, n = checkpoint(_ce_chunk, h[:, i:i + c], w, labels[:, i:i + c],
-                             cfg.vocab_size, use_reentrant=False)
+        if dims:
+            part, n = checkpoint(_ce_chunk_split, h[:, i:i + c], w, labels[:, i:i + c],
+                                 cfg.vocab_size, v0, dims, use_reentrant=False,
+                                 context_fn=S.recompute_context)
+        else:
+            part, n = checkpoint(_ce_chunk, h[:, i:i + c], w, labels[:, i:i + c],
+                                 cfg.vocab_size, use_reentrant=False)
         loss = loss + part
         cnt = cnt + n
     return loss, cnt

@@ -19,20 +19,34 @@ returns it.
 Sharded (``make_train_step(cfg, opt, mesh=...)`` over a ``DeviceMesh``):
 the state's leaves are ``DTensor``s placed by :func:`state_specs`
 (:func:`init_sharded_state` draws the same values as :func:`init_state`
-and keeps each rank's shards).  The step gathers each parameter where the
-model reads it, inside the layer, so that a recomputed layer (remat)
-gathers it again in the backward: :class:`_Gather`'s forward all-gathers
-the leaf over the mesh dims it is sharded on, its backward reduces the
-gradient to the leaf's placement -- over the data-parallel axes a
-reduce-scatter where the leaf is sharded on them and an all-reduce where
-it is not, along ``model`` a local slice -- and averages over the
-data-parallel size.  The batch is split over ``dp_axes``; compute along
-``model`` is redundant, the math of the reference's fully-manual fallback
-(``repro/train/step.py``: "the 'model' axis computes redundantly (params
-replicated)").  AdamW updates the local shards; its clip norm sums each
-gradient's squares in the unsharded order (the leaf gathered over
-``model``, then summed over the data-parallel axes it is sharded on).
-With ``compress_planes`` the step is the reference's ``per_pod``: a
+and keeps each rank's shards).  The batch is split over ``dp_axes``, and
+the step hands the model each leaf's local shard as a
+``models.sharding.Shard``, which the layers read through
+``sharding.weight`` where they use it, so that a recomputed layer (remat)
+gathers it again in the backward.  The step itself issues no collective of
+its own: every one lives in ``models/sharding.py``.  Two routes:
+
+- the dense and MoE families (``serve.engine.mesh_served``) compute
+  tensor-parallel along ``model``, as the reference's GSPMD step does: the
+  loss runs inside ``sharding.use_rules(mesh, DEFAULT_RULES)``
+  (``PURE_DP_RULES`` where the batch is split over ``model`` too), so each
+  ``model`` rank runs its own query heads, MLP columns, experts and
+  vocabulary columns, keeps the gradients of its own shards and never
+  gathers a ``model``-split parameter whole;
+- the SSM, hybrid, audio and VLM families (no sharded form yet) read every
+  parameter gathered whole through the same ``sharding.weight`` and compute
+  redundantly along ``model`` (the reference's fully-manual fallback,
+  ``repro/train/step.py``: "the 'model' axis computes redundantly"),
+  taking back each rank's chunk of the gradient.
+
+On both, ``weight``'s backward reduce-scatters a leaf's gradient over the
+data-parallel axes it is split on (FSDP), and ``sharding.batch_grad`` sums
+it over the others and divides by their size.  AdamW updates the local
+shards; its clip norm sums each rank's squares of its shards and
+all-reduces them once over the mesh dims each group of leaves is split
+on (the whole-gather route first gathers each gradient whole along
+``model``, so that its float32 sums run in the plain step's order).  With
+``compress_planes`` the step is the reference's ``per_pod``: a
 full-precision mean over ``data``, then ``compressed_psum_mean`` over the
 ``pod`` axis's group with ``ef``'s local row as this pod's residual.
 """
@@ -196,95 +210,21 @@ def init_sharded_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator, 
     return state
 
 
-class _Layout:
-    """Where a leaf's shards lie: ``shards`` is (mesh dim, tensor dim) for
-    each mesh dim the leaf is sharded on, in mesh order; ``reduce`` the mesh
-    dims its gradient is summed over."""
-
-    def __init__(self, placements, mesh, reduce_dims):
-        self.mesh = mesh
-        self.shards = [(i, p.dim) for i, p in enumerate(placements) if p.is_shard()]
-        self.reduce = reduce_dims
-        self.coords = mesh.get_coordinate()
-
-    def group(self, i):
-        return self.mesh.get_group(i)
-
-    def size(self, i) -> int:
-        return self.mesh.size(i)
-
-
-def _all_gather_dim(x: torch.Tensor, group, n: int, d: int) -> torch.Tensor:
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=d)
-
-
-def _gather_full(x: torch.Tensor, layout: _Layout, dims=None) -> torch.Tensor:
-    """The leaf over the mesh dims it is sharded on (``dims``: only those),
-    minor mesh dims first so that each concatenation is of whole chunks."""
-    for i, d in reversed(layout.shards):
-        if (dims is None or i in dims) and layout.size(i) > 1:
-            x = _all_gather_dim(x, layout.group(i), layout.size(i), d)
-    return x
-
-
-def _chunk(x: torch.Tensor, n: int, d: int, k: int) -> torch.Tensor:
-    return x.narrow(d, k * (x.shape[d] // n), x.shape[d] // n)
-
-
-class _Gather(torch.autograd.Function):
-    """Forward: the whole parameter from this rank's shard.  Backward: the
-    gradient reduced to the shard (module docstring)."""
-
-    @staticmethod
-    def forward(ctx, local, layout: _Layout):
-        ctx.layout = layout
-        return _gather_full(local, layout)
-
-    @staticmethod
-    def backward(ctx, g):
-        lay = ctx.layout
-        shard_dim = dict(lay.shards)
-        n_reduce = 1
-        for i in range(len(lay.coords)):
-            n = lay.size(i)
-            d = shard_dim.get(i)
-            if i in lay.reduce:
-                n_reduce *= n
-                if n == 1:
-                    continue
-                if d is None:
-                    g = sharding.all_reduce_sum(g.contiguous(), [lay.group(i)])
-                else:
-                    parts = [c.contiguous() for c in torch.chunk(g, n, dim=d)]
-                    out = torch.empty_like(parts[0])
-                    dist.reduce_scatter(out, parts, group=lay.group(i))
-                    g = out
-            elif d is not None and n > 1:
-                g = _chunk(g, n, d, lay.coords[i])
-        if n_reduce > 1:
-            g = g / n_reduce
-        return g.contiguous(), None
-
-
-class _Gathering(dict):
-    """A node of the parameter tree whose tensors are gathered where they
-    are read (``node["wq"]``)."""
+class _Whole(dict):
+    """A node of the parameter tree whose :class:`~repro_torch.models.sharding.Shard`
+    leaves are read gathered whole (``node["wq"]``): the route of the
+    families with no tensor-parallel form."""
 
     def __getitem__(self, key):
         v = dict.__getitem__(self, key)
-        if isinstance(v, tuple):
-            return _Gather.apply(*v)
-        return v
+        return sharding.weight(v)[0] if isinstance(v, sharding.Shard) else v
 
 
-def _gathering(tree):
-    """A tree of (shard, layout) leaves as :class:`_Gathering` nodes."""
+def _whole(tree):
     if isinstance(tree, dict):
-        return _Gathering({k: _gathering(v) for k, v in tree.items()})
+        return _Whole({k: _whole(v) for k, v in tree.items()})
     if isinstance(tree, list):
-        return [_gathering(v) for v in tree]
+        return [_whole(v) for v in tree]
     return tree
 
 
@@ -310,19 +250,37 @@ def _split_rows(batch: dict, idx: int, n: int) -> dict:
     return out
 
 
-def _sharded_norm(grads, layouts) -> torch.Tensor:
-    """AdamW's global norm of sharded gradients, each leaf's sum of squares
-    taken over the leaf gathered along its non-reduced mesh dims (the
-    unsharded order), then summed over the reduced dims it is sharded on."""
+def _sharded_norm(grads, layouts, shapes, mesh, gathered=()) -> torch.Tensor:
+    """AdamW's global norm of the local gradient shards: each leaf's sum of
+    squares (``optim.adamw.global_norm``'s), summed by the set of mesh dims
+    the leaves are split on and each set's sum all-reduced once over them,
+    so a leaf replicated over a dim is counted once.  Over the mesh dims
+    ``gathered`` a leaf is first gathered whole (the route that computes
+    redundantly along them: its float32 sums then run in the unsharded
+    order, which a clipped step needs to be the plain step bit for bit).
+    On a one-member mesh the sums run in ``global_norm``'s order."""
+    by_dims = {}
+    for g, lay, shape in zip(grads, layouts, shapes):
+        if gathered:
+            kept = tuple(tuple(i for i in dims if i not in gathered) for dims in lay)
+            g, lay = sharding.reshard(g, lay, kept, shape), kept
+        dims = tuple(sorted(i for d in lay for i in d if mesh.size(i) > 1))
+        s = torch.sum(torch.square(g.to(torch.float32)))
+        by_dims[dims] = s if dims not in by_dims else by_dims[dims] + s
     total = None
-    for g, lay in zip(grads, layouts):
-        model_dims = {i for i, _ in lay.shards if i not in lay.reduce}
-        s = torch.sum(torch.square(_gather_full(g, lay, model_dims)))
-        dims = [i for i, _ in lay.shards if i in lay.reduce and lay.size(i) > 1]
-        if dims:
-            s = sharding.all_reduce_sum(s, [lay.group(i) for i in dims])
+    for dims, s in by_dims.items():
+        s = sharding.all_reduce_sum(s, [mesh.get_group(i) for i in dims])
         total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def sharded_route(cfg: ArchConfig) -> str:
+    """The sharded step's route for ``cfg`` (module docstring):
+    ``"tensor-parallel"`` for the dense and MoE families, ``"whole-gather"``
+    for the others."""
+    from repro_torch.serve.engine import mesh_served
+
+    return "tensor-parallel" if mesh_served(cfg) else "whole-gather"
 
 
 def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
@@ -340,7 +298,16 @@ def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
     # the full-precision mean runs over these axes; with compression 'pod'
     # is left to compressed_psum_mean
     mean_axes = tuple(a for a in dp if not (compress_planes and a == "pod"))
-    reduce_dims = {names.index(a) for a in mean_axes}
+    mean_dims = tuple(sorted(names.index(a) for a in mean_axes))
+    tensor_parallel = sharded_route(cfg) == "tensor-parallel"
+    # the whole-gather route computes redundantly along the other mesh dims
+    redundant = tuple(i for i in range(len(names)) if i not in mean_dims)
+    if not tensor_parallel:
+        rules = sharding.WHOLE_RULES
+    elif "model" in dp:
+        rules = sharding.PURE_DP_RULES
+    else:
+        rules = sharding.DEFAULT_RULES
 
     def train_step(state, batch):
         from torch.distributed.tensor import DTensor
@@ -349,16 +316,21 @@ def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
         local = _split_rows({k: v.to_local() if isinstance(v, DTensor) else v
                              for k, v in batch.items()}, shard_idx, n_shards)
         plist = leaves(state["params"])
-        layouts = [_Layout(p.placements, mesh, reduce_dims) for p in plist]
+        layouts = [sharding.layout_of(p) for p in plist]
         xs = [p.to_local().detach().requires_grad_() for p in plist]
-        tree = _gathering(unflatten(state["params"], list(zip(xs, layouts))))
+        tree = unflatten(state["params"], [sharding.Shard(x, lay, p.shape)
+                                           for x, lay, p in zip(xs, layouts, plist)])
+        if not tensor_parallel:
+            tree = _whole(tree)
         groups = [mesh.get_group(names.index(a)) for a in mean_axes]
         n_mean = math.prod(mesh.size(names.index(a)) for a in mean_axes)
-        with L.exact_matmuls(), torch.enable_grad(), \
-                sharding.split_batch(groups, n_mean):
-            loss = T.loss_fn(tree, cfg, local)
-            grads = list(torch.autograd.grad(loss, xs))
-        del tree, xs
+        with L.exact_matmuls(), sharding.use_rules(mesh, rules), \
+                sharding.split_batch(groups, n_mean, mean_dims):
+            with torch.enable_grad():
+                loss = T.loss_fn(tree, cfg, local)
+                grads = list(torch.autograd.grad(loss, xs))
+            del tree, xs
+            grads = [sharding.batch_grad(g, lay) for g, lay in zip(grads, layouts)]
         loss = loss.detach()
         if n_mean > 1:
             loss = sharding.all_reduce_sum(loss, groups) / n_mean
@@ -383,8 +355,10 @@ def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
         opt_local = AdamWState(step=ost.step.to_local(),
                                m=[m.to_local() for m in leaves(ost.m)],
                                v=[v.to_local() for v in leaves(ost.v)])
-        _, _, metrics = opt.update(grads, opt_local, params,
-                                   norm_fn=lambda g32: _sharded_norm(g32, layouts))
+        shapes = [p.shape for p in plist]
+        with sharding.use_rules(mesh, rules):
+            _, _, metrics = opt.update(grads, opt_local, params, norm_fn=lambda g32: _sharded_norm(
+                g32, layouts, shapes, mesh, () if tensor_parallel else redundant))
         return ({"params": state["params"], "opt": ost, **out}, {"loss": loss, **metrics})
 
     return train_step

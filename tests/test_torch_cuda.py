@@ -1109,9 +1109,11 @@ print("WORKER-OK")
 def test_sharded_step_across_cards_matches_gloo(card, tmp_path):
     """With two or more cards: the sharded step on NCCL, one rank per card
     (deterministic algorithms on), keeps what the same code keeps on gloo
-    on the CPU (tests/test_torch_sharded_step.py): on a 'model'-only mesh it
-    is bit-identical to the plain step on the same card, and over 'data' it
-    stays within that file's tolerance of it.  The card's and the CPU's
+    on the CPU (tests/test_torch_sharded_step.py): on a 'model'-only mesh a
+    rank computes tensor-parallel (its own heads, MLP columns and
+    vocabulary columns, the row-parallel partial sums all-reduced in
+    another order), within that file's TP_PARAM_ATOL of the plain step on
+    the same card, and over 'data' it stays within its PARAM_ATOL.  The card's and the CPU's
     arithmetic differ in their last bits, so the gloo ranks' parameters are
     held to the card's as tests/test_torch_families_train.py holds the
     port's to the reference's (max 1e-3, 99 % within 1e-5)."""
@@ -1138,14 +1140,16 @@ def test_sharded_step_across_cards_matches_gloo(card, tmp_path):
     for log in logs:
         assert "WORKER-OK" in log, log[-3000:]
     atol = 1.1e-5                    # tests/test_torch_sharded_step.py's PARAM_ATOL
+    tp_atol = 7e-5                   # and its TP_PARAM_ATOL, TP_LOSS_RTOL
     for r in range(n):
         for backend in ("nccl", "gloo"):
             got = np.load(tmp_path / f"{backend}{r}.npz")
             tag = f"1x{n}"
-            assert np.array_equal(got[f"{tag}/params"].view(np.int32),
-                                  got["plain/params"].view(np.int32)), (backend, r)
+            np.testing.assert_allclose(got[f"{tag}/params"], got["plain/params"], rtol=0,
+                                       atol=tp_atol)
             for i in range(3):
-                assert got[f"{tag}/loss{i}"] == got[f"plain/loss{i}"]
+                np.testing.assert_allclose(got[f"{tag}/loss{i}"], got[f"plain/loss{i}"],
+                                           rtol=3e-7, atol=0)
             np.testing.assert_allclose(got[f"{n}x1/params"], got["plain/params"], rtol=0, atol=atol)
         nccl, gloo = np.load(tmp_path / f"nccl{r}.npz"), np.load(tmp_path / f"gloo{r}.npz")
         d = np.abs(nccl[f"{n}x1/params"] - gloo[f"{n}x1/params"])
