@@ -184,10 +184,11 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      this phase alone, after the flash kernel's checks at its four shapes,
      then times the kernel at them).
 
- 16. trains the MoE, SSM and hybrid families: mamba2-1.3b (48 layers, d_model
-     2048, 64 SSD heads of 64, state 128; 1.446 B parameters) and hymba-1.5b
-     (32 layers, d_model 1600, 25/5 heads of 64 with a 2048 window beside 50
-     SSD heads, d_ff 5504; 1.641 B) at full width and depth through
+ 16. trains the MoE, SSM and hybrid families: mamba2-1.3b (d_model 2048, 64
+     SSD heads of 64, state 128; 24 of its 48 layers, a cut that pays for
+     phase 19d) and hymba-1.5b (32 layers, d_model 1600, 25/5 heads of 64
+     with a 2048 window beside 50 SSD heads, d_ff 5504; 1.641 B; full depth)
+     at full width through
      ``launch.train.run`` with --ckpt-compress: 3 plain steps of B 4 x S 2048
      SyntheticLM tokens with per-layer remat, every loss finite, the SSM's
      in/conv/A_log/dt_bias/D/out (and hymba's attention and MLP) moved, the
@@ -243,16 +244,25 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      again with the scores summed in float32 within 1e-5 of it;
      prefill and decode-step ms beside the unsharded engine's, and the
      device's busy share of a sharded decode step, and the host clock of
-     sharded and unsharded decode steps timed in turns (ABBA, 4 rounds of
+     sharded and unsharded decode steps timed in turns (ABBA, 2 rounds of
      16 steps); (b) deepseek-moe-16b at
      full width on 4 of its 28 layers, a prefill and 8 decode steps under
      ``DEFAULT_RULES`` (dense cache, fsdp specs) and ``SERVE_MOE_RULES``
      (P = 1, ``serve_param_specs_tree``), prefill bit for bit, the decode
-     with float32 scores within 1e-5 (the bf16 one reported); (c) with the
-     group destroyed, the dry-run's serving cells on fake CUDA tensors on
-     (16, 16): llama3.2-1b prefill_32k and decode_32k (dense and
-     compressed), deepseek-moe-16b decode_32k with ``serve_layout``,
-     arctic-480b decode_32k.  Launch counters are set to 0 before each
+     with float32 scores within 1e-5 (the bf16 one reported); (d) the SSM,
+     hybrid, audio and VLM families at full width, B 4, 8 decode steps,
+     dense and P = 1 caches: mamba2-1.3b (12 of 48 layers, 2048-token
+     prompts), hymba-1.5b (full depth, 2048), whisper-medium (6 + 6 of 24 +
+     24 layers, 1500 stub frames, 384 tokens) and internvl2-1b (8 of 24
+     layers, 256 image embeddings and 1792 tokens): prefill bit for bit,
+     decode within 0.05 with bf16 scores (hymba-1.5b's reported) and 1e-5
+     with float32 scores, the peak memory, flash and both planes kernels
+     launched; (c) with the group destroyed, the dry-run's serving cells on
+     fake CUDA tensors on (16, 16): llama3.2-1b prefill_32k and decode_32k
+     (dense and compressed), deepseek-moe-16b decode_32k with
+     ``serve_layout``, arctic-480b decode_32k, mamba2-1.3b decode_32k,
+     hymba-1.5b decode_32k compressed, whisper-medium prefill_32k.  Launch
+     counters are set to 0 before each
      sharded run and read after it: flash, planes_encode and planes_decode
      must each have run there (``--sharded-serve`` runs this phase alone).
 
@@ -3482,6 +3492,10 @@ def train_launcher(args, cfg, seq: int, seed: int, watch: tuple, tag: str, *,
 
     torch.cuda.reset_peak_memory_stats()
     manager, train_cli.CheckpointManager = train_cli.CheckpointManager, TimedSaves
+    # the launcher resolves --arch through the registry: give it ``cfg`` (a
+    # depth cut of phase 16) for the run
+    registry = train_cli.configs.get
+    train_cli.configs.get = lambda name: cfg if name == arch else registry(name)
     before = ops.launch_counts()
     try:
         (tr, state), t_run = timed(lambda: train_cli.run(train_cli.build_parser().parse_args(argv),
@@ -3491,6 +3505,7 @@ def train_launcher(args, cfg, seq: int, seed: int, watch: tuple, tag: str, *,
         restored = check_restored(CKPT_DIR / arch, state, arch) if ckpt_compress else None
     finally:
         train_cli.CheckpointManager = manager
+        train_cli.configs.get = registry
         shutil.rmtree(CKPT_DIR / arch, ignore_errors=True)
     losses, dts = [h["loss"] for h in tr.history], [h["dt"] for h in tr.history]
     check(len(losses) == ENC_VLM_TRAIN_STEPS and all(math.isfinite(v) for v in losses),
@@ -3694,6 +3709,9 @@ def enc_vlm_flash_rows(gen, reps: int, launches: dict) -> list:
 SSM_WATCH = tuple(f"layers/0/ssm/{w}" for w in ("in", "conv", "A_log", "dt_bias", "D", "out"))
 FAMILY_TRAIN_WATCH = {"mamba2-1.3b": SSM_WATCH,
                       "hymba-1.5b": SSM_WATCH + ("layers/0/attn/wq", "layers/0/mlp/wi")}
+# phase 16's depth cuts (layers trained of the config's), which pay for phase
+# 19d: mamba2-1.3b trains 24 of its 48 layers at full width
+FAMILY_TRAIN_LAYERS = {"mamba2-1.3b": 24}
 # deepseek-moe-16b at full width on MOE_TRAIN_LAYERS of its 28 layers
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-moe-16b", 4
 MOE_WATCH = tuple(f"layers/0/{w}" for w in ("attn/wq", "moe/router", "moe/wi", "moe/wo",
@@ -3761,14 +3779,16 @@ def train_moe_cut(args) -> dict:
 
 
 def phase_families_train(args) -> tuple:
-    """Phase 16: mamba2-1.3b and hymba-1.5b trained at full width and depth
-    through ``launch.train.run`` (B 4 x S 2048, 3 steps, SZx checkpoints
+    """Phase 16: mamba2-1.3b (24 of its 48 layers, FAMILY_TRAIN_LAYERS) and
+    hymba-1.5b (full depth) trained at full width through
+    ``launch.train.run`` (B 4 x S 2048, 3 steps, SZx checkpoints
     restored on the card within their bound, a compressed P = 1 step, a
     profiled step), then deepseek-moe-16b at full width on 4 layers
     (``train_moe_cut``).  Launch counters are zeroed before each model and
     read after it; the flash launches are also counted by shape.  Returns
     the phase's launch counts, each model's flash launches and its
     results."""
+    import dataclasses
     import gc
 
     import torch
@@ -3792,6 +3812,8 @@ def phase_families_train(args) -> tuple:
     with FlashShapes() as shapes:
         for i, (arch, watch) in enumerate(FAMILY_TRAIN_WATCH.items()):
             cfg = configs.get(arch)
+            if arch in FAMILY_TRAIN_LAYERS:
+                cfg = dataclasses.replace(cfg, n_layers=FAMILY_TRAIN_LAYERS[arch])
             ops.reset_launch_counts()
             torch.cuda.empty_cache()
             results[arch] = train_launcher(args, cfg, TRAIN_SEQ, args.seed + 60 + i, watch,
@@ -4226,35 +4248,59 @@ MOE_SERVE_STEPS = 8                # 19b's
 SHARDED_DECODE_TOL = 0.05
 SHARDED_DECODE_F32_TOL = 1e-5
 SHARDED_TIMED_STEPS = 17           # 19a's ABBA timing: steps a run, the first dropped
-SHARDED_TIMED_ROUNDS = 4
+SHARDED_TIMED_ROUNDS = 2
 SERVE_DRYRUN_CELLS = (("llama3.2-1b", "prefill_32k", "dense", False),   # (arch, shape,
                       ("llama3.2-1b", "decode_32k", "dense", False),    #  kv_mode,
                       ("llama3.2-1b", "decode_32k", "compressed", False),   # serve_layout)
                       ("deepseek-moe-16b", "decode_32k", "dense", True),
-                      ("arctic-480b", "decode_32k", "dense", False))
+                      ("arctic-480b", "decode_32k", "dense", False),
+                      ("mamba2-1.3b", "decode_32k", "dense", False),
+                      ("hymba-1.5b", "decode_32k", "compressed", False),
+                      ("whisper-medium", "prefill_32k", "dense", False))
+# 19d: the SSM, hybrid, audio and VLM families served on (1, 1) meshes at full
+# width: (layers served, or None for the config's full depth; prompt tokens;
+# the bf16-score decode's tolerance, or None where it is reported and not
+# held).  hymba-1.5b runs at full depth; the others are cut (mamba2-1.3b 12 of
+# 48 layers, whisper-medium 6 + 6 of 24 + 24, internvl2-1b 8 of 24) to pay for
+# the phase in the script's time limit.  hymba-1.5b's 32 random-weight layers
+# carry the bf16 rounding of its scores to 0.04-0.11 of the largest logit in 8
+# steps on an H100 (PERF.md), as its own bf16 serving moves by up to half of it
+# (phase 14): its bf16 run is reported, and its float32-score run held, as
+# 19b's are
+FAMILY_SHARDED_SERVE = {"mamba2-1.3b": (12, 2048, SHARDED_DECODE_TOL),
+                        "hymba-1.5b": (None, 2048, None),
+                        "whisper-medium": (6, 384, SHARDED_DECODE_TOL),
+                        "internvl2-1b": (8, 1792, SHARDED_DECODE_TOL)}
+FAMILY_SHARDED_STEPS = 8
 
 
 def local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
 
-def serve_teacher(params, cfg, prompts, mode: str, P: int, steps: int, toks=None, counts=None):
-    """A prefill of ``prompts`` and ``steps`` decode steps, each on a column
-    of ``toks`` (the unsharded run's greedy tokens) or greedy without them.
-    Returns (prefill logits, the cache slabs after the prefill (clones),
-    the decode logits (steps, B, V) in float32, the generated tokens,
-    prefill s, decode s a step).  With ``counts`` the launch counters are
-    set to 0 before the run and its launches added to ``counts`` after."""
+def serve_teacher(params, cfg, prompts, mode: str, P: int, steps: int, toks=None, counts=None,
+                  extra=None):
+    """A prefill of ``prompts`` (with ``extra``: stub frames or image
+    embeddings) and ``steps`` decode steps, each on a column of ``toks``
+    (the unsharded run's greedy tokens) or greedy without them.  Returns
+    (prefill logits, the cache slabs after the prefill (clones; the cross
+    K/V as ``cross_k``/``cross_v``), the decode logits (steps, B, V) in
+    float32, the generated tokens, prefill s, decode s a step).  With
+    ``counts`` the launch counters are set to 0 before the run and its
+    launches added to ``counts`` after."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serve import engine as E
 
     if counts is not None:
         ops.reset_launch_counts()
+    extra = extra or {}
+    seq = prompts.shape[1] + steps + (cfg.prefix_embeds if "image_embeds" in extra else 0)
     (cache, logits), t_pre = timed(lambda: E.prefill(
-        params, cfg, prompts, seq_len=prompts.shape[1] + steps, kv_mode=mode, num_planes=P))
+        params, cfg, prompts, seq_len=seq, kv_mode=mode, num_planes=P, **extra))
     pre = local(logits).clone()
     slabs = {k: local(v).clone() for k, v in cache["layers"].items()}
+    slabs.update({"cross_" + k: local(v).clone() for k, v in cache.get("cross", {}).items()})
     tok = torch.argmax(pre[:, -1:], -1) if toks is None else toks[:, :1]
     out, gen, times = [], [], []
     for i in range(steps):
@@ -4284,7 +4330,8 @@ def prefill_spread(a, b) -> float:
         float((a[1][k].float() - b[1][k].float()).abs().max()) for k in a[1]])
 
 
-def sharded_vs_plain(tag, model, cfg, prompts, steps, rules_specs, counts, decode_tol=None):
+def sharded_vs_plain(tag, model, cfg, prompts, steps, rules_specs, counts, decode_tol=None,
+                     extra=None):
     """One model's unsharded runs (twice, to see whether the prefill
     repeats itself) and its sharded runs on a (1, 1) mesh for each (mode,
     P, rules name, rules, spec function) of ``rules_specs`` against them;
@@ -4292,7 +4339,8 @@ def sharded_vs_plain(tag, model, cfg, prompts, steps, rules_specs, counts, decod
     rounded to bf16 under rules; its logits held to ``decode_tol`` where it
     is given, else reported) and with ``engine._reduce_scores`` summing the
     scores in float32, whose logits are held to SHARDED_DECODE_F32_TOL.
-    Only the first sharded run's launches are counted.  Returns the last
+    Only the first sharded run's launches are counted.  ``extra`` (stub
+    frames or image embeddings) goes to every prefill.  Returns the last
     run's mesh and parameters."""
     import torch
     from repro_torch.launch import mesh as mesh_lib
@@ -4306,14 +4354,14 @@ def sharded_vs_plain(tag, model, cfg, prompts, steps, rules_specs, counts, decod
     for mode, P, name, rules, specs_of in rules_specs:
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            a = serve_teacher(model, cfg, prompts, mode, P, steps)
-            b = serve_teacher(model, cfg, prompts, mode, P, steps, a[3])
+            a = serve_teacher(model, cfg, prompts, mode, P, steps, extra=extra)
+            b = serve_teacher(model, cfg, prompts, mode, P, steps, a[3], extra=extra)
             params = mesh_lib.shard_tree(tree, specs_of(cfg, tree, mesh), mesh)
             with SH.use_rules(mesh, rules):
-                sh = serve_teacher(params, cfg, prompts, mode, P, steps, a[3], counts)
+                sh = serve_teacher(params, cfg, prompts, mode, P, steps, a[3], counts, extra)
                 E._reduce_scores = lambda s, dims=(): SH.all_reduce(s, dims)  # noqa: E731
                 try:
-                    f32 = serve_teacher(params, cfg, prompts, mode, P, steps, a[3])
+                    f32 = serve_teacher(params, cfg, prompts, mode, P, steps, a[3], extra=extra)
                 finally:
                     E._reduce_scores = bf16_reduce
         finally:
@@ -4408,6 +4456,55 @@ def sharded_busy(model, params, cfg, prompts, mesh) -> None:
         + f"; sharded - unsharded medians {quart['sharded'][1] - quart['unsharded'][1]:+.2f} ms")
 
 
+def sharded_families(args) -> dict:
+    """19d: FAMILY_SHARDED_SERVE's models at full width (float32 weights from
+    --seed, bf16 compute, B 4), each served on a (1, 1) mesh against the
+    unsharded engine through ``sharded_vs_plain`` with dense and P = 1
+    caches: the prefill bit for bit, the decode with float32 scores held to
+    SHARDED_DECODE_F32_TOL and with bf16 scores to the model's tolerance
+    there (reported where it has none); the peak memory of each model's
+    runs.  Returns the sharded runs' launches, which must include
+    the flash and both planes kernels."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+
+    counts = {}
+    for i, (arch, (layers, prompt, decode_tol)) in enumerate(FAMILY_SHARDED_SERVE.items()):
+        cfg = configs.get(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers, n_encoder_layers=(
+                layers if cfg.encoder_decoder else 0))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 92 + i)
+        model = T.init_params(cfg, gen, "cuda")
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, prompt), device="cuda",
+                                generator=gen)
+        extra = enc_vlm_extra(cfg, gen) if cfg.encoder_decoder or cfg.prefix_embeds else None
+        sharded_vs_plain(
+            "sharded serve 19d", model, cfg, prompts, FAMILY_SHARDED_STEPS,
+            [(mode, 1, "DEFAULT_RULES", None, mesh_lib.param_specs_tree)
+             for mode in ("dense", "compressed")], counts, decode_tol, extra)
+        depth = "full depth" if layers is None else (
+            f"cut to {layers} of {configs.get(arch).n_layers} layers"
+            + (" in the encoder and the decoder" if cfg.encoder_decoder else ""))
+        log(f"sharded serve 19d {arch} ({depth}), {SERVE_BATCH} x {prompt} prompts, "
+            f"{FAMILY_SHARDED_STEPS} steps: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del model, prompts, extra
+    torch.cuda.empty_cache()
+    counts = {k: v for k, v in counts.items() if v}
+    log(f"sharded serve 19d launches on the families' sharded serving path: {counts}")
+    for k in ("flash_attention",) + PLANES_KERNELS:
+        check(counts.get(k, 0) > 0, f"19d: kernel {k} was not launched on the families' "
+                                    f"sharded serving path")
+    return counts
+
+
 def serve_dryrun_cells() -> None:
     """19c: the dry-run's serving cells on fake CUDA tensors on (16, 16),
     each record a line of its own with its wall time."""
@@ -4424,10 +4521,10 @@ def serve_dryrun_cells() -> None:
 
 
 def phase_sharded_serve(args) -> dict:
-    """Phase 19 (``--sharded-serve`` runs it alone): 19a-19b in a one-rank
-    NCCL group on one-member meshes, then (the group destroyed) 19c's
-    dry-run cells.  Returns the launches of the sharded runs, which must
-    include the flash and both planes kernels."""
+    """Phase 19 (``--sharded-serve`` runs it alone): 19a, 19b and 19d in a
+    one-rank NCCL group on one-member meshes, then (the group destroyed)
+    19c's dry-run cells.  Returns the launches of the sharded runs, which
+    must include the flash and both planes kernels."""
     import dataclasses
 
     import torch
@@ -4465,6 +4562,8 @@ def phase_sharded_serve(args) -> dict:
               mesh_lib.serve_param_specs_tree)], counts)
         del model
         torch.cuda.empty_cache()
+        for k, v in sharded_families(args).items():
+            counts[k] = counts.get(k, 0) + v
     finally:
         dist.destroy_process_group()
     counts = {k: v for k, v in counts.items() if v}
@@ -4580,7 +4679,8 @@ def main() -> int:
                          "meshes, sharded checkpoints, the dry-run) and stop")
     ap.add_argument("--sharded-serve", action="store_true",
                     help="build, run phase 19 alone (serving under one-member meshes, the "
-                         "dry-run's serving cells) and stop")
+                         "SSM, hybrid, audio and VLM families among them, the dry-run's "
+                         "serving cells) and stop")
     args = ap.parse_args()
 
     import torch

@@ -15,19 +15,20 @@ constants).  Nothing is allocated at full size; the reference sets
 ``XLA_FLAGS`` at import, the port makes its fake group inside
 :func:`lower_cell` and destroys it after.
 
-A ``prefill``/``decode`` cell of the dense and MoE families runs rank 0's
-sharded ``engine.prefill``/``engine.decode_step`` the same way, inside the
+A ``prefill``/``decode`` cell of every family runs rank 0's sharded
+``engine.prefill``/``engine.decode_step`` the same way, inside the
 rule table the reference's ``lower_cell`` picks for the cell
 (``DEFAULT_RULES``, ``PURE_DP_RULES`` for ``parallelism="dp"``,
 ``SERVE_MOE_RULES`` over it with ``serve_layout``; the training step
 picks its own): the parameters placed by ``param_specs_tree``
 (``serve_param_specs_tree`` with ``serve_layout``, replicated with
-``dp``), the cache by ``cache_specs_tree``.  Each serving record holds
-``ideal_bytes_per_device`` -- the parameters and the cache a device holds
--- and a decode record its ``floor_fraction``.  The SSM, hybrid, audio and
-VLM families' serving cells and ``long_500k`` (a window sequence-sharded
-over 'data') wait for a later slice: ``SKIP`` with the reason and the
-ideal bytes.
+``dp``), the cache as the engine keeps it (``mesh.serve_cache_specs``:
+``cache_specs_tree``'s layout, but for an SSM state whose heads do not
+divide the ``model`` axis, split as the layers split its heads).  Each
+serving record holds ``ideal_bytes_per_device`` -- the parameters and the
+cache rank 0 holds -- and a decode record its ``floor_fraction``.
+``long_500k`` (a window sequence-sharded over 'data') waits for a later
+slice: ``SKIP`` with the reason and the ideal bytes.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -53,9 +54,6 @@ from repro_torch.configs.base import SHAPES, input_specs
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.roofline import analysis as roofline
 
-SERVE_SKIP = ("serving the SSM, hybrid, audio and VLM families under a mesh is a later "
-              "slice of the port (ROADMAP.md queue 1); ideal_bytes_per_device is the sharded "
-              "parameters and cache a device holds")
 LONG_SKIP = ("long-context serving under a mesh (the window sequence-sharded over 'data', "
              "LONG_CONTEXT_RULES) is a later slice of the port (ROADMAP.md queue 1); "
              "ideal_bytes_per_device is the sharded parameters and cache a device holds")
@@ -231,16 +229,15 @@ def _serve_cell(cfg, mesh, pspecs_of, rules, kind, batch, seq_len, global_batch,
     pspecs = pspecs_of(params)
     cache = engine.cache_specs(cfg, global_batch, seq_len, kv_mode=kv_mode,
                                num_planes=num_planes)
-    skip = SERVE_SKIP if not engine.mesh_served(cfg) else LONG_SKIP if long_ctx else None
-    if skip:
-        cspecs = mesh_lib.cache_specs_tree(cfg, mesh, cache, long_context=long_ctx)
+    if long_ctx:
+        cspecs = mesh_lib.cache_specs_tree(cfg, mesh, cache, long_context=True)
     else:
         with sharding.use_rules(mesh, rules):
             cspecs = mesh_lib.serve_cache_specs(mesh, cache)
     ideal = (roofline.sharded_bytes_per_device(params, pspecs, mesh)
              + roofline.sharded_bytes_per_device(cache, cspecs, mesh))
-    if skip:
-        return {"status": "SKIP", "reason": skip, "ideal_bytes_per_device": ideal}
+    if long_ctx:
+        return {"status": "SKIP", "reason": LONG_SKIP, "ideal_bytes_per_device": ideal}
     names = mesh.mesh_dim_names
     with sharding.use_rules(mesh, rules):
         rows = tuple(names[i] for i in sharding.mesh_dims("act_batch"))
@@ -262,8 +259,9 @@ def _serve_cell(cfg, mesh, pspecs_of, rules, kind, batch, seq_len, global_batch,
         inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=device) for k, v in batch.items()}
         with sharding.use_rules(mesh, rules), hlo_cost.OpCounter(mesh) as counter:
             if kind == "prefill":
-                engine.prefill(fparams, cfg, inputs["tokens"], seq_len=seq_len, kv_mode=kv_mode,
-                               num_planes=num_planes)
+                engine.prefill(fparams, cfg, inputs["tokens"], frames=inputs.get("frames"),
+                               image_embeds=inputs.get("image_embeds"), seq_len=seq_len,
+                               kv_mode=kv_mode, num_planes=num_planes)
             else:
                 fcache = {"pos": seq_len - 1,
                           **fake_state(cfg, mesh, {k: v for k, v in cspecs.items() if k != "pos"},

@@ -325,7 +325,9 @@ def serve_cache_specs(mesh, cache_tree):
     tree) in under the active rules (``engine.cache_layout``):
     :func:`cache_specs_tree`'s under ``DEFAULT_RULES``, the batch over
     ``act_batch``'s axes and head_dim over ``act_hd``'s under another
-    table."""
+    table -- but an SSM state is split over its heads' axes also where they
+    do not divide its heads (hymba-1.5b's 50 on 16: chunks of 4, as the
+    layers run them), where :func:`cache_specs_tree` keeps it whole."""
     from repro_torch.serve.engine import cache_layout
 
     return _map_with_path(lambda path, leaf: layout_spec(cache_layout(path[-1], leaf.shape),

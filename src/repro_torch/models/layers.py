@@ -26,7 +26,9 @@ activation enters split work through ``sharding.enter``, whose backward
 sums the ranks' partial cotangents, and a row-parallel exit passes the
 cotangent through.  On plain tensors (outside a rules context) every one
 of those helpers is the identity, so the same functions compute what they
-always did.  The Mamba2 layers have no sharded form yet.
+always did.  The Mamba2 layers run head-parallel over ``act_heads``
+(:func:`mamba2`), and whisper's cross-attention K/V come whole over
+``wk``/``wv``'s split (:func:`cross_kv`).
 
 Precision on the card: :func:`exact_matmuls` turns off TF32 and bf16
 reduced-precision reductions for the ``dense`` products while a forward
@@ -200,11 +202,13 @@ def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=Non
 
 def cross_kv(p, enc_out, cfg):
     """Project the encoder output (B,T,D) to the (k, v) of cross-attention,
-    each (B,T,Hkv,hd)."""
+    each (B,T,Hkv,hd).  Under a mesh ``wk``/``wv`` are column-parallel and
+    the K/V come whole over their split, as :func:`attention`'s do."""
     b, s, _ = enc_out.shape
-    hd = cfg.resolved_head_dim
-    k = dense(enc_out, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dense(enc_out, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    xin = entry(enc_out)
+    k = column_whole(xin, p["wk"], hkv * hd).reshape(b, s, hkv, hd)
+    v = column_whole(xin, p["wv"], hkv * hd).reshape(b, s, hkv, hd)
     return k, v
 
 
@@ -421,6 +425,67 @@ def _ssd_chunk(state, xk, bk, ck, dtk, cumk, out_dtype):
     return new_state, (y_intra + y_inter).to(out_dtype)
 
 
+def _ssm_heads(cfg) -> tuple:
+    """(mesh dims, h0, h1): the SSM heads [h0, h1) this rank runs, split
+    over ``act_heads``'s mesh dims in chunks of ceil(H / n) as the
+    attention's query heads are (a rank may hold fewer, or none); all of
+    them outside a rules context."""
+    heads = S.mesh_dims("act_heads")
+    return (heads,) + S.chunk_range(cfg.ssm_n_heads, heads)
+
+
+def _head_channels(t, cfg, h0: int, h1: int):
+    """The channels of ``t`` (last dim, CC = di + 2N: x, then B and C) that
+    heads [h0, h1) read: their x channels, then B and C, which every head
+    reads (G = 1).  ``t`` itself for all the heads."""
+    di, h, _, hp = _ssm_dims(cfg)
+    if (h0, h1) == (0, h):
+        return t
+    return torch.cat([t[..., h0 * hp:h1 * hp], t[..., di:]], dim=-1)
+
+
+def _head_vector(v, heads, h0: int, h1: int):
+    """Heads [h0, h1) of a per-head vector held whole (``dt_bias``,
+    ``A_log``, ``D``; a replicated ``DTensor`` under a mesh).  The heads
+    are split work, so the whole vector enters it (``sharding.enter``)."""
+    return S.enter(S.to_local(v), heads)[h0:h1]
+
+
+def _ssm_norm_out(p, y, cfg, heads, h0: int, h1: int):
+    """The gated norm over the whole d_inner, then ``out``.  ``y`` (..., (h1
+    - h0) * hp) holds heads [h0, h1)'s columns.  Where ``out``'s row split
+    is the heads' (mamba2-1.3b on a 16-way axis: 256 rows, 4 heads of 64; or
+    both whole), the norm's float32 sum of squares is all-reduced over the
+    heads' mesh dims and each rank multiplies its own rows; else (hymba-1.5b:
+    200 rows a rank against 64-wide heads, 50 heads over 16 ranks; or
+    ``out`` whole where di does not divide) ``y`` is gathered whole over the
+    heads, normed, and each rank takes its rows.  ``out`` is row-parallel."""
+    di, h, _, hp = _ssm_dims(cfg)
+    wo, lo = S.weight(p["out"], keep=(0,))
+    if S.chunk_range(di, lo[0]) == (h0 * hp, h1 * hp):
+        y = _split_rms_norm(y, p["norm"], cfg.norm_eps, heads, h0 * hp, h1 * hp, di)
+    else:
+        lead = y.shape[:-1]
+        y = S.gather(y.reshape(*lead, h1 - h0, hp), -2, heads, h).reshape(*lead, di)
+        y = S.take(rms_norm(y, p["norm"], cfg.norm_eps), -1, lo[0])
+    return S.all_reduce(dense(y, wo), lo[0])
+
+
+def _split_rms_norm(x, scale, eps: float, dims, lo: int, hi: int, size: int):
+    """:func:`rms_norm` over a last dim of ``size`` of which ``x`` holds
+    columns [lo, hi), split over mesh ``dims``: each rank's float32 sum of
+    squares all-reduced over them (so the sum runs in another order than
+    one sum over the whole dim).  :func:`rms_norm` itself where ``dims``
+    has no member."""
+    if not S.members(dims):
+        return rms_norm(x, scale, eps)
+    dt = x.dtype
+    x = x.to(torch.float32)
+    ss = S.enter(S.all_reduce((x * x).sum(-1, keepdim=True), dims), dims)
+    x = x * torch.rsqrt(ss / size + eps)
+    return (x * S.enter(S.to_local(scale), dims)[lo:hi].to(torch.float32)).to(dt)
+
+
 def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
     """Chunked SSD forward.  x: (B,S,D) -> (B,S,D).
 
@@ -428,9 +493,19 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
         'D': (H,), 'norm': (di,), 'out': (di,D)}
     with Z = 2*di + 2*N + H and CC = di + 2*N (the x, B, C channels are
     conv'd).  With return_state=True also returns (final_state, conv_tail)
-    for decode."""
+    for decode.
+
+    Under a mesh the heads are split over ``act_heads`` (:func:`_ssm_heads`):
+    ``in``'s column-parallel product comes whole over its split (its Z
+    columns, cut contiguously, do not fall on the z | xBC | dt boundaries
+    nor on heads), each rank convolves its heads' x channels and the shared
+    B and C with ``conv`` gathered whole (W x CC, tiny), scans its heads and
+    ends in :func:`_ssm_norm_out`.  The final state is this rank's heads';
+    the conv tail is whole."""
     b, s, _ = x.shape
     di, h, n, hp = _ssm_dims(cfg)
+    heads, h0, h1 = _ssm_heads(cfg)
+    hl = h1 - h0
     q = min(cfg.ssm_chunk, s)
     if s % q:
         # the largest divisor (only odd test lengths reach this)
@@ -438,21 +513,23 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
     nc = s // q
     f32 = torch.float32
 
-    zxbcdt = dense(x, p["in"])
-    z = zxbcdt[..., :di]
+    zxbcdt = S.enter(column_whole(x, p["in"], ssm_in_features(cfg)), heads)
+    z = zxbcdt[..., h0 * hp:h1 * hp]
     xbc = zxbcdt[..., di:2 * di + 2 * n]
-    dt = zxbcdt[..., 2 * di + 2 * n:]
+    dt = zxbcdt[..., 2 * di + 2 * n + h0:2 * di + 2 * n + h1]
     conv_tail = xbc[:, s - (cfg.ssm_conv_width - 1):, :]               # pre-conv history
-    xbc = _ssm_conv(xbc, p["conv"].to(x.dtype))
+    wc = S.enter(S.weight(p["conv"])[0], heads)
+    xbc = _ssm_conv(_head_channels(xbc, cfg, h0, h1),
+                    _head_channels(wc.to(x.dtype), cfg, h0, h1))
     xbc = torch.nn.functional.silu(xbc.to(f32)).to(x.dtype)
-    xs = xbc[..., :di].reshape(b, s, h, hp)
-    bb = xbc[..., di:di + n]                                           # (B,S,N) (G=1)
-    cc = xbc[..., di + n:]
-    dt = _softplus(dt.to(f32) + p["dt_bias"].to(f32))
-    a = -torch.exp(p["A_log"].to(f32))                                 # (H,)
-    cum = torch.cumsum((dt * a).reshape(b, nc, q, h), dim=2)           # within-chunk
+    xs = xbc[..., :hl * hp].reshape(b, s, hl, hp)
+    bb = xbc[..., hl * hp:hl * hp + n]                                 # (B,S,N) (G=1)
+    cc = xbc[..., hl * hp + n:]
+    dt = _softplus(dt.to(f32) + _head_vector(p["dt_bias"], heads, h0, h1).to(f32))
+    a = -torch.exp(_head_vector(p["A_log"], heads, h0, h1).to(f32))   # (H,)
+    cum = torch.cumsum((dt * a).reshape(b, nc, q, hl), dim=2)          # within-chunk
 
-    state = torch.zeros((b, h, n, hp), dtype=f32, device=x.device) if init_state is None \
+    state = torch.zeros((b, hl, n, hp), dtype=f32, device=x.device) if init_state is None \
         else init_state
     ys = []
     for c in range(nc):
@@ -460,11 +537,10 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
         state, y = _ssd_chunk(state, xs[:, sl], bb[:, sl], cc[:, sl], dt[:, sl], cum[:, c], x.dtype)
         ys.append(y)
     y = torch.cat(ys, dim=1)                                           # (B,S,H,hp)
-    y = y + xs * p["D"].to(x.dtype)[None, None, :, None]
-    y = y.reshape(b, s, di)
+    y = y + xs * _head_vector(p["D"], heads, h0, h1).to(x.dtype)[None, None, :, None]
+    y = y.reshape(b, s, hl * hp)
     y = y * torch.nn.functional.silu(z.to(f32)).to(x.dtype)
-    y = rms_norm(y, p["norm"], cfg.norm_eps)
-    out = dense(y, p["out"])
+    out = _ssm_norm_out(p, y, cfg, heads, h0, h1)
     if return_state:
         return out, (state, conv_tail)
     return out
@@ -473,33 +549,48 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
 def mamba2_decode(p, x1, state, conv_state, cfg):
     """Single-token SSD step.  x1: (B,1,D); state: (B,H,N,hp) float32;
     conv_state: (B, W-1, CC).  Returns (out (B,1,D), state, conv_state), new
-    tensors."""
+    tensors.
+
+    Under a mesh (:func:`mamba2`) ``state`` holds this rank's heads and
+    ``conv_state`` the channels of ``conv``'s column split (the serving
+    cache's layout): each rank convolves those channels with its own
+    columns of ``conv``, and the convolved channels are gathered whole, so
+    neither the cache nor a weight moves."""
     b = x1.shape[0]
     di, h, n, hp = _ssm_dims(cfg)
+    heads, h0, h1 = _ssm_heads(cfg)
+    hl = h1 - h0
     f32 = torch.float32
-    zxbcdt = dense(x1, p["in"])[:, 0]                                 # (B,Z)
-    z = zxbcdt[:, :di]
+    wc, lc = S.weight(p["conv"], keep=(1,))
+    channels = ssm_conv_channels(cfg)
+    c0, c1 = S.chunk_range(channels, lc[1])
+    if state.shape[1] != hl or conv_state.shape[-1] != c1 - c0:
+        raise ValueError(f"the SSM cache holds {state.shape[1]} heads and {conv_state.shape[-1]} "
+                         f"conv channels; this rank runs heads [{h0}, {h1}) and conv channels "
+                         f"[{c0}, {c1})")
+    zxbcdt = S.enter(column_whole(x1, p["in"], ssm_in_features(cfg)), heads)[:, 0]   # (B,Z)
+    z = zxbcdt[:, h0 * hp:h1 * hp]
     xbc = zxbcdt[:, di:2 * di + 2 * n]
-    dt = zxbcdt[:, 2 * di + 2 * n:]
+    dt = zxbcdt[:, 2 * di + 2 * n + h0:2 * di + 2 * n + h1]
     # causal conv via the rolling state
-    hist = torch.cat([conv_state, xbc[:, None, :]], dim=1)             # (B,W,CC)
-    xbc = torch.einsum("bwc,wc->bc", hist, p["conv"].to(x1.dtype))
+    hist = torch.cat([conv_state, xbc[:, None, c0:c1]], dim=1)         # (B,W,CC)
+    xbc = torch.einsum("bwc,wc->bc", hist, wc.to(x1.dtype))
     new_conv_state = hist[:, 1:]
     xbc = torch.nn.functional.silu(xbc.to(f32)).to(x1.dtype)
-    xh = xbc[:, :di].reshape(b, h, hp)
-    bb = xbc[:, di:di + n]
-    cc = xbc[:, di + n:]
-    dt = _softplus(dt.to(f32) + p["dt_bias"].to(f32))
-    a = -torch.exp(p["A_log"].to(f32))
+    xbc = _head_channels(S.enter(S.gather(xbc, -1, lc[1], channels), heads), cfg, h0, h1)
+    xh = xbc[:, :hl * hp].reshape(b, hl, hp)
+    bb = xbc[:, hl * hp:hl * hp + n]
+    cc = xbc[:, hl * hp + n:]
+    dt = _softplus(dt.to(f32) + _head_vector(p["dt_bias"], heads, h0, h1).to(f32))
+    a = -torch.exp(_head_vector(p["A_log"], heads, h0, h1).to(f32))
     da = torch.exp(dt * a[None, :])                                    # (B,H)
     upd = bb.to(f32)[:, None, :, None] * (dt[:, :, None] * xh.to(f32))[:, :, None, :]
     state = da[:, :, None, None] * state + upd                         # (B,H,N,hp)
     y = torch.einsum("bn,bhnp->bhp", cc.to(f32), state)
-    y = y.to(x1.dtype) + xh * p["D"].to(x1.dtype)[None, :, None]
-    y = y.reshape(b, di)
+    y = y.to(x1.dtype) + xh * _head_vector(p["D"], heads, h0, h1).to(x1.dtype)[None, :, None]
+    y = y.reshape(b, hl * hp)
     y = y * torch.nn.functional.silu(z.to(f32)).to(x1.dtype)
-    y = rms_norm(y, p["norm"], cfg.norm_eps)
-    return dense(y, p["out"])[:, None, :], state, new_conv_state
+    return _ssm_norm_out(p, y, cfg, heads, h0, h1)[:, None, :], state, new_conv_state
 
 
 def ssm_conv_channels(cfg) -> int:

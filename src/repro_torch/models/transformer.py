@@ -35,6 +35,8 @@ mesh dims; local logits gathered whole over them, so every serving rank
 holds the whole logits of its batch rows; and the loss from each rank's
 logit columns, its logsumexp assembled from the ranks' maxima and sums of
 exponentials, so that no rank holds a chunk's whole (B, 512, V) logits.
+The encoder-decoder's and the VLM's ``frontend_proj`` is column-parallel:
+its output columns come whole over their split before the residual stream.
 """
 from __future__ import annotations
 
@@ -360,7 +362,7 @@ def _inputs(params, cfg: ArchConfig, tokens, frames, image_embeds, run_layers):
     the token embeddings -- and the encoder's output (or None)."""
     h = embed_tokens(params, cfg, tokens)
     if cfg.prefix_embeds and image_embeds is not None:
-        pre = L.dense(image_embeds.to(h.dtype), params["frontend_proj"])
+        pre = L.column_whole(image_embeds.to(h.dtype), params["frontend_proj"], cfg.d_model)
         h = torch.cat([pre, h], dim=1)
     enc_out = None
     if cfg.encoder_decoder:
@@ -370,7 +372,7 @@ def _inputs(params, cfg: ArchConfig, tokens, frames, image_embeds, run_layers):
 
 def _encode(params, cfg: ArchConfig, frames, run_layers):
     enc = params["encoder"]
-    h = L.dense(frames.to(compute_dtype(cfg)), params["frontend_proj"])
+    h = L.column_whole(frames.to(compute_dtype(cfg)), params["frontend_proj"], cfg.d_model)
     h, _ = run_layers(enc["layers"], h, cfg, causal=False)
     return L.rms_norm(h, enc["final_ln"], cfg.norm_eps)
 

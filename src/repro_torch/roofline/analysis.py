@@ -140,16 +140,15 @@ def decode_model_flops(cfg, batch: int) -> float:
 
 def sharded_bytes_per_device(shape_tree, spec_tree, mesh) -> float:
     """Per-device bytes of a tree of tensors (``meta`` stand-ins or real)
-    under a matching tree of specs."""
-    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    under a matching tree of specs: the shards of the device at mesh
+    coordinate 0, which holds the largest chunk of a dim its axes do not
+    divide (chunks of ceil(size / n), as the serving engine splits an SSM
+    state's heads); where they divide, the reference's size / shards."""
+    from repro_torch.launch.mesh import local_shape
+
     total = 0.0
     for leaf, spec in zip(leaves(shape_tree), leaves(spec_tree)):
-        shards = 1
-        for ax in tuple(spec):
-            for a in (ax if isinstance(ax, tuple) else (ax,)):
-                if a is not None:
-                    shards *= sizes.get(a, 1)
-        total += math.prod(leaf.shape) * leaf.element_size() / shards
+        total += math.prod(local_shape(spec, leaf.shape, mesh)) * leaf.element_size()
     return total
 
 

@@ -20,19 +20,24 @@ are.
 Under a mesh (inside ``models.sharding.use_rules(mesh, rules)``, the
 parameters a tree of ``DTensor``s placed by ``param_specs_tree`` or
 ``serve_param_specs_tree``) :func:`prefill` and :func:`decode_step`
-compute tensor-parallel on each rank's shards, for the dense and MoE
-families: the batch split over ``act_batch``, the cache placed as
-``cache_specs_tree`` places it (K/V (L, B, W, Hkv, hd) with hd over
-``act_hd``'s axes, mu/sexp whole over them, the planes with hd split), and
-the prefill's cache and logits come back as ``DTensor``s (the logits each
-rank's batch rows, the whole vocabulary).  A decode step takes the
-token's K/V whole over ``model``, writes this rank's hd columns (the
-compressed cache encodes whole hd blocks, so mu and sexp are the
-unsharded encode's, and keeps this rank's columns of the planes), and
-attends with hd-partial scores all-reduced in bf16 (:func:`_reduce_scores`)
-and the output gathered over hd.  The same functions serve with and
-without a mesh: on plain tensors outside a rules context every split,
-gather and all-reduce they call is the identity.
+compute tensor-parallel on each rank's shards, for every family: the
+batch split over ``act_batch``, the cache placed as :func:`cache_layout`
+places it (K/V (L, B, W, Hkv, hd) and the cross K/V (L, B, T, Hkv, hd)
+with hd over ``act_hd``'s axes, mu/sexp whole over them, the planes with
+hd split; the SSM state (L, B, H, N, hp) over ``act_heads`` as the layers
+split the heads, the conv tail (L, B, W-1, CC) over its channels as
+``conv``'s columns are split), and the prefill's cache and logits come
+back as ``DTensor``s (the logits each rank's batch rows, the whole
+vocabulary).  A decode step takes the token's K/V whole over ``model``,
+writes this rank's hd columns (the compressed cache encodes whole hd
+blocks, so mu and sexp are the unsharded encode's, and keeps this rank's
+columns of the planes), and attends with hd-partial scores all-reduced in
+bf16 (:func:`_reduce_scores`) and the output gathered over hd; the
+cross-attention reads its hd columns of the cross K/V the same way.  The
+same functions serve with and without a mesh: on plain tensors outside a
+rules context every split, gather and all-reduce they call is the
+identity.  A window sequence-sharded over ``act_seq`` (``long_500k``'s
+``LONG_CONTEXT_RULES``) is not served.
 
 Where the port differs from the reference:
   - the cache is updated in place: :func:`prefill` builds it, and
@@ -102,30 +107,26 @@ def cache_window(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def make_cache(cfg: ArchConfig, batch: int, seq_len: int, *, kv_mode: str = "dense",
-               num_planes: int = 1, dtype=torch.bfloat16, device=None,
-               head_cols: int | None = None) -> dict:
+               num_planes: int = 1, dtype=torch.bfloat16, device=None) -> dict:
     """Zero-initialized cache on ``device`` (default the card): K/V slabs
     for the attention families, state and conv slabs for the SSM ones, the
     cross-attention's K/V for the encoder-decoder; an attention-free
-    model's ``slot_pos`` has one slot.  ``head_cols`` is the head_dim
-    columns the self-attention slabs hold (all by default; a rank's share
-    under a mesh)."""
+    model's ``slot_pos`` has one slot."""
     if kv_mode not in ("dense", "compressed"):
         raise ValueError(f"unknown kv_mode {kv_mode!r}")
     if device is None:
         device = resolve_device(None, "make_cache")
     w = cache_window(cfg, seq_len)
     hd, nl, hkv = cfg.resolved_head_dim, cfg.n_layers, cfg.n_kv_heads
-    cols = hd if head_cols is None else head_cols
     lay = {}
     attn = T.has_attention(cfg)
     for nm in ("k", "v") if attn else ():
         if kv_mode == "dense":
-            lay[nm] = torch.zeros((nl, batch, w, hkv, cols), dtype=dtype, device=device)
+            lay[nm] = torch.zeros((nl, batch, w, hkv, hd), dtype=dtype, device=device)
         else:
             lay[nm + "mu"] = torch.zeros((nl, batch, w, hkv), dtype=torch.float32, device=device)
             lay[nm + "sexp"] = torch.zeros((nl, batch, w, hkv), dtype=torch.int8, device=device)
-            lay[nm + "pl"] = torch.zeros((nl, num_planes, batch, w, hkv, cols), dtype=torch.uint8,
+            lay[nm + "pl"] = torch.zeros((nl, num_planes, batch, w, hkv, hd), dtype=torch.uint8,
                                          device=device)
     if T.has_ssm(cfg):
         lay["state"] = torch.zeros((nl, batch, cfg.ssm_n_heads, cfg.ssm_state, cfg.ssm_head_dim),
@@ -299,16 +300,25 @@ def decode_attention(p, x1, lc, cache_meta, cfg: ArchConfig, *, kv_mode: str,
     return L.row_parallel(out.reshape(b, 1, hq * hd), p["wo"])
 
 
-def _cross_attend(p, x1, cross_k, cross_v, cfg: ArchConfig):
+def _cross_attend(p, x1, cross_k, cross_v, cfg: ArchConfig, hd_dims=()):
     """Decoder cross-attention of x1 (B,1,D) against one layer's cached
-    encoder K/V (B,T,Hkv,hd): every slot valid, no rotary embedding."""
+    encoder K/V (B,T,Hkv,hd): every slot valid, no rotary embedding.  Under
+    a mesh tensor-parallel over head_dim as :func:`decode_attention` is: q
+    comes whole over ``wq``'s split, its head_dim columns of mesh dims
+    ``hd_dims`` (the cross cache's split) score against the rank's columns
+    of the K/V, the partial scores are all-reduced in bf16 (the reference's
+    ``_slab_attend`` shards its ``qg`` over ``act_hd``), the output is
+    gathered over head_dim and ``wo`` is row-parallel."""
     b = x1.shape[0]
-    hd = cfg.resolved_head_dim
-    q = L.dense(x1, p["wq"]).reshape(b, 1, cfg.n_heads, hd)
+    hd, hq = cfg.resolved_head_dim, cfg.n_heads
+    q = L.column_whole(x1, p["wq"], hq * hd).reshape(b, 1, hq, hd)
+    h0, h1 = S.chunk_range(hd, hd_dims)
     t = cross_k.shape[1]
     slot_pos = torch.arange(t, dtype=torch.int32, device=x1.device)
-    out = _slab_attend(q, cross_k, cross_v, slot_pos, t, window=0)
-    return L.dense(out.reshape(b, 1, cfg.n_heads * hd), p["wo"])
+    out = _slab_attend(q[..., h0:h1], cross_k, cross_v, slot_pos, t, window=0, hd=hd,
+                       hd_dims=hd_dims)
+    out = S.gather(out, -1, hd_dims, hd)
+    return L.row_parallel(out.reshape(b, 1, hq * hd), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -325,46 +335,50 @@ def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
     the cache is sized for ``seq_len`` positions (default all of them, the
     prefix included), and a shorter one is a ring that evicts.  Under a
     mesh (module docstring) the cache and logits are ``DTensor``s: the
-    cache in :func:`cache_layout`'s layout, made from the layers' K/V,
-    which come whole over 'model', so the dense slabs take this rank's
-    head_dim columns and the compressed cache encodes whole blocks."""
+    cache in :func:`cache_layout`'s layout, made from the layers' K/V and
+    the cross K/V, which come whole over 'model' (the dense slabs take this
+    rank's head_dim columns, the compressed cache encodes whole blocks),
+    the SSM's final state of this rank's heads and its whole conv tail."""
     meshed = rules_active()
     bdims = S.mesh_dims("act_batch")
     b_all = tokens.shape[0]
     if meshed:
-        _check_family(cfg)
+        _check_rules()
         if S.dividing(bdims, b_all) != bdims:
             raise ValueError(f"a batch of {b_all} does not split over the mesh dims {bdims} "
                              f"of act_batch")
-    h, enc_out = T._inputs(params, cfg, _batch_rows(tokens, bdims), frames, image_embeds,
-                           T._run_layers)
+    rows = [None if t is None else _batch_rows(t, bdims) for t in (tokens, frames, image_embeds)]
+    h, enc_out = T._inputs(params, cfg, *rows, T._run_layers)
     h, _, caps = T._run_layers(params["layers"], h, cfg, causal=True, enc_out=enc_out,
                                capture=True)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = T.logits_for(params, cfg, h[:, -1:])
-    b, s = h.shape[0], h.shape[1]
-    hd = cfg.resolved_head_dim
-    if meshed:
-        whole = cache_specs(cfg, b_all, seq_len or s, kv_mode=kv_mode, num_planes=num_planes)
-        lays = {name: cache_layout(name, t.shape) for name, t in whole["layers"].items()}
-        h0, h1 = S.chunk_range(hd, lays["k" if kv_mode == "dense" else "kpl"][-1])
-    else:
-        h0, h1 = 0, hd
-    cache = make_cache(cfg, b, seq_len or s, kv_mode=kv_mode, num_planes=num_planes,
-                       dtype=h.dtype, device=h.device, head_cols=h1 - h0)
+    s = h.shape[1]
+    whole = make_cache(cfg, b_all, seq_len or s, kv_mode=kv_mode, num_planes=num_planes,
+                       dtype=h.dtype, device="meta")
+    lays = {part: {name: cache_layout(name, t.shape) for name, t in whole[part].items()}
+            for part in ("layers", "cross") if part in whole}
+    cache = {"pos": s, "slot_pos": torch.full(whole["slot_pos"].shape, -1, dtype=torch.int32,
+                                              device=h.device)}
+    for part, lay in lays.items():
+        cache[part] = {name: torch.zeros(_local_shape(whole[part][name].shape, lay[name]),
+                                         dtype=whole[part][name].dtype, device=h.device)
+                       for name in lay}
     if "k" in caps:
+        h0, h1 = S.chunk_range(cfg.resolved_head_dim,
+                               lays["layers"]["k" if kv_mode == "dense" else "kpl"][-1])
         fill_cache(cache, caps["k"], caps["v"], kv_mode=kv_mode, num_planes=num_planes,
                    hd=slice(h0, h1))
-    cache["pos"] = s
     if "state" in caps:
-        cache["layers"]["state"].copy_(caps["state"])
-        cache["layers"]["conv"].copy_(caps["conv"])
-    if cfg.encoder_decoder:
-        cache["cross"] = {"k": caps["cross_k"].to(h.dtype), "v": caps["cross_v"].to(h.dtype)}
+        cache["layers"]["state"].copy_(caps["state"])              # this rank's heads
+        cache["layers"]["conv"].copy_(S.take(caps["conv"], -1, lays["layers"]["conv"][-1]))
+    for nm in ("k", "v") if cfg.encoder_decoder else ():
+        cache["cross"][nm].copy_(S.take(caps["cross_" + nm], -1, lays["cross"][nm][-1]))
     if meshed:
         cache["slot_pos"] = S.from_local(cache["slot_pos"], ((),), whole["slot_pos"].shape)
-        cache["layers"] = {name: S.from_local(t, lays[name], whole["layers"][name].shape)
-                           for name, t in cache["layers"].items()}
+        for part, lay in lays.items():
+            cache[part] = {name: S.from_local(t, lay[name], whole[part][name].shape)
+                           for name, t in cache[part].items()}
         logits = S.from_local(logits, (bdims, (), ()), (b_all,) + tuple(logits.shape[1:]))
     return cache, logits
 
@@ -378,16 +392,19 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
     shards, the logits a ``DTensor``; the cache's batch split must be
     ``act_batch``'s)."""
     slabs = {name: S.placed(t) for name, t in cache["layers"].items()}
+    cross = {name: S.placed(t) for name, t in cache.get("cross", {}).items()}
     bdims = S.mesh_dims("act_batch")
-    hd_dims = ()
+    hd_dims = cross_dims = ()
     if rules_active():
-        _check_family(cfg)
-        lead = slabs["k" if kv_mode == "dense" else "kpl"][1]
-        if S.members(lead[1 if kv_mode == "dense" else 2]) != S.members(bdims):
-            raise ValueError(f"the cache's batch is split over mesh dims "
-                             f"{lead[1 if kv_mode == 'dense' else 2]}, the rules' act_batch "
-                             f"over {bdims}")
-        hd_dims = lead[-1]
+        _check_rules()
+        for name, (_t, lay) in list(slabs.items()) + list(cross.items()):
+            split = lay[2 if name.endswith("pl") else 1]
+            if S.members(split) != S.members(bdims):
+                raise ValueError(f"the cache's {name} has its batch split over mesh dims "
+                                 f"{split}, the rules' act_batch over {bdims}")
+        kv = slabs.get("k" if kv_mode == "dense" else "kpl")
+        hd_dims = kv[1][-1] if kv else ()
+        cross_dims = cross["k"][1][-1] if cross else ()
     h = T.embed_tokens(params, cfg, _batch_rows(token, bdims))
     pos = cache["pos"]
     slot_pos = S.to_local(cache["slot_pos"])
@@ -412,8 +429,8 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
         h = h + mix
         if "cross" in lp:
             hn = L.rms_norm(h, lp["ln_cross"], cfg.norm_eps)
-            h = h + _cross_attend(lp["cross"], hn, cache["cross"]["k"][i], cache["cross"]["v"][i],
-                                  cfg)
+            h = h + _cross_attend(lp["cross"], hn, cross["k"][0][i], cross["v"][0][i], cfg,
+                                  cross_dims)
         h, _ = T.ffn_part(lp, h, cfg)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     cache["pos"] = pos + 1
@@ -428,18 +445,12 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
 # serving under a mesh (module docstring)
 # ---------------------------------------------------------------------------
 
-def mesh_served(cfg: ArchConfig) -> bool:
-    """Whether the engine serves ``cfg``'s family under a mesh: the dense
-    and MoE families (the SSM, hybrid, audio and VLM ones wait for a later
-    slice, ROADMAP.md)."""
-    return not (T.has_ssm(cfg) or cfg.encoder_decoder or cfg.prefix_embeds)
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if not mesh_served(cfg):
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): serving under a mesh covers the "
-                                  f"dense and MoE families; the SSM, hybrid, audio and VLM "
-                                  f"families wait for a later slice (ROADMAP.md)")
+def _check_rules() -> None:
+    if S.mesh_dims("act_seq"):
+        raise NotImplementedError("serving with the window sequence-sharded over act_seq "
+                                  "(LONG_CONTEXT_RULES, the long_500k cells) is not ported: it "
+                                  "needs a ring attention over the window's chunks, a later "
+                                  "slice (ROADMAP.md); serve under rules that leave act_seq whole")
 
 
 def cache_layout(name: str, shape) -> tuple:
@@ -447,17 +458,37 @@ def cache_layout(name: str, shape) -> tuple:
     ``name`` of whole ``shape`` in under the active rules: the batch over
     ``act_batch``'s mesh dims and head_dim over ``act_hd``'s, each where it
     divides the dim -- ``launch/mesh.cache_specs_tree``'s layout under
-    ``DEFAULT_RULES``: K/V (L, B, W, Hkv, hd), mu/sexp (L, B, W, Hkv) whole
-    over head_dim's dims, the planes (L, P, B, W, Hkv, hd)."""
+    ``DEFAULT_RULES``: K/V (L, B, W, Hkv, hd) and the cross K/V (L, B, T,
+    Hkv, hd), mu/sexp (L, B, W, Hkv) whole over head_dim's dims, the planes
+    (L, P, B, W, Hkv, hd), the conv tail (L, B, W-1, CC) with CC over
+    ``act_heads``'s dims where they divide it (as ``conv``'s columns).  The
+    SSM state (L, B, H, N, hp) is split over ``act_heads``'s dims in the
+    layers' chunks of ceil(H / n) even where n does not divide H: each rank
+    holds the heads it runs, so no state moves in a step.  That is
+    ``cache_specs_tree``'s layout where n divides H (mamba2-1.3b's 64 heads
+    on 16), and the engine's own where it does not (hymba-1.5b's 50 heads,
+    which the reference keeps whole on every rank)."""
     lay = [()] * len(shape)
+    bdims = S.mesh_dims("act_batch")
     if name in ("k", "v") or name[1:] in ("mu", "sexp", "pl"):
         bi = 2 if name.endswith("pl") else 1
-        lay[bi] = S.dividing(S.mesh_dims("act_batch"), shape[bi])
+        lay[bi] = S.dividing(bdims, shape[bi])
         if name in ("k", "v") or name.endswith("pl"):
             lay[-1] = S.dividing(S.mesh_dims("act_hd"), shape[-1])
+    elif name == "state":
+        lay[1] = S.dividing(bdims, shape[1])
+        lay[2] = S.mesh_dims("act_heads")
+    elif name == "conv":
+        lay[1] = S.dividing(bdims, shape[1])
+        lay[3] = S.dividing(S.mesh_dims("act_heads"), shape[3])
     elif name not in ("pos", "slot_pos"):
         raise ValueError(f"no serving cache layout for {name}")
     return tuple(lay)
+
+
+def _local_shape(shape, layout) -> tuple:
+    """The shape of this rank's shard of a tensor of ``shape`` in ``layout``."""
+    return tuple(hi - lo for lo, hi in (S.chunk_range(n, dims) for n, dims in zip(shape, layout)))
 
 
 def _batch_rows(t, dims):

@@ -26,7 +26,7 @@ the step hands the model each leaf's local shard as a
 gathers it again in the backward.  The step itself issues no collective of
 its own: every one lives in ``models/sharding.py``.  Two routes:
 
-- the dense and MoE families (``serve.engine.mesh_served``) compute
+- the dense and MoE families (:func:`sharded_route`) compute
   tensor-parallel along ``model``, as the reference's GSPMD step does: the
   loss runs inside ``sharding.use_rules(mesh, DEFAULT_RULES)``
   (``PURE_DP_RULES`` where the batch is split over ``model`` too), so each
@@ -277,10 +277,11 @@ def _sharded_norm(grads, layouts, shapes, mesh, gathered=()) -> torch.Tensor:
 def sharded_route(cfg: ArchConfig) -> str:
     """The sharded step's route for ``cfg`` (module docstring):
     ``"tensor-parallel"`` for the dense and MoE families, ``"whole-gather"``
-    for the others."""
-    from repro_torch.serve.engine import mesh_served
-
-    return "tensor-parallel" if mesh_served(cfg) else "whole-gather"
+    for the SSM, hybrid, audio and VLM families, whose tensor-parallel
+    training is a later slice (ROADMAP.md) although they serve under a
+    mesh."""
+    whole = T.has_ssm(cfg) or cfg.encoder_decoder or cfg.prefix_embeds
+    return "whole-gather" if whole else "tensor-parallel"
 
 
 def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,

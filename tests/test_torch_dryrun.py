@@ -5,10 +5,12 @@ fake tensors over a fake process group.
 cell on a fake (2, 2) mesh here: it must complete without launching a
 kernel and without a real collective, and its argument bytes must be the
 spec arithmetic (rank 0's shard of every state leaf plus its batch rows).
-A serving cell of the dense and MoE families runs rank 0's sharded
-prefill or decode step (``OK``); the other families' are a SKIP.  Either
-way its ``ideal_bytes_per_device`` is the reference's arithmetic over its
-specs (``repro/launch/dryrun.py:199-204``).  On this CPU-only build the
+A serving cell of every family runs rank 0's sharded prefill or decode
+step (``OK``); a ``long_500k`` cell (a window sequence-sharded over
+'data') is a SKIP.  Either way its ``ideal_bytes_per_device`` is the
+reference's arithmetic over its specs (``repro/launch/dryrun.py:199-204``),
+but for an SSM state whose heads the 'model' axis does not divide, which
+the engine splits as its layers split the heads.  On this CPU-only build the
 fake tensors are CPU tensors (autograd on fake CUDA tensors needs a CUDA
 build); on the card the dry-run's default is ``--device cuda``.
 """
@@ -71,7 +73,7 @@ def test_reduced_train_cell_on_a_fake_mesh(arch):
     # matmul reads, beside it); mamba2-1.3b through every weight, redundantly
     # along 'model' (1.81x)
     assert rl["flops_per_device"] >= 6 * cfg.active_param_count() * 64 * 4 / 4
-    if engine.mesh_served(cfg):
+    if S.sharded_route(cfg) == "tensor-parallel":
         # a tensor-parallel rank: about 1x of a quarter of the model's flops
         # (1.32x and 1.04x; the step before it, redundant along 'model' with
         # remat off, 2.64x and 2.08x)
@@ -104,8 +106,9 @@ def test_compressed_and_pure_dp_cells():
 @pytest.mark.parametrize("arch,shape,kv_mode,serve_layout,reduced,status", [
     ("deepseek-moe-16b", "decode_32k", "dense", False, False, "OK"),
     ("llama3.2-1b", "decode_32k", "compressed", False, False, "OK"),
-    ("hymba-1.5b", "prefill_32k", "dense", False, False, "SKIP"),
-    ("whisper-medium", "decode_32k", "dense", False, False, "SKIP"),
+    ("hymba-1.5b", "decode_32k", "compressed", False, False, "OK"),
+    ("whisper-medium", "decode_32k", "dense", False, False, "OK"),
+    ("mamba2-1.3b", "long_500k", "dense", False, False, "SKIP"),
     # the plain flash version's 64 x 32 chunk pairs a layer at S 32768 take
     # ~10 min on fake CPU tensors: the prefill cell runs reduced on (2, 2)
     ("llama3.2-1b", "prefill_32k", "dense", False, True, "OK"),
@@ -114,11 +117,14 @@ def test_compressed_and_pure_dp_cells():
 def test_serving_cells_trace_or_skip_with_the_reference_ideal_bytes(arch, shape, kv_mode,
                                                                      serve_layout, reduced,
                                                                      status):
-    """The dense and MoE families' serving cells trace rank 0's sharded
-    prefill or decode step (``OK``, a decode cell with its floor fraction);
-    the others are a ``SKIP`` naming the later slice.  Either way
-    ``ideal_bytes_per_device`` is the reference's arithmetic over its specs
-    (``repro/launch/dryrun.py:199-204``)."""
+    """The serving cells trace rank 0's sharded prefill or decode step
+    (``OK``, a decode cell with its floor fraction); ``long_500k`` is a
+    ``SKIP`` naming the later slice.  Either way ``ideal_bytes_per_device``
+    is the reference's arithmetic over its specs
+    (``repro/launch/dryrun.py:199-204``), but for hymba-1.5b's SSM state:
+    its 50 heads do not divide the 16-way 'model' axis, so the reference
+    keeps it whole, and the engine splits it in chunks of 4 heads (rank 0
+    holds 4)."""
     ops.reset_launch_counts()
     mesh_shape = (2, 2) if reduced else (16, 16)
     rec = dryrun.lower_cell(arch, shape, kv_mode=kv_mode, serve_layout=serve_layout,
@@ -131,15 +137,10 @@ def test_serving_cells_trace_or_skip_with_the_reference_ideal_bytes(arch, shape,
     seq, batch = SHAPES[shape]["seq_len"], SHAPES[shape]["global_batch"]
     if reduced:
         seq, batch = min(seq, 64), min(batch, 4)
-    cache = rengine.cache_specs(rcfg, batch, seq, kv_mode=kv_mode, num_planes=1)
-    pspecs = (rmesh.serve_param_specs_tree(rcfg, params, rm) if serve_layout
-              else rmesh.param_specs_tree(rcfg, params, rm))
-    want = (ranalysis.sharded_bytes_per_device(params, pspecs, rm)
-            + ranalysis.sharded_bytes_per_device(cache, rmesh.cache_specs_tree(rcfg, rm, cache),
-                                                 rm))
-    assert rec["ideal_bytes_per_device"] == want
+    assert rec["ideal_bytes_per_device"] == _reference_ideal_bytes(
+        rcfg, shape, kv_mode, serve_layout, rm, seq, batch)
     if status == "SKIP":
-        assert "later slice" in rec["reason"] and "SSM, hybrid, audio and VLM" in rec["reason"]
+        assert "later slice" in rec["reason"] and "sequence-sharded" in rec["reason"]
         return
     rl = rec["roofline"]
     cfg = configs.get(arch).reduced() if reduced else configs.get(arch)
@@ -147,15 +148,61 @@ def test_serving_cells_trace_or_skip_with_the_reference_ideal_bytes(arch, shape,
     if rec["kind"] == "decode":
         assert rl["model_flops_global"] == ranalysis.decode_model_flops(rcfg, batch)
         assert 0 < rl["floor_fraction"] <= 1
-        # the bf16 scores are all-reduced over 'model', a step's hot collective
+        # the bf16 scores over the cache's window are all-reduced over 'model',
+        # a step's hot collective
         assert rl["collectives_by_axis"]["model"]["all-reduce"] >= (
-            cfg.n_layers * batch // mesh_shape[0] * cfg.n_heads * seq * 2)
+            cfg.n_layers * batch // mesh_shape[0] * cfg.n_heads
+            * engine.cache_window(cfg, seq) * 2)
     else:
         assert rl["model_flops_global"] == 2.0 * rcfg.active_param_count() * seq * batch
         assert "floor_fraction" not in rl
     # the memory floor reads the parameters, the batch rows (and the cache) once
     assert rec["memory"]["argument_size_in_bytes"] >= (
         rec["ideal_bytes_per_device"] if rec["kind"] == "decode" else 0)
+    json.dumps(rec)
+
+
+def _reference_ideal_bytes(rcfg, shape, kv_mode, serve_layout, rm, seq, batch) -> float:
+    """The parameters and cache a device holds, by the reference's specs and
+    arithmetic; an SSM state whose heads do not divide 'model' counted at
+    rank 0's ceil(H / n) heads, as the engine holds it."""
+    params = RT.param_specs(rcfg)
+    cache = rengine.cache_specs(rcfg, batch, seq, kv_mode=kv_mode, num_planes=1)
+    pspecs = (rmesh.serve_param_specs_tree(rcfg, params, rm) if serve_layout
+              else rmesh.param_specs_tree(rcfg, params, rm))
+    long_ctx = shape == "long_500k"
+    cspecs = rmesh.cache_specs_tree(rcfg, rm, cache, long_context=long_ctx)
+    got = (ranalysis.sharded_bytes_per_device(params, pspecs, rm)
+           + ranalysis.sharded_bytes_per_device(cache, cspecs, rm))
+    n = dict(zip(rm.axis_names, rm.devices.shape))["model"]
+    state = cache["layers"].get("state")
+    if state is not None and not long_ctx and state.shape[2] % n:
+        whole = ranalysis.sharded_bytes_per_device({"s": state}, {"s": cspecs["layers"]["state"]},
+                                                   rm)
+        got += whole * (-(-state.shape[2] // n) / state.shape[2] - 1)
+    return got
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b", "whisper-medium", "internvl2-1b"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("kv_mode", ["dense", "compressed"])
+def test_ssm_hybrid_audio_and_vlm_serving_cells_trace(arch, shape, kv_mode):
+    """Every ``prefill_32k``/``decode_32k`` cell of the SSM, hybrid, audio
+    and VLM families, reduced on a fake (2, 2) mesh, traces rank 0's
+    sharded prefill or decode step (``OK``) with the reference's ideal
+    bytes: on (2, 2) the reduced SSM's 8 heads divide 'model'."""
+    ops.reset_launch_counts()
+    rec = dryrun.lower_cell(arch, shape, kv_mode=kv_mode, reduced=True, mesh_shape=(2, 2),
+                            device="cpu")
+    assert not dist.is_initialized() and not any(ops.launch_counts().values())
+    assert rec["status"] == "OK" and rec["ops"] > 50, rec
+    rm = types.SimpleNamespace(axis_names=("data", "model"), devices=np.empty((2, 2)))
+    seq, batch = min(SHAPES[shape]["seq_len"], 64), min(SHAPES[shape]["global_batch"], 4)
+    assert rec["ideal_bytes_per_device"] == _reference_ideal_bytes(
+        rconfigs.get(arch).reduced(), shape, kv_mode, False, rm, seq, batch)
+    rl = rec["roofline"]
+    assert rl["flops_per_device"] > 0 and rl["collectives_by_axis"]["model"]["all-gather"] > 0
+    assert ("floor_fraction" in rl) == (shape == "decode_32k")
     json.dumps(rec)
 
 
@@ -172,14 +219,17 @@ def test_shape_skips_and_an_existing_group():
 
 
 def test_main_writes_a_record(tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "mamba2-1.3b", "--shape", "decode_32k", "--device", "cpu",
-                     "--out", str(tmp_path)])
-    assert e.value.code == 0
-    out = capsys.readouterr().out
-    assert "[SKIP] mamba2-1.3b|decode_32k|single" in out and "0 OK, 1 SKIP, 0 FAIL" in out
-    rec = json.loads((tmp_path / "mamba2-1.3b.decode_32k.single.json").read_text())
-    assert rec["ideal_bytes_per_device"] > 0 and rec["wall_s"] >= 0
+    for shape, status, tally in (("decode_32k", "OK", "1 OK, 0 SKIP"),
+                                 ("long_500k", "SKIP", "0 OK, 1 SKIP")):
+        with pytest.raises(SystemExit) as e:
+            dryrun.main(["--arch", "mamba2-1.3b", "--shape", shape, "--device", "cpu",
+                         "--out", str(tmp_path)])
+        assert e.value.code == 0
+        out = capsys.readouterr().out
+        assert f"[{status}] mamba2-1.3b|{shape}|single" in out and f"{tally}, 0 FAIL" in out
+        rec = json.loads((tmp_path / f"mamba2-1.3b.{shape}.single.json").read_text())
+        assert rec["status"] == status
+        assert rec["ideal_bytes_per_device"] > 0 and rec["wall_s"] >= 0
 
 
 def test_make_production_mesh_is_a_function():
