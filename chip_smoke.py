@@ -185,9 +185,10 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      then times the kernel at them).
 
  16. trains the MoE, SSM and hybrid families: mamba2-1.3b (d_model 2048, 64
-     SSD heads of 64, state 128; 24 of its 48 layers, a cut that pays for
-     phase 19d) and hymba-1.5b (32 layers, d_model 1600, 25/5 heads of 64
-     with a 2048 window beside 50 SSD heads, d_ff 5504; 1.641 B; full depth)
+     SSD heads of 64, state 128; 16 of its 48 layers, a cut that pays for
+     phases 19d and 18f) and hymba-1.5b (d_model 1600, 25/5 heads of 64
+     with a 2048 window beside 50 SSD heads, d_ff 5504; 16 of its 32
+     layers, a cut that pays for phase 18f, which trains it at full depth)
      at full width through
      ``launch.train.run`` with --ckpt-compress: 3 plain steps of B 4 x S 2048
      SyntheticLM tokens with per-layer remat, every loss finite, the SSM's
@@ -225,12 +226,20 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      sharded step (fsdp, ``_moe_rule``): 3 steps, losses finite, the
      experts moved, the peak beside phase 16's; (c) the compressed sharded
      step at P = 1 on a (1, 1, 1) pod x data x model mesh, the planes
-     kernels on the vector route; (e) with the group destroyed, the dry-run
-     on fake CUDA tensors of deepseek-moe-16b and yi-6b train_4k on (16,
-     16) and llama3.2-1b train_4k on (2, 16, 16) with --grad-compress 1,
-     each record on a line with its wall time, then deepseek-moe-16b's
+     kernels on the vector route; (f) mamba2-1.3b (8 of 48 layers),
+     hymba-1.5b (full depth), whisper-medium (6 + 6 of 24 + 24 layers,
+     1500 stub frames) and internvl2-1b (8 of 24 layers, 256 stub image
+     embeddings + 1792 tokens) at full width, B 4 x S 2048 with remat, as
+     (a): the sharded step, tensor-parallel, against two plain runs, the
+     flash kernel exactly twice an attention layer a step; (e) the dry-run
+     on fake CUDA tensors of the train_4k cells of deepseek-moe-16b,
+     mamba2-1.3b, hymba-1.5b, whisper-medium and internvl2-1b on (16, 16)
+     and llama3.2-1b on (2, 16, 16) with --grad-compress 1, each cell a
+     ``launch.dryrun`` process of its own started (at the lowest CPU
+     priority) before (a) and read after (f), each record on a line with
+     its wall time beside its parent tree's flops, then deepseek-moe-16b's
      state bytes a card on a (4, 1) mesh from the specs.  Launch counters
-     are zeroed before (a) and read after (c): flash, planes, encode and
+     are zeroed before (a) and read after (f): flash, planes, encode and
      decode_body must each have run (``--sharding`` runs this phase alone);
  19. serves under a device mesh (one-rank NCCL group, one-member (1, 1)
      data x model meshes, the parameters ``DTensor``s placed by the
@@ -292,7 +301,9 @@ import hashlib
 import io
 import json
 import math
+import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -3709,9 +3720,10 @@ def enc_vlm_flash_rows(gen, reps: int, launches: dict) -> list:
 SSM_WATCH = tuple(f"layers/0/ssm/{w}" for w in ("in", "conv", "A_log", "dt_bias", "D", "out"))
 FAMILY_TRAIN_WATCH = {"mamba2-1.3b": SSM_WATCH,
                       "hymba-1.5b": SSM_WATCH + ("layers/0/attn/wq", "layers/0/mlp/wi")}
-# phase 16's depth cuts (layers trained of the config's), which pay for phase
-# 19d: mamba2-1.3b trains 24 of its 48 layers at full width
-FAMILY_TRAIN_LAYERS = {"mamba2-1.3b": 24}
+# phase 16's depth cuts (layers trained of the config's) at full width, which
+# pay for phases 19d and 18f: mamba2-1.3b 16 of its 48 layers, hymba-1.5b 16
+# of its 32 (18f trains it at full depth)
+FAMILY_TRAIN_LAYERS = {"mamba2-1.3b": 16, "hymba-1.5b": 16}
 # deepseek-moe-16b at full width on MOE_TRAIN_LAYERS of its 28 layers
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-moe-16b", 4
 MOE_WATCH = tuple(f"layers/0/{w}" for w in ("attn/wq", "moe/router", "moe/wi", "moe/wo",
@@ -3779,8 +3791,8 @@ def train_moe_cut(args) -> dict:
 
 
 def phase_families_train(args) -> tuple:
-    """Phase 16: mamba2-1.3b (24 of its 48 layers, FAMILY_TRAIN_LAYERS) and
-    hymba-1.5b (full depth) trained at full width through
+    """Phase 16: mamba2-1.3b (16 of its 48 layers) and hymba-1.5b (16 of its
+    32, FAMILY_TRAIN_LAYERS) trained at full width through
     ``launch.train.run`` (B 4 x S 2048, 3 steps, SZx checkpoints
     restored on the card within their bound, a compressed P = 1 step, a
     profiled step), then deepseek-moe-16b at full width on 4 layers
@@ -3888,13 +3900,29 @@ def phase_examples() -> dict:
 # phase 16's deepseek-moe-16b plain steps, on an H100 80GB HBM3 at 700 W (PERF.md)
 PHASE16_MOE_PEAK_GB = 50.33
 SHARD_CKPT_DIR = CKPT_DIR / "sharded"
+SMOKE_DRYRUN_DIR = ROOT / "_smoke_dryrun"     # 18e's records; removed after
 DRYRUN_CELLS = (("deepseek-moe-16b", "train_4k", False, 0),   # (arch, shape, multi_pod, P)
-                ("llama3.2-1b", "train_4k", True, 1))
-# the same cells traced by the parent tree's step, which gathered every
-# parameter whole and ran the whole model on each 'model' rank: (flops a
-# device, useful_flops_ratio) on fake CUDA tensors (PERF.md section 6)
+                ("llama3.2-1b", "train_4k", True, 1),
+                ("mamba2-1.3b", "train_4k", False, 0),
+                ("hymba-1.5b", "train_4k", False, 0),
+                ("whisper-medium", "train_4k", False, 0),
+                ("internvl2-1b", "train_4k", False, 0))
+# the same cells traced on fake CUDA tensors by the step before each family
+# trained tensor-parallel, which gathered every parameter whole and ran the
+# whole model on each 'model' rank: (flops a device, useful_flops_ratio)
+# (PERF.md section 6)
 DRYRUN_PARENT = {("deepseek-moe-16b", False): (1730096578691072.0, 0.04020907627361635),
-                 ("llama3.2-1b", True): (353634722250752.0, 0.042939383266332266)}
+                 ("llama3.2-1b", True): (353634722250752.0, 0.042939383266332266),
+                 ("mamba2-1.3b", False): (704031039160320.0, 0.05048703016334188),
+                 ("hymba-1.5b", False): (930251261607936.0, 0.04335221380768505),
+                 ("whisper-medium", False): (471380436975616.0, 0.05278272833162793),
+                 ("internvl2-1b", False): (325665710669824.0, 0.03725892319115537)}
+DRYRUN_TIMEOUT_S = 600
+# 18f: arch -> decoder layers (None: full depth; an encoder-decoder's
+# encoder cut the same), tokens a row (internvl2-1b's 256 image embeddings
+# before them make 2048 positions)
+FAMILY_SHARDED_TRAIN = {"mamba2-1.3b": (8, 2048), "hymba-1.5b": (None, 2048),
+                        "whisper-medium": (6, 2048), "internvl2-1b": (8, 1792)}
 
 
 def one_member_mesh(names):
@@ -3903,11 +3931,12 @@ def one_member_mesh(names):
     return init_device_mesh("cuda", (1,) * len(names), mesh_dim_names=names)
 
 
-def shard_runs(cfg, opt, ds, mesh, seed: int, *, P: int = 0, watch=(), init=None):
-    """TRAIN_STEPS steps (B 4 x S 2048 from ``ds``) from ``seed``'s state:
-    plain (``mesh`` None) or sharded on ``mesh``; the initial corners of the
-    ``watch`` leaves go into ``init``.  Returns (state, losses, step
-    seconds)."""
+def shard_runs(cfg, opt, ds, mesh, seed: int, *, P: int = 0, watch=(), init=None,
+               extras=None):
+    """TRAIN_STEPS steps (B 4 x S 2048 from ``ds``, with ``extras[s]``'s
+    stub frames or image embeddings) from ``seed``'s state: plain (``mesh``
+    None) or sharded on ``mesh``; the initial corners of the ``watch``
+    leaves go into ``init``.  Returns (state, losses, step seconds)."""
     import torch
     from repro_torch.core import pytree
     from repro_torch.train import step as step_mod
@@ -3923,7 +3952,7 @@ def shard_runs(cfg, opt, ds, mesh, seed: int, *, P: int = 0, watch=(), init=None
     fn = step_mod.make_train_step(cfg, opt, mesh=mesh, compress_planes=P)
     losses, times = [], []
     for s in range(TRAIN_STEPS):
-        batch = train_batch(ds, s)
+        batch = {**train_batch(ds, s), **(extras[s] if extras else {})}
         (state, m), t = timed(lambda: fn(state, batch))
         losses.append(float(m["loss"]))
         times.append(t)
@@ -3941,26 +3970,35 @@ def max_diff(a, b) -> float:
     return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
 
 
-def against_plain(tag, cfg, ds, seed: int, opt, watch=()):
+def attention_layers(cfg) -> int:
+    """The attention layers of a forward: each decoder layer's
+    self-attention (none in the SSM), and an encoder-decoder's encoder
+    layers and cross-attentions."""
+    from repro_torch.models import transformer as T
+
+    n = cfg.n_layers if T.has_attention(cfg) else 0
+    return n + (cfg.n_encoder_layers + cfg.n_layers if cfg.encoder_decoder else 0)
+
+
+def against_plain(tag, cfg, ds, seed: int, opt, watch=(), extras=None):
     """TRAIN_STEPS steps of ``cfg`` from ``seed``, deterministic algorithms
     on: the plain step twice (runs A and B), then the sharded step on a
     (1, 1) data x model mesh.  Where A and B agree bit for bit the sharded
     parameters and losses must equal A's; else lie within A's spread to B.
-    The flash kernel runs twice a layer a step (forward and remat).
-    Returns the sharded state, the mesh and what to log; ``watch`` names
-    leaves whose corner must move from its initial value."""
+    The flash kernel runs twice an attention layer a step (forward and
+    remat).  Returns the sharded state, the mesh and what to log; ``watch``
+    names leaves whose corner must move from its initial value."""
     import torch
     from repro_torch.core import pytree
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.train import step as step_mod
 
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        state, loss_a, t_a = shard_runs(cfg, opt, ds, None, seed)
+        state, loss_a, t_a = shard_runs(cfg, opt, ds, None, seed, extras=extras)
         ref = [p.clone() for p in flat_params(state)]
         del state
         torch.cuda.empty_cache()
-        state, loss_b, t_b = shard_runs(cfg, opt, ds, None, seed)
+        state, loss_b, t_b = shard_runs(cfg, opt, ds, None, seed, extras=extras)
         spread = max_diff(flat_params(state), ref)
         loss_spread = max(abs(x - y) for x, y in zip(loss_a, loss_b))
         del state
@@ -3969,7 +4007,8 @@ def against_plain(tag, cfg, ds, seed: int, opt, watch=()):
         torch.cuda.reset_peak_memory_stats()
         flash0 = fa.LAUNCHES
         init = {}
-        state, loss_s, t_s = shard_runs(cfg, opt, ds, mesh, seed, watch=watch, init=init)
+        state, loss_s, t_s = shard_runs(cfg, opt, ds, mesh, seed, watch=watch, init=init,
+                                        extras=extras)
         flash = fa.LAUNCHES - flash0
         peak = torch.cuda.max_memory_allocated()
     finally:
@@ -3989,15 +4028,14 @@ def against_plain(tag, cfg, ds, seed: int, opt, watch=()):
               f"{tag}: sharded vs plain {diff:.3e} (losses {loss_diff:.3e}) outside the plain "
               f"step's run-to-run spread {spread:.3e} ({loss_spread:.3e})")
     check(all(math.isfinite(v) for v in loss_s), f"{tag}: losses {loss_s}")
-    check(flash == 2 * cfg.n_layers * TRAIN_STEPS,
+    check(flash == 2 * attention_layers(cfg) * TRAIN_STEPS,
           f"{tag}: {flash} flash launches in {TRAIN_STEPS} sharded steps (forward + remat)")
     leaves = dict(pytree.leaf_paths(state["params"]))
     moved = {n: float((corner(local(leaves[n])) - c).abs().max()) for n, c in init.items()}
     check(all(v > 0 for v in moved.values()), f"{tag}: the watched leaves did not move {moved}")
-    route = step_mod.sharded_route(cfg)
-    check(route == "tensor-parallel", f"{tag}: {cfg.name} takes the {route} route")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    text = (f"{route} route, B {TRAIN_BATCH} x S {TRAIN_SEQ}, deterministic algorithms on: "
+    b, seq = train_batch(ds, 0)["tokens"].shape
+    tokens = b * seq
+    text = (f"tensor-parallel step, B {b} x S {seq}, deterministic algorithms on: "
             "sharded steps " + ", ".join(f"{t * 1e3:.1f}" for t in t_s) + " ms; plain run A "
             + ", ".join(f"{t * 1e3:.1f}" for t in t_a) + " ms, run B "
             + ", ".join(f"{t * 1e3:.1f}" for t in t_b) + " ms (first step of each warms up; "
@@ -4081,6 +4119,42 @@ def sharded_compressed(args, opt):
     torch.cuda.empty_cache()
 
 
+def sharded_family_steps(args, opt) -> None:
+    """18f: FAMILY_SHARDED_TRAIN's models at full width (remat on, as their
+    configs train) through the sharded step, tensor-parallel along 'model',
+    on a (1, 1) mesh against two runs of the plain step from the same seed,
+    as 18a; whisper-medium's 1500 stub frames and internvl2-1b's 256 stub
+    image embeddings drawn once a step from the seed, the same in each
+    run."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    for i, (arch, (layers, seq)) in enumerate(FAMILY_SHARDED_TRAIN.items()):
+        cfg = configs.get(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers, n_encoder_layers=(
+                layers if cfg.encoder_decoder else 0))
+        ds = SyntheticLM(DataConfig(cfg.vocab_size, seq, TRAIN_BATCH, seed=args.seed))
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 84 + i)
+        extras = ([enc_vlm_extra(cfg, gen) for _ in range(TRAIN_STEPS)]
+                  if cfg.encoder_decoder or cfg.prefix_embeds else None)
+        torch.cuda.empty_cache()
+        state, _mesh, text = against_plain("18f", cfg, ds, args.seed + 84 + i, opt,
+                                           extras=extras)
+        depth = "full depth" if layers is None else (
+            f"cut to {layers} of {configs.get(arch).n_layers} layers"
+            + (" in the encoder and the decoder" if cfg.encoder_decoder else ""))
+        inputs = ("" if extras is None else
+                  f", {cfg.encoder_len} stub frames" if cfg.encoder_decoder else
+                  f", {cfg.prefix_embeds} stub image embeddings before the tokens")
+        log(f"sharding 18f {arch} ({depth}) at full width on a (1, 1) mesh{inputs}, {text}")
+        del state, extras
+        torch.cuda.empty_cache()
+
+
 def sharded_checkpoint(cfg, state, mesh):
     """18d: 18a's sharded state (params and AdamW moments) through
     ``CheckpointManager.save(mesh=)`` (``compress_tree_sharded`` along
@@ -4154,33 +4228,78 @@ def sharded_checkpoint(cfg, state, mesh):
         f"launches {launches}")
 
 
-def dryrun_cells():
-    """18e: the dry-run on fake CUDA tensors for DRYRUN_CELLS (each record a
-    line of its own with its wall time), then deepseek-moe-16b's exact
-    state bytes a card on a (4, 1) mesh from the specs."""
+def start_dryrun_cells(out_dir) -> list:
+    """18e: one ``python -m repro_torch.launch.dryrun`` process a cell of
+    DRYRUN_CELLS (fake CUDA tensors), at the lowest CPU priority, each
+    writing its record under ``out_dir``; they run beside 18a-18f.
+    Returns [(cell, process, start time)]."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    procs = []
+    for cell in DRYRUN_CELLS:
+        arch, shape, multi_pod, P = cell
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--out", str(out_dir)]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        if P:
+            cmd += ["--grad-compress", str(P)]
+        procs.append((cell, subprocess.Popen(
+            cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, preexec_fn=lambda: os.nice(19)), time.perf_counter()))
+    return procs
+
+
+def finish_dryrun_cells(procs, out_dir):
+    """18e: each cell's record (its process waited for, killed past
+    DRYRUN_TIMEOUT_S) on a line with its wall time, beside its parent's
+    flops a device, which a tensor-parallel rank must halve; then
+    deepseek-moe-16b's exact state bytes a card on a (4, 1) mesh from the
+    specs."""
     import types
 
     import torch
     from repro_torch import configs
-    from repro_torch.launch import dryrun, mesh as mesh_lib
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.roofline import analysis
     from repro_torch.train import step as step_mod
 
-    for arch, shape, multi_pod, P in DRYRUN_CELLS:
-        rec, t = timed(lambda: dryrun.lower_cell(arch, shape, multi_pod=multi_pod,
-                                                 grad_compress=P))
-        check(rec["status"] == "OK", f"18e: dry-run {arch} {shape}: {rec}")
-        rl = rec["roofline"]
-        flops, useful = DRYRUN_PARENT[(arch, multi_pod)]
-        log(f"sharding 18e dry-run {arch} {shape} mesh {rec['mesh']} grad_compress {P}: "
-            f"flops_per_device {rl['flops_per_device']:.6g} (parent {flops:.6g}), "
-            f"useful_flops_ratio {rl['useful_flops_ratio']:.6f} (parent {useful:.6f})")
-        # a tensor-parallel rank runs its share of the model, not all of it
-        check(rl["flops_per_device"] < flops / 2,
-              f"18e: {arch} runs {rl['flops_per_device']:.6g} flops a device, the parent's "
-              f"redundant step {flops:.6g}")
-        log(f"sharding 18e dry-run {arch} {shape} mesh {rec['mesh']} grad_compress {P}: wall "
-            f"{t:.1f} s; " + json.dumps(rec))
+    try:
+        for (arch, shape, multi_pod, P), proc, t0 in procs:
+            try:
+                text, _ = proc.communicate(timeout=max(
+                    DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+            t = time.perf_counter() - t0
+            name = f"{arch}.{shape}.{'multi' if multi_pod else 'single'}" + (
+                f".gc{P}" if P else "") + ".json"
+            path = out_dir / name
+            check(proc.returncode == 0 and path.exists(),
+                  f"18e: dry-run {arch} {shape} exited {proc.returncode}: {text[-2000:]}")
+            if not path.exists():
+                continue
+            rec = json.loads(path.read_text())
+            check(rec["status"] == "OK", f"18e: dry-run {arch} {shape}: {rec}")
+            rl = rec["roofline"]
+            flops, useful = DRYRUN_PARENT[(arch, multi_pod)]
+            log(f"sharding 18e dry-run {arch} {shape} mesh {rec['mesh']} grad_compress {P}: "
+                f"flops_per_device {rl['flops_per_device']:.6g} (parent {flops:.6g}), "
+                f"useful_flops_ratio {rl['useful_flops_ratio']:.6f} (parent {useful:.6f})")
+            # a tensor-parallel rank runs its share of the model, not all of it
+            check(rl["flops_per_device"] < flops / 2,
+                  f"18e: {arch} runs {rl['flops_per_device']:.6g} flops a device, the parent's "
+                  f"redundant step {flops:.6g}")
+            log(f"sharding 18e dry-run {arch} {shape} mesh {rec['mesh']} grad_compress {P}: "
+                f"wall {rec['wall_s']} s in its process beside 18a-18f, read {t:.1f} s after "
+                f"its start; " + json.dumps(rec))
+    finally:
+        for _cell, proc, _t0 in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
     cfg = configs.get(MOE_TRAIN_ARCH)
     pm = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(4, 1))
     template = step_mod.state_template(cfg)
@@ -4196,11 +4315,11 @@ def dryrun_cells():
 
 
 def phase_sharding(args) -> dict:
-    """Phase 18 (``--sharding`` runs it alone): 18a-18d in a one-rank NCCL
-    group on one-member meshes, then (the group destroyed) 18e's dry-run.
-    Launch counters are zeroed before and read after: the flash, planes,
-    encode and decode_body kernels must each have run.  Returns the launch
-    counts."""
+    """Phase 18 (``--sharding`` runs it alone): 18e's dry-run processes
+    started, 18a-18d and 18f in a one-rank NCCL group on one-member meshes,
+    then 18e's records read.  Launch counters are zeroed before and read
+    after: the flash, planes, encode and decode_body kernels must each have
+    run.  Returns the launch counts."""
     import torch
     import torch.distributed as dist
     from repro_torch import configs
@@ -4210,6 +4329,24 @@ def phase_sharding(args) -> dict:
     opt = AdamW(lr=TRAIN_LR)
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
+    dry_dir = SMOKE_DRYRUN_DIR
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    dry = start_dryrun_cells(dry_dir)
+    try:
+        counts = sharded_steps(args, opt)
+    finally:
+        finish_dryrun_cells(dry, dry_dir)
+    return counts
+
+
+def sharded_steps(args, opt) -> dict:
+    """Phase 18's card work, 18a-18d and 18f, in a one-rank NCCL group;
+    returns the launch counts."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             world_size=1, rank=0)
     try:
@@ -4224,13 +4361,13 @@ def phase_sharding(args) -> dict:
         torch.cuda.empty_cache()
         sharded_moe(args, opt)
         sharded_compressed(args, opt)
+        sharded_family_steps(args, opt)
     finally:
         dist.destroy_process_group()
     counts = {k: v for k, v in ops.launch_counts().items() if v}
     log(f"phase 18 launches: {counts}; planes by route {ops.planes_route_counts()}")
     for k in ("flash_attention", "encode", "decode_body") + PLANES_KERNELS:
         check(counts.get(k, 0) > 0, f"kernel {k} was not launched on the sharded path")
-    dryrun_cells()
     return counts
 
 
@@ -4664,9 +4801,9 @@ def main() -> int:
                          "and stop")
     ap.add_argument("--families-train", action="store_true",
                     help="build, hold the flash kernel to its plain version at phase 14's "
-                         "prefill shapes, run phase 16 alone (mamba2-1.3b and hymba-1.5b "
-                         "trained at full width and depth, deepseek-moe-16b at full width on "
-                         "4 layers) and stop")
+                         "prefill shapes, run phase 16 alone (mamba2-1.3b on 16 layers and "
+                         "hymba-1.5b on 16, deepseek-moe-16b on 4, trained at full width) "
+                         "and stop")
     ap.add_argument("--examples", action="store_true",
                     help="build, run phase 17 alone (the four examples/*_torch.py on the "
                          "card) and stop")

@@ -2,8 +2,7 @@
 
 Counterpart of ``repro/launch/dryrun.py``.  For a train cell it runs rank
 0's sharded training step (``train.step.make_train_step(mesh=...)``:
-tensor-parallel along 'model' for the dense and MoE families, each
-parameter gathered whole at use for the others) under
+tensor-parallel along 'model' for every family) under
 ``FakeTensorMode`` on a fake process group of ``mesh.size`` ranks: the
 state, the batch and every intermediate are fake tensors (shape, dtype and
 device only), every collective is a no-op of the fake group, and the

@@ -28,7 +28,8 @@ cotangent through.  On plain tensors (outside a rules context) every one
 of those helpers is the identity, so the same functions compute what they
 always did.  The Mamba2 layers run head-parallel over ``act_heads``
 (:func:`mamba2`), and whisper's cross-attention K/V come whole over
-``wk``/``wv``'s split (:func:`cross_kv`).
+``wk``/``wv``'s split (:func:`cross_kv`), in serving and in training
+alike.
 
 Precision on the card: :func:`exact_matmuls` turns off TF32 and bf16
 reduced-precision reductions for the ``dense`` products while a forward
@@ -59,12 +60,18 @@ def exact_matmuls():
         mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = saved
 
 
+def acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype a layer's float32 parts run in for inputs of ``dt``:
+    float32, or float64 inputs' own (the gradient checks run in float64)."""
+    return torch.promote_types(dt, torch.float32)
+
+
 def rms_norm(x, scale, eps: float = 1e-5):
     dt = x.dtype
     scale = S.to_local(scale)              # a replicated DTensor under a mesh
-    x = x.to(torch.float32)
+    x = x.to(acc_dtype(dt))
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * scale.to(torch.float32)).to(dt)
+    return (x * scale.to(x.dtype)).to(dt)
 
 
 def dense(x, w):
@@ -265,8 +272,7 @@ def gate_up(gu, src, f: int, dst):
 def _silu_gate(gate, up):
     """silu(gate) in float32 (float64 inputs in their own dtype), back in
     the activation dtype, times up."""
-    dt = torch.promote_types(gate.dtype, torch.float32)
-    return torch.nn.functional.silu(gate.to(dt)).to(up.dtype) * up
+    return torch.nn.functional.silu(gate.to(acc_dtype(gate.dtype))).to(up.dtype) * up
 
 
 def moe_route(x, router, cfg):
@@ -400,9 +406,10 @@ def _ssm_conv(u, w):
 
 def _ssd_chunk(state, xk, bk, ck, dtk, cumk, out_dtype):
     """One chunk of the SSD scan (the reference's ``lax.scan`` body).
-    state: (B,H,N,hp) float32; xk (B,Q,H,hp); bk, ck (B,Q,N); dtk, cumk
-    (B,Q,H) float32.  Returns (new_state, y (B,Q,H,hp) in out_dtype)."""
-    f32 = torch.float32
+    state: (B,H,N,hp) float32 (float64 for float64 inputs, :func:`acc_dtype`);
+    xk (B,Q,H,hp); bk, ck (B,Q,N); dtk, cumk (B,Q,H) in state's dtype.
+    Returns (new_state, y (B,Q,H,hp) in out_dtype)."""
+    f32 = state.dtype
     q = xk.shape[1]
     xk = xk.to(f32)
     # intra-chunk (quadratic within the chunk)
@@ -480,10 +487,10 @@ def _split_rms_norm(x, scale, eps: float, dims, lo: int, hi: int, size: int):
     if not S.members(dims):
         return rms_norm(x, scale, eps)
     dt = x.dtype
-    x = x.to(torch.float32)
+    x = x.to(acc_dtype(dt))
     ss = S.enter(S.all_reduce((x * x).sum(-1, keepdim=True), dims), dims)
     x = x * torch.rsqrt(ss / size + eps)
-    return (x * S.enter(S.to_local(scale), dims)[lo:hi].to(torch.float32)).to(dt)
+    return (x * S.enter(S.to_local(scale), dims)[lo:hi].to(x.dtype)).to(dt)
 
 
 def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
@@ -501,7 +508,12 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
     nor on heads), each rank convolves its heads' x channels and the shared
     B and C with ``conv`` gathered whole (W x CC, tiny), scans its heads and
     ends in :func:`_ssm_norm_out`.  The final state is this rank's heads';
-    the conv tail is whole."""
+    the conv tail is whole.  Under autograd each rank reads only its heads'
+    share of the whole activation, of ``conv`` and of the per-head vectors,
+    so each enters the split work through ``sharding.enter``: their
+    cotangents are summed over the heads' ranks before ``in``'s gather and
+    ``conv``'s ``weight`` take back this rank's columns (a rank with no
+    head still joins those sums, through zero-sized tensors)."""
     b, s, _ = x.shape
     di, h, n, hp = _ssm_dims(cfg)
     heads, h0, h1 = _ssm_heads(cfg)
@@ -511,7 +523,7 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
         # the largest divisor (only odd test lengths reach this)
         q = next(d for d in range(q, 0, -1) if s % d == 0)
     nc = s // q
-    f32 = torch.float32
+    f32 = acc_dtype(x.dtype)
 
     zxbcdt = S.enter(column_whole(x, p["in"], ssm_in_features(cfg)), heads)
     z = zxbcdt[..., h0 * hp:h1 * hp]

@@ -8,7 +8,7 @@ launcher installs a rule table mapping logical -> mesh axes through
 each rank's local shards and issues the collectives itself: inside
 ``use_rules(mesh, rules)`` (a ``DeviceMesh`` over a process group) the
 model code (``serve/engine.py``'s ``prefill``/``decode_step``, the
-training step's ``loss_fn``, and the dense and MoE layers under them)
+training step's ``loss_fn``, and every family's layers under them)
 reads its parameters' placements (a ``DTensor``'s once, :func:`placed`;
 the training step hands :class:`Shard`s), computes on the local tensors
 and gathers, slices or all-reduces over the mesh dims that
@@ -89,11 +89,6 @@ PURE_DP_RULES = dict(
 # serve-layout MoE: experts live on 'data' x 'model'; dispatch buffers
 # follow the weights' E-sharding (replicate the token dim, shard E over 'data')
 SERVE_MOE_RULES = dict(act_expert="data", act_moe_batch=None)
-
-# every logical axis whole: the model computes as on one device, while the
-# training step gathers each parameter whole where it is read (the families
-# with no tensor-parallel form, train/step.py)
-WHOLE_RULES = dict.fromkeys(DEFAULT_RULES)
 
 
 class _Rules:

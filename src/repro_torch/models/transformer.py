@@ -51,7 +51,10 @@ from repro_torch.models import layers as L, sharding as S
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    """bfloat16 or float32 as the config says; "float64" for the float64
+    gradient checks."""
+    return {"bfloat16": torch.bfloat16, "float64": torch.float64}.get(cfg.compute_dtype,
+                                                                      torch.float32)
 
 
 def param_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -431,15 +434,10 @@ def logits_for(params, cfg, h):
 # loss
 # ---------------------------------------------------------------------------
 
-def _loss_dtype(x) -> torch.dtype:
-    """The logits' dtype in the loss: float32, or float64 inputs' own."""
-    return torch.promote_types(x.dtype, torch.float32)
-
-
 def _ce_chunk(hx, w, lx, vocab: int):
     """Summed negative log-likelihood and token count of one chunk."""
     logits = L.dense(hx, w)
-    logits = logits.to(_loss_dtype(logits))                    # (B, c, V)
+    logits = logits.to(L.acc_dtype(logits.dtype))              # (B, c, V)
     mask = lx >= 0
     lse = torch.logsumexp(logits[..., :vocab], dim=-1)
     gold = torch.gather(logits, -1, lx.clamp(min=0).long()[..., None])[..., 0]
@@ -455,7 +453,7 @@ def _ce_chunk_split(hx, w, lx, vocab: int, v0: int, dims):
     that holds the label's column.  ``hx`` enters the split work, so its
     cotangent is summed over ``dims``."""
     logits = L.dense(S.enter(hx, dims), w)
-    logits = logits.to(_loss_dtype(logits))                    # (B, c, V / n)
+    logits = logits.to(L.acc_dtype(logits.dtype))              # (B, c, V / n)
     cols = v0 + torch.arange(logits.shape[-1], device=logits.device)
     logits = torch.where(cols < vocab, logits, float("-inf"))
     mask = lx >= 0

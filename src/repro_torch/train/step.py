@@ -24,31 +24,22 @@ the step hands the model each leaf's local shard as a
 ``models.sharding.Shard``, which the layers read through
 ``sharding.weight`` where they use it, so that a recomputed layer (remat)
 gathers it again in the backward.  The step itself issues no collective of
-its own: every one lives in ``models/sharding.py``.  Two routes:
+its own: every one lives in ``models/sharding.py``.
 
-- the dense and MoE families (:func:`sharded_route`) compute
-  tensor-parallel along ``model``, as the reference's GSPMD step does: the
-  loss runs inside ``sharding.use_rules(mesh, DEFAULT_RULES)``
-  (``PURE_DP_RULES`` where the batch is split over ``model`` too), so each
-  ``model`` rank runs its own query heads, MLP columns, experts and
-  vocabulary columns, keeps the gradients of its own shards and never
-  gathers a ``model``-split parameter whole;
-- the SSM, hybrid, audio and VLM families (no sharded form yet) read every
-  parameter gathered whole through the same ``sharding.weight`` and compute
-  redundantly along ``model`` (the reference's fully-manual fallback,
-  ``repro/train/step.py``: "the 'model' axis computes redundantly"),
-  taking back each rank's chunk of the gradient.
-
-On both, ``weight``'s backward reduce-scatters a leaf's gradient over the
-data-parallel axes it is split on (FSDP), and ``sharding.batch_grad`` sums
-it over the others and divides by their size.  AdamW updates the local
-shards; its clip norm sums each rank's squares of its shards and
-all-reduces them once over the mesh dims each group of leaves is split
-on (the whole-gather route first gathers each gradient whole along
-``model``, so that its float32 sums run in the plain step's order).  With
-``compress_planes`` the step is the reference's ``per_pod``: a
-full-precision mean over ``data``, then ``compressed_psum_mean`` over the
-``pod`` axis's group with ``ef``'s local row as this pod's residual.
+Every family computes tensor-parallel along ``model``, as the reference's
+GSPMD step does: the loss runs inside ``sharding.use_rules(mesh,
+DEFAULT_RULES)`` (``PURE_DP_RULES`` where the batch is split over
+``model`` too), so each ``model`` rank runs its own query heads (the
+cross-attention's too), MLP columns, experts, SSM heads and vocabulary
+columns, and keeps the gradients of its own shards.  ``weight``'s backward
+reduce-scatters a leaf's gradient over the data-parallel axes it is split
+on (FSDP), and ``sharding.batch_grad`` sums it over the others and divides
+by their size.  AdamW updates the local shards; its clip norm sums each
+rank's squares of its shards and all-reduces them once over the mesh dims
+each group of leaves is split on.  With ``compress_planes`` the step is
+the reference's ``per_pod``: a full-precision mean over ``data``, then
+``compressed_psum_mean`` over the ``pod`` axis's group with ``ef``'s local
+row as this pod's residual.
 """
 from __future__ import annotations
 
@@ -210,24 +201,6 @@ def init_sharded_state(cfg: ArchConfig, opt: AdamW, generator: torch.Generator, 
     return state
 
 
-class _Whole(dict):
-    """A node of the parameter tree whose :class:`~repro_torch.models.sharding.Shard`
-    leaves are read gathered whole (``node["wq"]``): the route of the
-    families with no tensor-parallel form."""
-
-    def __getitem__(self, key):
-        v = dict.__getitem__(self, key)
-        return sharding.weight(v)[0] if isinstance(v, sharding.Shard) else v
-
-
-def _whole(tree):
-    if isinstance(tree, dict):
-        return _Whole({k: _whole(v) for k, v in tree.items()})
-    if isinstance(tree, list):
-        return [_whole(v) for v in tree]
-    return tree
-
-
 def _dp_index(mesh, axes) -> tuple[int, int]:
     """(index of this rank's batch shard, number of shards) over ``axes``."""
     names = list(mesh.mesh_dim_names)
@@ -250,20 +223,14 @@ def _split_rows(batch: dict, idx: int, n: int) -> dict:
     return out
 
 
-def _sharded_norm(grads, layouts, shapes, mesh, gathered=()) -> torch.Tensor:
+def _sharded_norm(grads, layouts, mesh) -> torch.Tensor:
     """AdamW's global norm of the local gradient shards: each leaf's sum of
     squares (``optim.adamw.global_norm``'s), summed by the set of mesh dims
     the leaves are split on and each set's sum all-reduced once over them,
-    so a leaf replicated over a dim is counted once.  Over the mesh dims
-    ``gathered`` a leaf is first gathered whole (the route that computes
-    redundantly along them: its float32 sums then run in the unsharded
-    order, which a clipped step needs to be the plain step bit for bit).
-    On a one-member mesh the sums run in ``global_norm``'s order."""
+    so a leaf replicated over a dim is counted once.  On a one-member mesh
+    the sums run in ``global_norm``'s order."""
     by_dims = {}
-    for g, lay, shape in zip(grads, layouts, shapes):
-        if gathered:
-            kept = tuple(tuple(i for i in dims if i not in gathered) for dims in lay)
-            g, lay = sharding.reshard(g, lay, kept, shape), kept
+    for g, lay in zip(grads, layouts):
         dims = tuple(sorted(i for d in lay for i in d if mesh.size(i) > 1))
         s = torch.sum(torch.square(g.to(torch.float32)))
         by_dims[dims] = s if dims not in by_dims else by_dims[dims] + s
@@ -272,16 +239,6 @@ def _sharded_norm(grads, layouts, shapes, mesh, gathered=()) -> torch.Tensor:
         s = sharding.all_reduce_sum(s, [mesh.get_group(i) for i in dims])
         total = s if total is None else total + s
     return torch.sqrt(total)
-
-
-def sharded_route(cfg: ArchConfig) -> str:
-    """The sharded step's route for ``cfg`` (module docstring):
-    ``"tensor-parallel"`` for the dense and MoE families, ``"whole-gather"``
-    for the SSM, hybrid, audio and VLM families, whose tensor-parallel
-    training is a later slice (ROADMAP.md) although they serve under a
-    mesh."""
-    whole = T.has_ssm(cfg) or cfg.encoder_decoder or cfg.prefix_embeds
-    return "whole-gather" if whole else "tensor-parallel"
 
 
 def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
@@ -300,15 +257,7 @@ def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
     # is left to compressed_psum_mean
     mean_axes = tuple(a for a in dp if not (compress_planes and a == "pod"))
     mean_dims = tuple(sorted(names.index(a) for a in mean_axes))
-    tensor_parallel = sharded_route(cfg) == "tensor-parallel"
-    # the whole-gather route computes redundantly along the other mesh dims
-    redundant = tuple(i for i in range(len(names)) if i not in mean_dims)
-    if not tensor_parallel:
-        rules = sharding.WHOLE_RULES
-    elif "model" in dp:
-        rules = sharding.PURE_DP_RULES
-    else:
-        rules = sharding.DEFAULT_RULES
+    rules = sharding.PURE_DP_RULES if "model" in dp else sharding.DEFAULT_RULES
 
     def train_step(state, batch):
         from torch.distributed.tensor import DTensor
@@ -321,8 +270,6 @@ def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
         xs = [p.to_local().detach().requires_grad_() for p in plist]
         tree = unflatten(state["params"], [sharding.Shard(x, lay, p.shape)
                                            for x, lay, p in zip(xs, layouts, plist)])
-        if not tensor_parallel:
-            tree = _whole(tree)
         groups = [mesh.get_group(names.index(a)) for a in mean_axes]
         n_mean = math.prod(mesh.size(names.index(a)) for a in mean_axes)
         with L.exact_matmuls(), sharding.use_rules(mesh, rules), \
@@ -356,10 +303,8 @@ def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
         opt_local = AdamWState(step=ost.step.to_local(),
                                m=[m.to_local() for m in leaves(ost.m)],
                                v=[v.to_local() for v in leaves(ost.v)])
-        shapes = [p.shape for p in plist]
-        with sharding.use_rules(mesh, rules):
-            _, _, metrics = opt.update(grads, opt_local, params, norm_fn=lambda g32: _sharded_norm(
-                g32, layouts, shapes, mesh, () if tensor_parallel else redundant))
+        _, _, metrics = opt.update(grads, opt_local, params,
+                                   norm_fn=lambda g32: _sharded_norm(g32, layouts, mesh))
         return ({"params": state["params"], "opt": ost, **out}, {"loss": loss, **metrics})
 
     return train_step

@@ -4,19 +4,16 @@ restore on four gloo ranks, against the unsharded step and the JAX package.
 Four worker processes form a gloo group on a ``FileStore`` under the
 test's temporary directory and build ``DeviceMesh``es over it.  On reduced
 configs (B 4 x S 32 SyntheticLM tokens, AdamW at lr 1e-3 without weight
-decay, 3 steps) each runs the plain step of ``train/step.py`` and the
-sharded one from the same seed.  The dense and MoE families compute
-tensor-parallel along ``model``: the row-parallel all-reduces and the
-vocab-parallel logsumexp sum partial products in another order, so on a
-mesh with a ``model`` axis they are held to a measured tolerance of the
-plain step, as the reference's GSPMD step on (1, 4) is not bit for bit
-either.  The hybrid family has no tensor-parallel form: it reads every
-parameter gathered whole and computes redundantly along ``model``, so on a
-``model``-only mesh (1, 4) it must be bit-identical to the plain one (the
-parameters gathered exactly, the clip norm's float64 sums of squares
-independent of their order).  Over data-parallel axes alone the gradient
-is a mean of per-shard gradients, summed in another order, and is held to
-a measured tolerance.  The compressed step on a (2, 2, 1) pod x data x
+decay, 3 steps; whisper-medium's stub frames and internvl2-1b's image
+embeddings drawn from a seed with numpy) each runs the plain step of
+``train/step.py`` and the sharded one from the same seed.  Every family
+computes tensor-parallel along ``model``: the row-parallel all-reduces,
+the SSM's split norm and the vocab-parallel logsumexp sum partial products
+in another order, so on a mesh with a ``model`` axis the step is held to a
+measured tolerance of the plain step, as the reference's GSPMD step on
+(1, 4) is not bit for bit either.  Over data-parallel axes alone the
+gradient is a mean of per-shard gradients, summed in another order, and is
+held to a measured tolerance.  The compressed step on a (2, 2, 1) pod x data x
 model mesh must train.  One reference subprocess with 4 host devices, on
 ``jax.sharding.Mesh``es built directly (``jax.make_mesh`` makes Explicit
 axes under jax 0.9), runs ``TreeCodec.compress_tree_sharded``, gives
@@ -49,34 +46,56 @@ TRAIN = [
     ("moe_4x1_fsdp", "deepseek-moe-16b", (4, 1), {"fsdp": True}),
     ("moe_2x2_fsdp_remat", "deepseek-moe-16b", (2, 2), {"fsdp": True, "remat": True}),
     ("dense_4x1_fsdp", "llama3.2-1b", (4, 1), {"fsdp": True}),
+    ("audio_1x4", "whisper-medium", (1, 4), {}),
+    ("vlm_1x4", "internvl2-1b", (1, 4), {}),
+    ("ssm_1x4_remat", "mamba2-1.3b", (1, 4), {"remat": True}),
 ]
-# the hybrid family reads its parameters whole (no tensor-parallel form)
-BITWISE = ["hybrid_1x4_remat"]
-# the dense and MoE families on a mesh with a 'model' axis: tensor-parallel
-TENSOR_PARALLEL = [t[0] for t in TRAIN if t[2][1] > 1 and t[0] not in BITWISE + ["ssm_2x2"]]
-DATA_PARALLEL = [t[0] for t in TRAIN if t[0] not in BITWISE + TENSOR_PARALLEL]
+# every mesh with a 'model' axis: tensor-parallel
+TENSOR_PARALLEL = [t[0] for t in TRAIN if t[2][1] > 1]
+DATA_PARALLEL = [t[0] for t in TRAIN if t[0] not in TENSOR_PARALLEL]
 # the data-parallel meshes against the plain step after 3 steps: each
 # rank's gradient is its shard's, averaged over the ranks, so the sums run
 # in another order (the MoE's balance loss through all-reduced means); an
 # AdamW update of a near-zero gradient then moves by up to ~lr.  Measured
-# on these inputs (torch 2.13, x86-64 CPU): parameters within 7.3e-7 (ssm)
-# .. 5.1e-6 (dense 2x2), 4e-5 .. 8e-5 of them past 1e-7; losses within
+# on these inputs (torch 2.13, x86-64 CPU): parameters within 2.2e-6 (moe
+# 4x1) .. 3.9e-6 (dense 4x1), 4e-5 .. 9e-5 of them past 1e-7; losses within
 # 1.46e-7 relative.  Each limit is about twice its measured maximum, inside
 # the 2.6e-5 that the unsharded step meets against the reference
 PARAM_ATOL = 1.1e-5
 LOSS_RTOL = 3e-7
 # the tensor-parallel meshes against the plain step after 3 steps: the
-# row-parallel all-reduces, the vocab-parallel logsumexp and the clip
-# norm's ranks sum partial results in another order.  Measured on these
-# inputs (torch 2.13, x86-64 CPU): parameters within 5.5e-6 (dense 1x4),
-# 1.5e-5 (dense 2x2), 2.2e-5 (moe 1x4) and 3.2e-5 (moe 2x2), 1e-4 .. 6e-4
-# of them past 1e-7; losses within 7.9e-8 relative.  Each limit is about
-# twice its measured maximum, far inside the reference criterion's 1e-3
+# row-parallel all-reduces, the SSM's split norm, the vocab-parallel
+# logsumexp and the clip norm's ranks sum partial results in another
+# order.  Measured on these inputs (torch 2.13, x86-64 CPU): parameters
+# within 5.5e-6 (dense 1x4), 6.9e-6 (ssm 1x4), 1.0e-5 (ssm 2x2), 1.5e-5
+# (dense 2x2), 2.0e-5 (vlm 1x4), 2.2e-5 (moe 1x4), 3.2e-5 (moe 2x2) and
+# 3.7e-5 (hybrid 1x4), 1e-4 .. 9e-4 of them past 1e-7; losses within
+# 1.51e-7 relative.  Each limit is about twice its measured maximum, far
+# inside the reference criterion's 1e-3
 TP_PARAM_ATOL = 7e-5
 TP_LOSS_RTOL = 3e-7
+# whisper-medium on (1, 4), its encoder's K/V feeding every decoder
+# layer's cross-attention: parameters within 7.39e-5 of the plain step,
+# 2.2e-3 of them past 1e-7, and within 2.72e-5 of the reference's GSPMD
+# step; the limit is twice its measured maximum
+TP_PARAM_ATOL_OF = {"audio_1x4": 1.5e-4}
 # restore(shardings=) onto (2, 2): leaf -> spec over ("data", "model")
 RESTORE_SPECS = {"w": ("data", "model"), "b": (None,), "e": (("data", "model"), None),
                  "r": (None, "model")}
+
+
+# the stub frames and image embeddings of batch i, the same in every process
+EXTRA = r"""
+def extra(cfg, i):
+    rng = np.random.default_rng(100 + i)
+    out = {}
+    if cfg.encoder_decoder:
+        out["frames"] = rng.standard_normal((4, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+    if cfg.prefix_embeds:
+        out["image_embeds"] = rng.standard_normal(
+            (4, cfg.prefix_embeds, cfg.d_model)).astype(np.float32)
+    return out
+"""
 
 
 def _inputs(path: Path) -> None:
@@ -147,13 +166,15 @@ from repro_torch.train import step as S
 def stacked_path(name):
     # a port leaf path -> (the reference's path, layer index or None)
     parts = name.split("/")
-    if parts[0] == "layers":
-        return "/".join([parts[0]] + parts[2:]), int(parts[1])
+    k = parts.index("layers") + 1 if "layers" in parts else 0
+    if k:
+        return "/".join(parts[:k] + parts[k + 1:]), int(parts[k])
     return name, None
 
 def path_str(kp):
     return "/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in kp)
 
+{extra}
 ropt = AdamW(lr=1e-3, weight_decay=0.0)
 for name, arch, shape, over in {train!r}:
     rcfg = dataclasses.replace(rconfigs.get(arch).reduced(), **over)
@@ -166,7 +187,7 @@ for name, arch, shape, over in {train!r}:
         rp, i = stacked_path(n)
         layers.setdefault(rp, []).append(a)
     params = jax.tree_util.tree_map_with_path(
-        lambda kp, leaf: np.stack(layers[path_str(kp)]) if path_str(kp).startswith("layers/")
+        lambda kp, leaf: np.stack(layers[path_str(kp)]) if "layers/" in path_str(kp)
         else layers[path_str(kp)][0],
         RT.init_params(rcfg, jax.random.key(0)))
     mesh = Mesh(devs.reshape(shape), ("data", "model"))
@@ -175,7 +196,8 @@ for name, arch, shape, over in {train!r}:
     sh = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t, is_leaf=is_spec)
     ssh = sh(rstep.state_specs(rcfg, state, mesh))
     ds = SyntheticLM(DataConfig(rcfg.vocab_size, 32, 4, seed=3))
-    bs = [{{k: jnp.asarray(v) for k, v in ds.batch_at(i).items()}} for i in range(3)]
+    bs = [{{k: jnp.asarray(v) for k, v in {{**ds.batch_at(i), **extra(rcfg, i)}}.items()}}
+          for i in range(3)]
     bsh = sh(rmesh.batch_specs_tree(rcfg, mesh, bs[0]))
     fn = jax.jit(rstep.make_train_step(rcfg, ropt), in_shardings=(ssh, bsh),
                  out_shardings=(ssh, None))
@@ -221,18 +243,22 @@ out = {{}}
 def mesh_of(shape, names=("data", "model")):
     return init_device_mesh("cpu", shape, mesh_dim_names=names)
 
+{extra}
+
 def batches(cfg):
     ds = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4, seed=3))
-    return [{{k: torch.as_tensor(v) for k, v in ds.batch_at(i).items()}} for i in range(3)]
+    return [{{k: torch.as_tensor(v) for k, v in {{**ds.batch_at(i), **extra(cfg, i)}}.items()}}
+            for i in range(3)]
 
 def plain_run(cfg, opt, bs):
     state = S.init_state(cfg, opt, torch.Generator().manual_seed(7), device="cpu")
     fn = S.make_train_step(cfg, opt)
-    losses = []
+    losses, norms = [], []
     for b in bs:
         state, m = fn(state, b)
         losses.append(float(m["loss"]))
-    return state, losses
+        norms.append(float(m["grad_norm"]))
+    return state, losses, norms
 
 def sharded_run(cfg, opt, bs, mesh, P=0):
     state = S.init_sharded_state(cfg, opt, torch.Generator().manual_seed(7), mesh,
@@ -249,12 +275,14 @@ opt = AdamW(lr=1e-3, weight_decay=0.0)
 for name, arch, shape, over in TRAIN:
     cfg = dataclasses.replace(configs.get(arch).reduced(), **over)
     bs = batches(cfg)
-    ref_state, ref_losses = plain_run(cfg, opt, bs)
+    ref_state, ref_losses, ref_norms = plain_run(cfg, opt, bs)
     state, losses, norms = sharded_run(cfg, opt, bs, mesh_of(shape))
     full = [p.full_tensor() for p in pytree.leaves(state["params"])]
     local = [p.to_local() for p in pytree.leaves(state["params"])]
     out[name + "/plain_loss"] = np.array(ref_losses)
     out[name + "/loss"] = np.array(losses)
+    out[name + "/plain_grad_norm"] = np.array(ref_norms)
+    out[name + "/grad_norm"] = np.array(norms)
     out[name + "/plain_params"] = torch.cat([p.reshape(-1) for p in pytree.leaves(ref_state["params"])]).numpy()
     out[name + "/params"] = torch.cat([p.reshape(-1) for p in full]).numpy()
     out[name + "/local_numel"] = np.array(sum(p.numel() for p in local))
@@ -330,13 +358,13 @@ def runs(tmp_path_factory):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "JAX_PLATFORMS": "cpu",
            "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen(
-        [sys.executable, "-c", REFERENCE.format(specs=RESTORE_SPECS, train=TRAIN),
+        [sys.executable, "-c", REFERENCE.format(specs=RESTORE_SPECS, train=TRAIN, extra=EXTRA),
          str(tmp / "in.npz"),
          str(tmp / "ref.npz")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)]
     for r in range(4):
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", WORKER.format(train=TRAIN, specs=RESTORE_SPECS), str(r),
+            [sys.executable, "-c", WORKER.format(train=TRAIN, specs=RESTORE_SPECS, extra=EXTRA), str(r),
              str(tmp / "store"), str(tmp / "in.npz"), str(tmp / f"rank{r}.npz"),
              str(tmp / "ckpt")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
@@ -350,16 +378,6 @@ def runs(tmp_path_factory):
         assert tag in log, log[-3000:]
     return dict(np.load(tmp / "ref.npz")), [dict(np.load(tmp / f"rank{r}.npz"))
                                              for r in range(4)]
-
-
-@pytest.mark.parametrize("name", BITWISE)
-def test_model_only_mesh_is_bit_identical_to_the_plain_step(runs, name):
-    _, ranks = runs
-    for rk in ranks:
-        assert np.array_equal(rk[name + "/loss"], rk[name + "/plain_loss"]), name
-        a, b = rk[name + "/params"], rk[name + "/plain_params"]
-        assert a.shape == b.shape and np.array_equal(a.view(np.int32), b.view(np.int32)), name
-        assert int(rk[name + "/step"]) == 3
 
 
 @pytest.mark.parametrize("name", DATA_PARALLEL)
@@ -379,8 +397,25 @@ def test_tensor_parallel_mesh_matches_the_plain_step(runs, name):
         np.testing.assert_allclose(rk[name + "/loss"], rk[name + "/plain_loss"],
                                    rtol=TP_LOSS_RTOL, atol=0)
         np.testing.assert_allclose(rk[name + "/params"], rk[name + "/plain_params"],
-                                   rtol=0, atol=TP_PARAM_ATOL)
+                                   rtol=0, atol=TP_PARAM_ATOL_OF.get(name, TP_PARAM_ATOL))
         assert int(rk[name + "/step"]) == 3
+
+
+# the clip norm of every step against the plain step's (its float32 sums of
+# squares by mesh dims, then all-reduced): measured on these inputs (torch
+# 2.13, x86-64 CPU) within 7.3e-7 relative (moe 2x2); twice that
+NORM_RTOL = 1.5e-6
+
+
+@pytest.mark.parametrize("name", [t[0] for t in TRAIN])
+def test_clip_norm_counts_each_leaf_once(runs, name):
+    """AdamW's global norm of the sharded gradient -- each rank's shards'
+    squares, a leaf replicated over a mesh dim (the norms, the SSM's
+    per-head vectors) counted once -- is the plain step's at every step."""
+    _, ranks = runs
+    for rk in ranks:
+        np.testing.assert_allclose(rk[name + "/grad_norm"], rk[name + "/plain_grad_norm"],
+                                   rtol=NORM_RTOL, atol=0)
 
 
 def _holds_to_gspmd(ref, ranks, name):
@@ -402,8 +437,8 @@ def test_data_parallel_mesh_matches_the_reference_gspmd_step(runs, name):
 
 @pytest.mark.parametrize("name", [t[0] for t in TRAIN if t[2][0] == 1])
 def test_model_only_mesh_matches_the_reference_gspmd_step(runs, name):
-    """The reference's GSPMD step on (1, 4) computes tensor-parallel; the
-    port's dense and MoE steps do, the hybrid's gathers its parameters."""
+    """The reference's GSPMD step on (1, 4) computes tensor-parallel, as
+    the port's step does for every family."""
     ref, ranks = runs
     _holds_to_gspmd(ref, ranks, name)
 

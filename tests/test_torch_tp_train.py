@@ -15,20 +15,29 @@ against its shard of the cotangent: Megatron's convention, a tensor held
 whole carries the whole cotangent).  The outputs and every input's
 gradient must equal the unsharded ones' shards within 1e-12.  Some layers
 compute in float32 inside (the rotary embedding, the flash attention, the
-SwiGLU gate, the MoE's router), the same on either side: the inputs lie on
-a grid of 1/64, so the products before those casts are exact whatever
-order the sums run in, and the attention cases keep each kv head's query
-heads on one rank, so that no float32 sum of the flash backward runs in
-another order.
+MoE's router), the same on either side: the inputs lie on a grid of 1/64,
+so the products before those casts are exact whatever order the sums run
+in, and the attention cases keep each kv head's query heads on one rank,
+so that no float32 sum of the flash backward runs in another order.  The
+norms, the SwiGLU gate and the SSD scan compute their float32 parts in
+float64 for float64 inputs (``layers.acc_dtype``), and the frontends take
+``compute_dtype="float64"``.  The SSM cases cover ``mamba2`` with its
+heads split (``in``'s activation and ``conv`` gathered whole and entered,
+the per-head vectors replicated), with a rank that holds no SSM head, and
+the gated norm where ``out``'s rows are the heads' and where they are not;
+whisper's cross-attention through ``cross_kv``; ``frontend_proj`` through
+``_encode`` and the VLM's ``_inputs``.
 
 The backward runs on a thread of its own, as autograd runs a CUDA
 tensor's on the card's device thread, which holds no rules context; the
 loss with remat, differentiated there, must give the calling thread's
-gradients bit for bit on both routes of the step.  A last case counts the
-tensor-parallel training step's collectives on a
-(1, 4) mesh with ``roofline.hlo_cost.OpCounter``: its ``model``-axis
+gradients bit for bit, for the dense family on (1, n) and the hybrid on
+the data x model mesh.  A last case counts the tensor-parallel training
+step's collectives on a (1, 4) mesh with ``roofline.hlo_cost.OpCounter``
+for the reduced llama3.2-1b and mamba2-1.3b: its ``model``-axis
 all-gathers carry less than one whole copy of the ``model``-split
-parameters' bytes (the step before it gathered every one of them whole).
+parameters' bytes, and ``sharding.weight`` gathers none of them whole
+over ``model`` but mamba2's ``conv``.
 """
 import os
 import subprocess
@@ -42,7 +51,8 @@ ROOT = Path(__file__).resolve().parent.parent
 TOL = 1e-12
 CASES = ["gather", "take", "all_reduce", "enter", "weight_over_data", "gate_up",
          "kv_for_heads", "attention", "attention_uneven_heads", "swiglu_mlp", "moe_ffn",
-         "embed_tokens", "chunked_ce_loss"]
+         "embed_tokens", "chunked_ce_loss", "mamba2", "mamba2_no_heads", "ssm_norm_split",
+         "ssm_norm_gathered", "cross_kv", "frontend_proj", "vlm_inputs"]
 
 WORKER = r"""
 import dataclasses, sys, threading, types
@@ -290,6 +300,136 @@ check("chunked_ce_loss", tp, [h, w, labels], [WHOLE3, wlay, ((), ())],
       lambda a, b, c: ce({key: S.Shard(b, wlay, w.shape)}, a, c),
       lambda a, b, c: ce({key: b}, a, c), [((),)])
 
+
+
+def split_if(size, d):
+    # a dim split over model where n divides it, else whole (launch/mesh._sanitize)
+    return M1 if size % n == 0 else ()
+
+
+def ssm_cfg(h, hp, nst=4, chunk=4):
+    return types.SimpleNamespace(ssm_d_inner=h * hp, ssm_n_heads=h, ssm_state=nst,
+                                 ssm_head_dim=hp, ssm_chunk=chunk, ssm_conv_width=4,
+                                 norm_eps=1e-5)
+
+
+def mamba2_case(name, cfg, d=12, s=12):
+    # mamba2's heads over model: in (D, Z) and conv (W, CC) column-split and
+    # out (di, D) row-split where n divides them, the per-head vectors and
+    # the norm whole; 3 chunks of the scan
+    z, cc, di = L.ssm_in_features(cfg), L.ssm_conv_channels(cfg), cfg.ssm_d_inner
+    x = rnd(2, s, d)
+    ws = {"in": rnd(d, z), "conv": rnd(cfg.ssm_conv_width, cc), "dt_bias": rnd(cfg.ssm_n_heads),
+          "A_log": rnd(cfg.ssm_n_heads), "D": rnd(cfg.ssm_n_heads), "norm": rnd(di),
+          "out": rnd(di, d)}
+    lays = {"in": ((), split_if(z, 1)), "conv": ((), split_if(cc, 1)), "dt_bias": ((),),
+            "A_log": ((),), "D": ((),), "norm": ((),), "out": (split_if(di, 0), ())}
+    names = list(ws)
+
+    def sharded(a, *w):
+        return [L.mamba2({k: S.Shard(t, lays[k], ws[k].shape) for k, t in zip(names, w)},
+                         a, cfg)]
+
+    check(name, tp, [x] + list(ws.values()), [WHOLE3] + [lays[k] for k in names], sharded,
+          lambda a, *w: [L.mamba2(dict(zip(names, w)), a, cfg)], [WHOLE3])
+
+
+# 8 heads of 4: on four ranks every weight split, out's rows the heads'
+# (the split norm); on three 3, 3, 2 heads and every weight whole
+mamba2_case("mamba2", ssm_cfg(8, 4))
+# 4 heads of 32 (ssm_head_dim=32): on three ranks 2, 2 and none
+mamba2_case("mamba2_no_heads", ssm_cfg(4, 32))
+
+
+def ssm_norm_case(name, h, hp, d=12):
+    # the gated norm and out from the heads' columns of y: out's rows the
+    # heads' (the split sum of squares) or not (y gathered and normed whole)
+    cfg = ssm_cfg(h, hp)
+    di = h * hp
+    y, norm, wo = rnd(2, 5, di), rnd(di), rnd(di, d)
+    olay = (split_if(di, 0), ())
+
+    def cols(t):
+        h0, h1 = S.chunk_range(h, S.mesh_dims("act_heads"))
+        return t[..., h0 * hp:h1 * hp]
+
+    def sharded(a, b, c):
+        heads, h0, h1 = L._ssm_heads(cfg)
+        return [L._ssm_norm_out({"norm": b, "out": S.Shard(c, olay, wo.shape)}, a, cfg,
+                                heads, h0, h1)]
+
+    def whole(a, b, c):
+        return [L._ssm_norm_out({"norm": b, "out": c}, a, cfg, (), 0, h)]
+
+    check(name, tp, [y, norm, wo], [cols, ((),), olay], sharded, whole, [WHOLE3])
+    with S.use_rules(tp):
+        lo = S.chunk_range(di, olay[0])
+        out[name + "/split"] = np.array(lo == tuple(hp * c for c in L._ssm_heads(cfg)[1:]))
+
+
+# 2n heads of 2 (4 on four ranks): out's rows are each rank's heads
+ssm_norm_case("ssm_norm_split", 2 * n, 2 if n == 3 else 4)
+# 5 heads of 4 on four ranks (rows of 5 against heads 2, 2, 1, none), 4 of
+# 3 on three (rows of 4 against heads 2, 2, none)
+ssm_norm_case("ssm_norm_gathered", 5, 4) if n == 4 else ssm_norm_case("ssm_norm_gathered", 4, 3)
+
+
+# whisper's cross branch: K/V from the encoder output through cross_kv
+# (column-parallel, gathered whole), the query heads over model, 5 decoder
+# positions against 7 encoder positions, non-causal
+hq, hkv, hd = 2 * n, n, 4
+ccfg = types.SimpleNamespace(resolved_head_dim=hd, n_heads=hq, n_kv_heads=hkv,
+                             rope_theta=10000.0, sliding_window=0)
+x, enc = rnd(2, 5, d), rnd(2, 7, d)
+ws = [rnd(d, hq * hd), rnd(d, hkv * hd), rnd(d, hkv * hd), rnd(hq * hd, d)]
+lays = [((), M1), ((), M1), ((), M1), (M1, ())]
+names = ("wq", "wk", "wv", "wo")
+
+
+def cross(p, a, e):
+    return [L.attention(p, a, ccfg, causal=False, kv_override=L.cross_kv(p, e, ccfg))[0]]
+
+
+check("cross_kv", tp, [x, enc] + ws, [WHOLE3, WHOLE3] + lays,
+      lambda a, e, *w: cross({k: S.Shard(t, lay, t0.shape)
+                              for k, t, lay, t0 in zip(names, w, lays, ws)}, a, e),
+      lambda a, e, *w: cross(dict(zip(names, w)), a, e), [WHOLE3])
+
+# frontend_proj (D, D) column-parallel through _encode (no encoder layer:
+# attention and MLP are the cases above), then the encoder's final norm
+fcfg = types.SimpleNamespace(d_model=d, compute_dtype="float64", norm_eps=1e-5)
+frames, fp, fln = rnd(2, 7, d), rnd(d, d), rnd(d)
+flay = ((), split_if(d, 1))
+
+
+def encode(p, f):
+    return [T._encode(p, fcfg, f, T._run_layers_train)]
+
+
+check("frontend_proj", tp, [frames, fp, fln], [WHOLE3, flay, ((),)],
+      lambda f, w, g: encode({"frontend_proj": S.Shard(w, flay, fp.shape),
+                              "encoder": {"layers": [], "final_ln": g}}, f),
+      lambda f, w, g: encode({"frontend_proj": w, "encoder": {"layers": [], "final_ln": g}},
+                             f), [WHOLE3])
+
+# the VLM's _inputs: 3 image embeddings through frontend_proj before 6
+# tokens' vocab-parallel embedding rows
+vcfg = types.SimpleNamespace(d_model=d, padded_vocab=384, compute_dtype="float64",
+                             prefix_embeds=3, encoder_decoder=False)
+tok = torch.from_numpy(np.random.default_rng(next(seed)).integers(0, 250, (2, 6)))
+img, emb = rnd(2, 3, d), rnd(384, d)
+elay = (M1, ())
+
+
+def vlm(p, t, i):
+    return [T._inputs(p, vcfg, t, None, i, T._run_layers_train)[0]]
+
+
+check("vlm_inputs", tp, [tok, img, emb, fp], [((), ()), WHOLE3, elay, flay],
+      lambda t, i, e, w: vlm({"embed": S.Shard(e, elay, emb.shape),
+                              "frontend_proj": S.Shard(w, flay, fp.shape)}, t, i),
+      lambda t, i, e, w: vlm({"embed": e, "frontend_proj": w}, t, i), [WHOLE3])
+
 from repro_torch import configs
 from repro_torch.core import pytree
 from repro_torch.data import DataConfig, SyntheticLM
@@ -299,12 +439,10 @@ from repro_torch.train import step as TS
 
 # loss_fn with remat differentiated on another thread (the card's device
 # thread: the backward and the layers' recompute) against the same
-# forward differentiated on this one, bit for bit: the dense family
-# tensor-parallel on (1, n), the hybrid through the whole-gather route on
-# the data x model mesh
+# forward differentiated on this one, bit for bit: the dense family on
+# (1, n), the hybrid on the data x model mesh, both tensor-parallel
 opt = AdamW(lr=1e-3, weight_decay=0.0)
-for arch, mesh, rules in (("llama3.2-1b", tp, S.DEFAULT_RULES),
-                          ("hymba-1.5b", dp, S.WHOLE_RULES)):
+for arch, mesh in (("llama3.2-1b", tp), ("hymba-1.5b", dp)):
     cfg = dataclasses.replace(configs.get(arch).reduced(), remat=True)
     state = TS.init_sharded_state(cfg, opt, torch.Generator().manual_seed(7), mesh,
                                   device="cpu")
@@ -320,9 +458,7 @@ for arch, mesh, rules in (("llama3.2-1b", tp, S.DEFAULT_RULES),
         xs = [p.to_local().detach().requires_grad_() for p in plist]
         tree = pytree.unflatten(state["params"], [S.Shard(x, S.layout_of(p), p.shape)
                                                   for x, p in zip(xs, plist)])
-        if rules is S.WHOLE_RULES:
-            tree = TS._whole(tree)
-        with S.use_rules(mesh, rules), S.split_batch([mesh.get_group(i) for i in split],
+        with S.use_rules(mesh), S.split_batch([mesh.get_group(i) for i in split],
                                                      S.mesh_size(split), split):
             loss = T.loss_fn(tree, cfg, batch)
         grad = lambda: torch.autograd.grad(loss, xs)  # noqa: E731
@@ -332,21 +468,38 @@ for arch, mesh, rules in (("llama3.2-1b", tp, S.DEFAULT_RULES),
     out["thread/" + arch + "/loss"] = np.array(float(loss))
 
 if n == 4:
-    # the tensor-parallel step's collectives on (1, 4): the reduced
-    # llama3.2-1b, one step of B 4 x S 32
-    cfg = configs.get("llama3.2-1b").reduced()
-    state = TS.init_sharded_state(cfg, opt, torch.Generator().manual_seed(7), tp, device="cpu")
-    ds = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4, seed=3))
-    batch = {k: torch.as_tensor(v) for k, v in ds.batch_at(0).items()}
-    fn = TS.make_train_step(cfg, opt, mesh=tp)
-    with hlo_cost.OpCounter(tp) as c:
-        state, m = fn(state, batch)
-    split = sum(p.numel() * p.element_size() for p in pytree.leaves(state["params"])
-                if any(1 in dims for dims in S.layout_of(p)))
-    out["step/model_gather"] = np.array(c.coll_by_axis.get("model", {}).get("all-gather", 0))
-    out["step/model_coll"] = np.array(sum(c.coll_by_axis.get("model", {}).values()))
-    out["step/split_param_bytes"] = np.array(split)
-    out["step/loss"] = np.array(float(m["loss"]))
+    # the tensor-parallel step's collectives on (1, 4), one step of B 4 x S
+    # 32 of the reduced llama3.2-1b and mamba2-1.3b, and the shapes of the
+    # 'model'-split parameters sharding.weight gathers whole over 'model'
+    weight = S.weight
+    whole = []
+
+    def spy(w, keep=()):
+        t, lay = weight(w, keep)
+        if any(1 in dims for dims in S.layout_of(w)) and not any(1 in dims for dims in lay):
+            whole.append(tuple(w.shape))
+        return t, lay
+
+    S.weight = spy
+    for arch in ("llama3.2-1b", "mamba2-1.3b"):
+        cfg = configs.get(arch).reduced()
+        state = TS.init_sharded_state(cfg, opt, torch.Generator().manual_seed(7), tp,
+                                      device="cpu")
+        ds = SyntheticLM(DataConfig(cfg.vocab_size, 32, 4, seed=3))
+        batch = {k: torch.as_tensor(v) for k, v in ds.batch_at(0).items()}
+        fn = TS.make_train_step(cfg, opt, mesh=tp)
+        whole.clear()
+        with hlo_cost.OpCounter(tp) as c:
+            state, m = fn(state, batch)
+        split = sum(p.numel() * p.element_size() for p in pytree.leaves(state["params"])
+                    if any(1 in dims for dims in S.layout_of(p)))
+        by = c.coll_by_axis.get("model", {})
+        out[f"step/{arch}/model_gather"] = np.array(by.get("all-gather", 0))
+        out[f"step/{arch}/model_coll"] = np.array(sum(by.values()))
+        out[f"step/{arch}/split_param_bytes"] = np.array(split)
+        out[f"step/{arch}/gathered_whole"] = np.array(sorted(set(whole)) or np.empty((0, 2)))
+        out[f"step/{arch}/loss"] = np.array(float(m["loss"]))
+    S.weight = weight
 np.savez(dest, **out)
 dist.destroy_process_group()
 print("WORKER-OK")
@@ -391,6 +544,16 @@ def test_collective_and_layer_gradients_match_the_unsharded_ones(runs, case, ran
     assert any(rk[case + "/shapes"].sum() > 0 for rk in runs[ranks])
 
 
+@pytest.mark.parametrize("ranks", [4, 3])
+def test_ssm_norm_cases_take_both_branches(runs, ranks):
+    """``ssm_norm_split`` sums the squares of each rank's heads' columns
+    (``out``'s rows are the heads'); ``ssm_norm_gathered`` gathers y
+    whole first (they are not)."""
+    for rk in runs[ranks]:
+        assert bool(rk["ssm_norm_split/split"])
+        assert not bool(rk["ssm_norm_gathered/split"])
+
+
 def test_vocab_parallel_loss_counts_every_label(runs):
     for ranks in (4, 3):
         counts = {int(rk["chunked_ce_loss/count"]) for rk in runs[ranks]}
@@ -408,11 +571,20 @@ def test_backward_on_another_thread_runs_under_the_forward_rules(runs, arch, ran
         assert np.isfinite(float(rk["thread/" + arch + "/loss"]))
 
 
-def test_tensor_parallel_step_gathers_no_model_split_parameter_whole(runs):
-    """On (1, 4) the step's 'model'-axis all-gathers (K/V's whole heads)
-    carry less than one whole copy of the parameters split over 'model'."""
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "mamba2-1.3b"])
+def test_tensor_parallel_step_gathers_no_model_split_parameter_whole(runs, arch):
+    """On (1, 4) the step's 'model'-axis all-gathers (K/V's whole heads;
+    the SSM's ``in`` activation) carry less than one whole copy of the
+    parameters split over 'model', and ``sharding.weight`` gathers none of
+    them whole over 'model' but mamba2's ``conv`` (W x CC)."""
+    from repro_torch import configs
+
+    cfg = configs.get(arch).reduced()
+    want = {(cfg.ssm_conv_width, cfg.ssm_d_inner + 2 * cfg.ssm_state)} if cfg.ssm_state else set()
     for rk in runs[4]:
-        split = int(rk["step/split_param_bytes"])
-        assert split > 0 and np.isfinite(float(rk["step/loss"]))
-        assert int(rk["step/model_gather"]) < split, (int(rk["step/model_gather"]), split)
-        assert int(rk["step/model_coll"]) > 0
+        split = int(rk[f"step/{arch}/split_param_bytes"])
+        assert split > 0 and np.isfinite(float(rk[f"step/{arch}/loss"]))
+        gathered = int(rk[f"step/{arch}/model_gather"])
+        assert gathered < split, (gathered, split)
+        assert int(rk[f"step/{arch}/model_coll"]) > 0
+        assert {tuple(int(v) for v in s) for s in rk[f"step/{arch}/gathered_whole"]} == want
