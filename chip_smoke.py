@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--edge 512] [--reps 50]
                           [--store-kernels | --ingest | --service | --families |
                            --enc-vlm | --families-train | --examples | --sharding |
-                           --sharded-serve]
+                           --sharded-serve | --long-context]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It imports nothing of the JAX package.  In order it:
@@ -139,7 +139,8 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      the build, with its stores made from --seed).
 
  14. serves the MoE, SSM and hybrid families at full width and depth:
-     mamba2-1.3b (48 layers, attention-free), hymba-1.5b (32 layers, 25
+     mamba2-1.3b (24 of its 48 layers, attention-free; phase 20 serves it
+     at full depth), hymba-1.5b (32 layers, 25
      query heads over 5 kv heads beside a Mamba2 mixer, a 2048-token window)
      and deepseek-moe-16b (28 layers, 64 experts top-6 and 2 shared, 16.88 B
      float32 weights, 67.5 GB, last, on a card the earlier phases freed);
@@ -234,7 +235,9 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      flash kernel exactly twice an attention layer a step; (e) the dry-run
      on fake CUDA tensors of the train_4k cells of deepseek-moe-16b,
      mamba2-1.3b, hymba-1.5b, whisper-medium and internvl2-1b on (16, 16)
-     and llama3.2-1b on (2, 16, 16) with --grad-compress 1, each cell a
+     and llama3.2-1b on (2, 16, 16) with --grad-compress 1, and the
+     long_500k decode cells of h2o-danube-1.8b, hymba-1.5b and mamba2-1.3b
+     under ``LONG_CONTEXT_RULES``, dense and compressed, each cell a
      ``launch.dryrun`` process of its own started (at the lowest CPU
      priority) before (a) and read after (f), each record on a line with
      its wall time beside its parent tree's flops, then deepseek-moe-16b's
@@ -261,7 +264,7 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      with float32 scores within 1e-5 (the bf16 one reported); (d) the SSM,
      hybrid, audio and VLM families at full width, B 4, 8 decode steps,
      dense and P = 1 caches: mamba2-1.3b (12 of 48 layers, 2048-token
-     prompts), hymba-1.5b (full depth, 2048), whisper-medium (6 + 6 of 24 +
+     prompts), hymba-1.5b (16 of 32 layers, 2048), whisper-medium (6 + 6 of 24 +
      24 layers, 1500 stub frames, 384 tokens) and internvl2-1b (8 of 24
      layers, 256 image embeddings and 1792 tokens): prefill bit for bit,
      decode within 0.05 with bf16 scores (hymba-1.5b's reported) and 1e-5
@@ -274,6 +277,29 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      counters are set to 0 before each
      sharded run and read after it: flash, planes_encode and planes_decode
      must each have run there (``--sharded-serve`` runs this phase alone).
+ 20. serves long contexts under ``LONG_CONTEXT_RULES`` (the batch whole,
+     the sequence over 'data'; one-rank NCCL group, a one-member (1, 1)
+     data x model mesh): h2o-danube-1.8b at full width and depth (24
+     layers, d_model 2560, 32 query and 8 kv heads of 80, a 4096-token
+     window; float32 weights from --seed, bf16 compute, B 1) on a
+     32768-token prompt against the unsharded engine, then on a
+     524288-token prompt (long_500k's), hymba-1.5b and mamba2-1.3b at full
+     width and depth on 32768 tokens against the unsharded engine; 16
+     decode steps each with a dense cache and, where there is attention, a
+     P = 1 cache.  Every run held to the unsharded engine is bit for bit in
+     its prefill logits and cache (deterministic algorithms on); its decode
+     logits, the scores rounded to bf16 as under any rules, are reported,
+     and a second run with the scores summed in float32 is bit for bit
+     (prefill and decode); prefill s, decode ms a step, peak memory.  Launch
+     counters are set to 0 before the first run under the rules and read
+     after: the flash kernel exactly once an attention layer, both planes
+     kernels in a P = 1 run.  Then the flash kernel is timed at the one
+     member's 524288-token shape and at a rank of 16's (32768 queries after
+     a 4095-key halo), beside its bound, and there beside
+     scaled_dot_product_attention with a dense mask (``--long-context``
+     runs this phase alone, after the flash
+     kernel's checks with an offset, and then traces the six long_500k
+     dry-run cells; in the whole run phase 18e traces them).
 
 Phase 2 also holds the planes kernels against their plain versions on both
 routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
@@ -287,8 +313,9 @@ shape, a window, unaligned S, hd 80 and 128, float32, and phase 14's
 prefills: hymba's G = 5 with a window equal to S, deepseek's G = 1 at hd
 128; phase 15's: whisper's non-causal encoder over 1500 frames and its
 cross-attention of 384 positions against them, its causal decoder, and
-internvl2-1b's G = 7), and timed at llama3.2-1b's, phase 14's and phase
-15's shapes.
+internvl2-1b's G = 7; phase 20's: 4096 queries after h2o-danube-1.8b's
+4095-key halo, and a float32 case with an offset), and timed at
+llama3.2-1b's, phase 14's, phase 15's and phase 20's shapes.
 
 Any failed check raises, so the exit code is non-zero.  The last two lines
 are the kernels JSON and the result JSON.
@@ -1666,7 +1693,14 @@ ENC_VLM_FLASH = {"8d whisper-medium encoder": (4, 1500, 16, 16, 64, False, 0, 15
                  "8e whisper-medium cross": (4, 384, 16, 16, 64, False, 0, 1500),
                  "8f whisper-medium decoder": (4, 384, 16, 16, 64, True, 0, 384),
                  "8g internvl2-1b prefill": (4, 2048, 14, 2, 64, True, 0, 2048)}
-FLASH_CASES = (                    # (B, S, Hq, Hkv, hd, causal, window[, Skv], dtype name)
+# phase 20's kernel shapes (B, Sq, Hq, Hkv, hd, causal, window, Skv,
+# q_offset): h2o-danube-1.8b's long-context prefill (32 query heads over 8 of
+# 80, a 4096 window; configs/h2o_danube_1p8b.py) on one member, the whole
+# 524288-token prompt, and on a rank of 16 along 'data', its 32768 queries
+# after the 4095-key halo of the window before them
+LONG_FLASH = {"20 h2o-danube-1.8b, one member": (1, 524288, 32, 8, 80, True, 4096, 524288, 0),
+              "20 h2o-danube-1.8b, a rank of 16": (1, 32768, 32, 8, 80, True, 4096, 36863, 4095)}
+FLASH_CASES = (            # (B, S, Hq, Hkv, hd, causal, window[, Skv[, q_offset]], dtype name)
     (4, 2048, 32, 8, 64, True, 0, "bfloat16"),      # llama3.2-1b's prefill, the main path
     (4, 2048, 32, 8, 64, True, 512, "bfloat16"),    # a sliding window
     (4, 2000, 32, 8, 64, True, 0, "bfloat16"),      # unaligned S
@@ -1675,13 +1709,19 @@ FLASH_CASES = (                    # (B, S, Hq, Hkv, hd, causal, window[, Skv], 
     (2, 1024, 32, 8, 64, True, 0, "float32"),
     FAMILY_FLASH["hymba-1.5b"] + ("bfloat16",),      # G = 5, window = S (phase 14)
     FAMILY_FLASH["deepseek-moe-16b"] + ("bfloat16",),  # G = 1, hd 128 (phase 14)
-) + tuple(shape + ("bfloat16",) for shape in ENC_VLM_FLASH.values())      # phase 15
+) + tuple(shape + ("bfloat16",) for shape in ENC_VLM_FLASH.values()) + (      # phase 15
+    # phase 20: 4096 queries after h2o-danube-1.8b's 4095-key halo, and a
+    # full-causal float32 case with an offset
+    (1, 4096, 32, 8, 80, True, 4096, 8191, 4095, "bfloat16"),
+    (1, 1024, 32, 8, 64, True, 0, 2560, 1536, "float32"),
+)
 
 
 def flash_shape(shape) -> tuple:
-    """(B, Sq, Hq, Hkv, hd, causal, window, Skv) of a case's shape; Skv is
-    Sq where the shape leaves it out."""
-    return (*shape, shape[1])[:8]
+    """(B, Sq, Hq, Hkv, hd, causal, window, Skv, q_offset) of a case's
+    shape; Skv is Sq and q_offset 0 where the shape leaves them out."""
+    shape = tuple(shape)
+    return (shape + (shape[1], 0)[len(shape) - 7:])[:9]
 
 
 def flash_inputs(gen, b, s, hq, hkv, hd, dtype, skv=None):
@@ -1702,21 +1742,21 @@ def phase_flash_kernel(gen, cases=FLASH_CASES):
 
     t0 = time.perf_counter()
     for *shape, dname in cases:
-        b, s, hq, hkv, hd, causal, window, skv = flash_shape(shape)
+        b, s, hq, hkv, hd, causal, window, skv, off = flash_shape(shape)
         dtype = getattr(torch, dname)
         q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, dtype, skv)
-        got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=off)
         rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
         d = (got.float() - want.float()).abs()
         check(bool((d <= rtol * want.float().abs() + 1e-6).all()) and not bool(got.isnan().any()),
               f"flash_attention B={b} S={s} Skv={skv} Hq={hq} Hkv={hkv} hd={hd} causal={causal} "
-              f"window={window} {dname}: max |kernel - plain| {float(d.max())}")
+              f"window={window} q_offset={off} {dname}: max |kernel - plain| {float(d.max())}")
         MAX_ERR["flash_attention"] = max(MAX_ERR["flash_attention"], float(d.max()))
         MAX_ERR_CASES[tuple(shape)] = float(d.max())
         log(f"flash_attention vs plain B={b} S={s} Skv={skv} Hq={hq} Hkv={hkv} hd={hd} "
-            f"causal={causal} window={window} {dname}: max |d| {float(d.max()):.3e} (tolerance "
-            f"{'2^-7' if rtol > 1e-5 else '1e-5'} |ref| + 1e-6)")
+            f"causal={causal} window={window} q_offset={off} {dname}: max |d| "
+            f"{float(d.max()):.3e} (tolerance {'2^-7' if rtol > 1e-5 else '1e-5'} |ref| + 1e-6)")
     torch.cuda.synchronize()
     log(f"flash kernel vs plain: {len(cases)} cases within tolerance "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1734,7 +1774,7 @@ def time_flash(gen, reps: int, shape=(SERVE_BATCH, SERVE_PROMPT, 32, 8, 64, True
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
-    b, s, hq, hkv, hd, causal, window, skv = flash_shape(shape)
+    b, s, hq, hkv, hd, causal, window, skv, _off = flash_shape(shape)
     check((not window or window >= s) and (skv == s or not causal),
           f"time_flash: SDPA has no window < S and no causal rectangle {shape}")
     q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, torch.bfloat16, skv)
@@ -3080,6 +3120,9 @@ def phase_service(args) -> dict:
 # a card the earlier phases have freed (configs/*.py, full width and depth)
 FAMILY_ARCHS = ("mamba2-1.3b", "hymba-1.5b", "deepseek-moe-16b")
 FAMILY_SERVE_STEPS = 16            # greedy steps a mode; phase 9 keeps SERVE_STEPS
+# phase 14's depth cuts (the rest at full depth): mamba2-1.3b on 24 of its 48
+# layers, which pays for phase 20 (that phase serves it at full depth)
+FAMILY_LAYERS = {"mamba2-1.3b": 24}
 TEACHER_PROMPTS = (4, 3, 2, 1)     # the float32 checks take as many as fit
 
 
@@ -3265,13 +3308,14 @@ def family_teacher_checks(model, cfg, prompts, runs: dict) -> dict:
 
 def phase_families(args) -> dict:
     """Phase 14: mamba2-1.3b, hymba-1.5b and deepseek-moe-16b at full width
-    and depth, float32 weights from --seed on the card, bf16 compute: 4
+    and depth (but FAMILY_LAYERS' cuts), float32 weights from --seed on the card, bf16 compute: 4
     prompts of 2048 tokens and FAMILY_SERVE_STEPS greedy decode steps with
     a dense cache (and SZx-planes caches at P = 1, 2 where there is
     attention); launch counts, cache bytes, finite logits; decode vs
     forward over the same tokens (``family_teacher_checks``); peak memory;
     a profile of a dense prefill and 2 decode steps.  Returns the phase's
     launch counts and each model's flash launches."""
+    import dataclasses
     import gc
 
     import torch
@@ -3286,6 +3330,10 @@ def phase_families(args) -> dict:
     for i, arch in enumerate(FAMILY_ARCHS):
         flash0 = ops.launch_counts()["flash_attention"]
         cfg = configs.get(arch)
+        if arch in FAMILY_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=FAMILY_LAYERS[arch])
+        depth = ("full depth" if arch not in FAMILY_LAYERS else
+                 f"cut to {cfg.n_layers} of {configs.get(arch).n_layers}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         free, total = torch.cuda.mem_get_info()
@@ -3301,7 +3349,7 @@ def phase_families(args) -> dict:
         log(f"families {arch} ({cfg.family}): {nparams} parameters, "
             f"{nparams * 4 / 1e9:.2f} GB f32, made on the card in {t_init:.2f} s "
             f"({free / 1e9:.2f} of {total / 1e9:.2f} GB free before); {cfg.n_layers} layers "
-            f"(full depth), {SERVE_BATCH} prompts of {SERVE_PROMPT} tokens, "
+            f"({depth}), {SERVE_BATCH} prompts of {SERVE_PROMPT} tokens, "
             f"{FAMILY_SERVE_STEPS} greedy steps")
         t_first = timed(lambda: serve_and_check(model, cfg, prompts, "dense", 1, 1, 0) and None)[1]
         log(f"families {arch}: first prefill and step (allocator and cuBLAS warm-up) "
@@ -3388,8 +3436,8 @@ class FlashShapes:
 
         self.fa, self.inner, self.seen = fa, fa.flash_attention, collections.Counter()
 
-        def counted(q, k, v, *, causal=True, window=0):
-            out = self.inner(q, k, v, causal=causal, window=window)
+        def counted(q, k, v, *, causal=True, window=0, q_offset=0):
+            out = self.inner(q, k, v, causal=causal, window=window, q_offset=q_offset)
             if q.is_cuda:
                 b, sq, hq, hd = q.shape
                 self.seen[(b, sq, hq, k.shape[2], hd, bool(causal), int(window), k.shape[1],
@@ -4230,16 +4278,19 @@ def sharded_checkpoint(cfg, state, mesh):
 
 def start_dryrun_cells(out_dir) -> list:
     """18e: one ``python -m repro_torch.launch.dryrun`` process a cell of
-    DRYRUN_CELLS (fake CUDA tensors), at the lowest CPU priority, each
+    DRYRUN_CELLS and of LONG_DRYRUN_CELLS (the long_500k decode cells under
+    LONG_CONTEXT_RULES; fake CUDA tensors), at the lowest CPU priority, each
     writing its record under ``out_dir``; they run beside 18a-18f.
     Returns [(cell, process, start time)]."""
     out_dir.mkdir(parents=True, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     procs = []
-    for cell in DRYRUN_CELLS:
-        arch, shape, multi_pod, P = cell
+    cells = [cell + ("dense",) for cell in DRYRUN_CELLS] + [
+        (arch, "long_500k", False, 0, mode) for arch, mode in LONG_DRYRUN_CELLS]
+    for cell in cells:
+        arch, shape, multi_pod, P, mode = cell
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-               shape, "--out", str(out_dir)]
+               shape, "--kv-mode", mode, "--out", str(out_dir)]
         if multi_pod:
             cmd.append("--multi-pod")
         if P:
@@ -4265,7 +4316,7 @@ def finish_dryrun_cells(procs, out_dir):
     from repro_torch.train import step as step_mod
 
     try:
-        for (arch, shape, multi_pod, P), proc, t0 in procs:
+        for (arch, shape, multi_pod, P, mode), proc, t0 in procs:
             try:
                 text, _ = proc.communicate(timeout=max(
                     DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1))
@@ -4274,7 +4325,7 @@ def finish_dryrun_cells(procs, out_dir):
                 text, _ = proc.communicate()
             t = time.perf_counter() - t0
             name = f"{arch}.{shape}.{'multi' if multi_pod else 'single'}" + (
-                f".gc{P}" if P else "") + ".json"
+                f".{mode}" if mode != "dense" else "") + (f".gc{P}" if P else "") + ".json"
             path = out_dir / name
             check(proc.returncode == 0 and path.exists(),
                   f"18e: dry-run {arch} {shape} exited {proc.returncode}: {text[-2000:]}")
@@ -4283,6 +4334,14 @@ def finish_dryrun_cells(procs, out_dir):
             rec = json.loads(path.read_text())
             check(rec["status"] == "OK", f"18e: dry-run {arch} {shape}: {rec}")
             rl = rec["roofline"]
+            if shape == "long_500k":
+                check("floor_fraction" in rl, f"18e: {arch} long_500k {mode}: no floor fraction")
+                log(f"sharding 18e dry-run {arch} long_500k kv={mode} mesh {rec['mesh']} under "
+                    f"LONG_CONTEXT_RULES: ideal_bytes_per_device "
+                    f"{rec['ideal_bytes_per_device']:.6g}, floor_fraction "
+                    f"{rl.get('floor_fraction', 0):.6f}, bottleneck {rl['bottleneck']}; wall "
+                    f"{rec['wall_s']} s, read {t:.1f} s after its start; " + json.dumps(rec))
+                continue
             flops, useful = DRYRUN_PARENT[(arch, multi_pod)]
             log(f"sharding 18e dry-run {arch} {shape} mesh {rec['mesh']} grad_compress {P}: "
                 f"flops_per_device {rl['flops_per_device']:.6g} (parent {flops:.6g}), "
@@ -4397,15 +4456,15 @@ SERVE_DRYRUN_CELLS = (("llama3.2-1b", "prefill_32k", "dense", False),   # (arch,
 # 19d: the SSM, hybrid, audio and VLM families served on (1, 1) meshes at full
 # width: (layers served, or None for the config's full depth; prompt tokens;
 # the bf16-score decode's tolerance, or None where it is reported and not
-# held).  hymba-1.5b runs at full depth; the others are cut (mamba2-1.3b 12 of
-# 48 layers, whisper-medium 6 + 6 of 24 + 24, internvl2-1b 8 of 24) to pay for
-# the phase in the script's time limit.  hymba-1.5b's 32 random-weight layers
-# carry the bf16 rounding of its scores to 0.04-0.11 of the largest logit in 8
-# steps on an H100 (PERF.md), as its own bf16 serving moves by up to half of it
-# (phase 14): its bf16 run is reported, and its float32-score run held, as
-# 19b's are
+# held).  Each is cut (mamba2-1.3b 12 of 48 layers, hymba-1.5b 16 of 32,
+# whisper-medium 6 + 6 of 24 + 24, internvl2-1b 8 of 24) to pay for the phases
+# in the script's time limit; phases 14 and 20 serve hymba-1.5b at full depth.
+# hymba-1.5b's 32 random-weight layers carry the bf16 rounding of its scores
+# to 0.04-0.11 of the largest logit in 8 steps on an H100 (PERF.md), as its
+# own bf16 serving moves by up to half of it (phase 14): its bf16 run is
+# reported, and its float32-score run held, as 19b's are
 FAMILY_SHARDED_SERVE = {"mamba2-1.3b": (12, 2048, SHARDED_DECODE_TOL),
-                        "hymba-1.5b": (None, 2048, None),
+                        "hymba-1.5b": (16, 2048, None),
                         "whisper-medium": (6, 384, SHARDED_DECODE_TOL),
                         "internvl2-1b": (8, 1792, SHARDED_DECODE_TOL)}
 FAMILY_SHARDED_STEPS = 8
@@ -4711,6 +4770,285 @@ def phase_sharded_serve(args) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 20: long-context serving, the sequence split over act_seq
+# ---------------------------------------------------------------------------
+
+LONG_ARCH = "h2o-danube-1.8b"      # configs/h2o_danube_1p8b.py, full width and depth
+LONG_PROMPT = 524288               # long_500k's seq_len, batch 1 (configs/base.py)
+LONG_STEPS = 16
+# where the one-member runs are held bit for bit to the unsharded engine: a
+# prompt both runs of each mode fit the time at
+LONG_CHECK_PROMPT = 32768
+# the SSM and hybrid at full width and depth, a shorter prompt each
+LONG_FAMILIES = {"hymba-1.5b": 32768, "mamba2-1.3b": 32768}
+LONG_DRYRUN_CELLS = tuple((arch, mode) for arch in ("h2o-danube-1.8b", "hymba-1.5b",
+                                                    "mamba2-1.3b")
+                          for mode in ("dense", "compressed"))
+
+
+def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: bool) -> int:
+    """One model's prompt (B 1) served on a one-member mesh under
+    LONG_CONTEXT_RULES, a prefill and LONG_STEPS decode steps in each mode
+    (dense and P = 1 where it has attention), the scores rounded to bf16 as
+    under any rules (``engine._reduce_scores``).  With ``check_plain`` the
+    unsharded engine first on the same prompt (deterministic algorithms
+    on): the sharded prefill's logits and cache are held to it bit for bit,
+    its bf16-score decode logits reported (max |d| / max |logit| a step),
+    and a second sharded run with the scores summed in float32 (a
+    one-member mesh then runs the unsharded engine's ops) held to it bit
+    for bit, prefill and decode.  Launch counters are set to 0 before the
+    first sharded run and read after: the flash kernel exactly once an
+    attention layer (in the prefill, never in decode), both planes kernels
+    in a P = 1 run; the counts are added to ``counts``.  Returns that run's
+    flash launches."""
+    import torch
+    from repro_torch.models import sharding as SH
+    from repro_torch.serve import engine as E
+
+    flash = 0
+    layers = attention_layers(cfg)
+    bf16_reduce = E._reduce_scores
+    for mode, _P in family_modes(cfg)[:2]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        a = f32 = None
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            if check_plain:
+                a = serve_teacher(model, cfg, prompts, mode, 1, LONG_STEPS)
+            run = {}
+            with SH.use_rules(mesh, SH.LONG_CONTEXT_RULES):
+                sh = serve_teacher(params, cfg, prompts, mode, 1, LONG_STEPS,
+                                   None if a is None else a[3], run)
+                if check_plain and layers:
+                    E._reduce_scores = lambda s, dims=(): SH.all_reduce(s, dims)  # noqa: E731
+                    try:
+                        f32 = serve_teacher(params, cfg, prompts, mode, 1, LONG_STEPS, a[3])
+                    finally:
+                        E._reduce_scores = bf16_reduce
+        finally:
+            torch.use_deterministic_algorithms(False)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        run = {k: v for k, v in run.items() if v}
+        for k, v in run.items():
+            counts[k] = counts.get(k, 0) + v
+        flash += run.get("flash_attention", 0)
+        check(run.get("flash_attention", 0) == layers,
+              f"{tag} {cfg.name} {mode}: {run.get('flash_attention', 0)} flash launches, "
+              f"one an attention layer is {layers}")
+        if mode == "compressed":
+            for k in PLANES_KERNELS:
+                check(run.get(k, 0) > 0, f"{tag} {cfg.name}: {k} not launched on the P = 1 run")
+        check(bool(torch.isfinite(sh[0]).all()) and bool(torch.isfinite(sh[2]).all()),
+              f"{tag} {cfg.name} {mode}: logits not finite")
+        verdict = "not held (the unsharded engine not run at this length)"
+        if a is not None:
+            check(same_prefill(sh, a), f"{tag} {cfg.name} {mode}: the one-member prefill "
+                  f"differs from the unsharded engine's by {prefill_spread(sh, a):.3e}")
+            if f32 is None:              # no attention: no score is rounded
+                check(same_bits(sh[2], a[2]), f"{tag} {cfg.name} {mode}: the one-member decode "
+                      f"differs from the unsharded engine's by "
+                      f"{float((sh[2] - a[2]).abs().max()):.3e}")
+                verdict = ("bit for bit the unsharded engine's (prefill logits and cache, decode "
+                           "logits; no attention, no score rounded)")
+            else:
+                check(same_prefill(f32, a) and same_bits(f32[2], a[2]),
+                      f"{tag} {cfg.name} {mode}: the one-member run with float32 scores differs "
+                      f"from the unsharded engine: prefill {prefill_spread(f32, a):.3e}, decode "
+                      f"{float((f32[2] - a[2]).abs().max()):.3e}")
+                vocab = cfg.vocab_size
+                r16 = teacher_rel(a[2][:, :, :vocab].transpose(0, 1),
+                                  sh[2][:, :, :vocab].transpose(0, 1), vocab)
+                check(all(math.isfinite(r) for r in r16), f"{tag} {cfg.name} {mode}: {r16}")
+                verdict = ("prefill logits and cache bit for bit the unsharded engine's; decode "
+                           "with float32 scores bit for bit, with bf16 scores max |d| / max "
+                           "|logit| " + ", ".join(f"{r:.5f}" for r in r16) + " (reported)")
+        mean = lambda ts: sum(ts[1:]) / len(ts[1:])   # noqa: E731  (the first step warms up)
+        log(f"{tag} {cfg.name} ({cfg.n_layers} layers) kv={mode} P=1 under LONG_CONTEXT_RULES on "
+            f"a (1, 1) mesh, a prompt of {prompts.shape[1]} tokens: prefill {sh[4]:.3f} s"
+            + (f" (unsharded {a[4]:.3f} s)" if a is not None else "")
+            + f", decode {mean(sh[5]) * 1e3:.2f} ms a step"
+            + (f" (unsharded {mean(a[5]) * 1e3:.2f})" if a is not None else "")
+            + f" ({len(sh[5])} steps, host clock, synchronized), peak memory {peak:.2f} GB, "
+              f"launches {run}; {verdict}")
+        del a, sh, f32
+    return flash
+
+
+def phase_long_context(args) -> tuple:
+    """Phase 20 (``--long-context`` runs it alone, then the long_500k
+    dry-run cells in-process), in a one-rank NCCL group on a (1, 1) data x
+    model mesh: h2o-danube-1.8b at full width and depth (float32 weights
+    from --seed, bf16 compute, B 1) held bit for bit to the unsharded engine
+    at LONG_CHECK_PROMPT tokens, then served at LONG_PROMPT (524288) tokens;
+    LONG_FAMILIES' models at full width and depth at their prompts, held bit
+    for bit.  Returns the sharded runs' launches and the flash launches by
+    LONG_FLASH row."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer as T
+
+    counts, flash = {}, {}
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = one_member_mesh(("data", "model"))
+        runs = [(LONG_ARCH, LONG_CHECK_PROMPT, True), (LONG_ARCH, LONG_PROMPT, False)] + [
+            (arch, prompt, True) for arch, prompt in LONG_FAMILIES.items()]
+        model = None
+        for i, (arch, prompt, check_plain) in enumerate(runs):
+            cfg = configs.get(arch)
+            if model is None or model.cfg.name != arch:
+                del model
+                torch.cuda.empty_cache()
+                gen = torch.Generator(device="cuda").manual_seed(args.seed + 100 + i)
+                model = T.init_params(cfg, gen, "cuda")
+                tree = T.param_tree(model)
+                params = mesh_lib.shard_tree(tree, mesh_lib.param_specs_tree(cfg, tree, mesh),
+                                             mesh)
+            prompts = torch.randint(0, cfg.vocab_size, (1, prompt), device="cuda", generator=gen)
+            n = long_serve("long context 20", model, params, mesh, cfg, prompts, counts,
+                           check_plain=check_plain)
+            if prompt == LONG_PROMPT:
+                flash[next(iter(LONG_FLASH))] = n
+        del model, params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    counts = {k: v for k, v in counts.items() if v}
+    log(f"phase 20 launches on the long-context serving path: {counts}")
+    for k in ("flash_attention",) + PLANES_KERNELS:
+        check(counts.get(k, 0) > 0, f"kernel {k} was not launched on the long-context path")
+    return counts, flash
+
+
+def long_dryrun_cells() -> None:
+    """The dry-run's long_500k cells on fake CUDA tensors on (16, 16),
+    LONG_CONTEXT_RULES, in this process (no group may be live): each record
+    on a line with its ideal bytes a device and floor fraction."""
+    from repro_torch.launch import dryrun
+
+    for arch, mode in LONG_DRYRUN_CELLS:
+        rec, t = timed(lambda: dryrun.lower_cell(arch, "long_500k", kv_mode=mode))
+        check(rec["status"] == "OK" and "floor_fraction" in rec.get("roofline", {}),
+              f"dry-run {arch} long_500k {mode}: {rec}")
+        rl = rec["roofline"]
+        log(f"long context dry-run {arch} long_500k kv={mode} mesh {rec['mesh']}: wall {t:.1f} s; "
+            f"ideal_bytes_per_device {rec['ideal_bytes_per_device']:.6g}, floor_fraction "
+            f"{rl['floor_fraction']:.6f}, bottleneck {rl['bottleneck']}; " + json.dumps(rec))
+
+
+def long_flash_rows(gen, reps: int, launches: dict) -> list:
+    """The flash kernel timed at LONG_FLASH's shapes (CUDA events), as
+    entries of the kernels JSON's flash row: the bound from the input's
+    bytes and the operations of its visible (query, key) pairs
+    (``visible_pairs`` with the offset); the plain version timed where its
+    chunk pairs fit (it visits every key chunk for each query chunk: at
+    524288 queries, 512 x 1024 chunk pairs), else null; the library call
+    (``long_flash_library_ms``) where its dense mask fits, else null
+    (scaled_dot_product_attention has no window short of a dense mask, at
+    524288 queries 524288^2)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = []
+    for row, shape in LONG_FLASH.items():
+        b, s, hq, hkv, hd, causal, window, skv, off = shape
+        q, k, v = flash_inputs(gen, b, s, hq, hkv, hd, torch.bfloat16, skv)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                                q_offset=off), reps)
+        plain_ms = err = lib_ms = None
+        if s * skv <= 1 << 31:
+            want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=off)
+            d = (fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off).float()
+                 - want.float()).abs()
+            check(bool((d <= 2.0 ** -7 * want.float().abs() + 1e-6).all()),
+                  f"flash_attention {row}: max |kernel - plain| {float(d.max())}")
+            err = float(d.max())
+            MAX_ERR["flash_attention"] = max(MAX_ERR["flash_attention"], err)
+            del want, d
+            plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=causal, window=window, q_offset=off), max(reps // 10, 3))
+            lib_ms = long_flash_library_ms(row, q, k, v, window, off, reps)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * b * hq * hd * fa.visible_pairs(s, skv, causal, window, off)
+        bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+        log(f"time flash_attention bf16 {row} B={b} Sq={s} Skv={skv} Hq={hq} Hkv={hkv} hd={hd} "
+            f"window={window} q_offset={off}: kernel {ms:.4f} ms, plain "
+            + (f"{plain_ms:.4f} ms, max |kernel - plain| {err:.3e}" if plain_ms is not None
+               else "not timed (its chunk pairs take minutes)")
+            + (f", scaled_dot_product_attention {lib_ms:.4f} ms" if lib_ms is not None
+               else ", no library call")
+            + f"; bound {bound_ms:.4f} ms ({flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16, "
+              f"{nbytes / 1e6:.3f} MB at 3.35 TB/s), {bound_ms / ms * 100:.1f}% of the bound; "
+              f"the bf16 route's 4 products' floor {2 * flops / BF16_FLOPS * 1e3:.4f} ms")
+        rows.append({"row": row, "shape": list(shape), "launches": launches.get(row, 0),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "operations", "library_ms": lib_ms})
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def long_flash_library_ms(row, q, k, v, window: int, off: int, reps: int) -> float | None:
+    """scaled_dot_product_attention on the same function as the kernel at
+    a LONG_FLASH shape: a dense boolean mask (Sq x Skv bytes) of the keys
+    each query sees (kpos <= q_offset + i, q_offset + i - kpos < window),
+    the memory-efficient or cuDNN backend (the math backend would hold
+    Hq x Sq x Skv scores), with ``enable_gqa``; where no such backend takes
+    the GQA form, on K/V repeated to the query heads (made before the
+    timing).  Its output is held to the kernel's loosely (2 % of the
+    largest |value|: a wrong mask moves it by more).  Returns its time
+    (CUDA events), or None with the reason logged where no backend runs
+    it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import flash_attention as fa
+
+    s, skv, hq, hkv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    qpos = torch.arange(off, off + s, device="cuda")[:, None]
+    kpos = torch.arange(skv, device="cuda")[None, :]
+    mask = (kpos <= qpos) & (qpos - kpos < window)
+    del qpos, kpos
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    want = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=off)
+    backends = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
+    lib_ms, form, errors = None, None, []
+    for form in ("enable_gqa", "K/V repeated to the query heads"):
+        if form != "enable_gqa":
+            kt, vt = (x.repeat_interleave(hq // hkv, dim=1) for x in (kt, vt))
+
+        def call(kt=kt, vt=vt, gqa=form == "enable_gqa"):
+            with sdpa_kernel(backends):
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+        try:
+            got = call().transpose(1, 2)
+        except RuntimeError as e:         # no backend of the two takes this form
+            errors.append(f"{form}: {str(e).splitlines()[0][:200]}")
+            torch.cuda.empty_cache()
+            continue
+        d = float((got.float() - want.float()).abs().max())
+        top = float(want.float().abs().max())
+        check(d <= 0.02 * top, f"flash {row}: scaled_dot_product_attention with the dense mask "
+              f"differs from the kernel by {d:.3e} (largest |value| {top:.3e})")
+        del got
+        lib_ms = cuda_ms(call, reps)
+        log(f"flash {row}: scaled_dot_product_attention ({form}, a {s} x {skv} boolean mask, "
+            f"memory-efficient or cuDNN backend) {lib_ms:.4f} ms, max |d| from the kernel "
+            f"{d:.3e} of {top:.3e}")
+        break
+    if lib_ms is None:
+        log(f"flash {row}: scaled_dot_product_attention not run: " + "; ".join(errors))
+    del mask, qt, kt, vt, want
+    torch.cuda.empty_cache()
+    return lib_ms
+
+
 def dispatch_cost(reps: int, rounds: int = 5) -> dict:
     """``--dispatch``: the cost of the custom operator that every flash and
     planes call goes through.  Each wrapper call, through its operator,
@@ -4739,7 +5077,7 @@ def dispatch_cost(reps: int, rounds: int = 5) -> dict:
         "planes_decode": (lambda: planes.planes_decode(mu, sexp, pl),
                           lambda: planes._decode_op._init_fn(mu, sexp, pl)),
         "flash_attention": (lambda: F.flash_attention(q, kv, kv, causal=True),
-                            lambda: F._flash_op._init_fn(q, kv, kv, True, 0)),
+                            lambda: F._flash_op._init_fn(q, kv, kv, True, 0, 0)),
     }
     out = {}
     for name, (via_op, direct) in calls.items():
@@ -4814,6 +5152,12 @@ def main() -> int:
     ap.add_argument("--sharding", action="store_true",
                     help="build, run phase 18 alone (the sharded training step on one-member "
                          "meshes, sharded checkpoints, the dry-run) and stop")
+    ap.add_argument("--long-context", action="store_true",
+                    help="build, hold the flash kernel with an offset to its plain version, "
+                         "run phase 20 alone (long-context serving under LONG_CONTEXT_RULES: "
+                         "h2o-danube-1.8b at 524288 tokens, hymba-1.5b and mamba2-1.3b), time "
+                         "the flash kernel at its shapes, trace the long_500k dry-run cells "
+                         "and stop")
     ap.add_argument("--sharded-serve", action="store_true",
                     help="build, run phase 19 alone (serving under one-member meshes, the "
                          "SSM, hybrid, audio and VLM families among them, the dry-run's "
@@ -4920,6 +5264,15 @@ def main() -> int:
         return 0
     if args.sharded_serve:
         phase_sharded_serve(args)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.long_context:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        phase_flash_kernel(gen, [c for c in FLASH_CASES if len(c) == 10])
+        _, flash = phase_long_context(args)
+        rows = long_flash_rows(gen, max(args.reps // 10, 3), flash)
+        log(f"phase 20 flash rows: {json.dumps(rows)}")
+        long_dryrun_cells()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -5031,15 +5384,18 @@ def main() -> int:
     sharding_launches = phase_sharding(args)
     log(f"phase 19 starts {time.perf_counter() - t_start:.1f} s into the run")
     sharded_serve_launches = phase_sharded_serve(args)
+    log(f"phase 20 starts {time.perf_counter() - t_start:.1f} s into the run")
+    long_launches, long_flash = phase_long_context(args)
     for counts in (train_launches, example_launches, sharding_launches,
-                   sharded_serve_launches):
+                   sharded_serve_launches, long_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     for arch, n in train_flash.items():
         if arch in family_flash:
             family_flash[arch] += n
     flash_cases = (family_flash_rows(gen, max(args.reps // 2, 5), family_flash)
-                   + enc_vlm_flash_rows(gen, max(args.reps // 2, 5), enc_vlm_flash))
+                   + enc_vlm_flash_rows(gen, max(args.reps // 2, 5), enc_vlm_flash)
+                   + long_flash_rows(gen, max(args.reps // 10, 3), long_flash))
     log(f"time train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} plain: store-fed (batch "
         f"draw + step) " + ", ".join(f"{t * 1e3:.1f}" for t in store_s)
         + " ms vs synthetic tokens (phase 11, step only) "

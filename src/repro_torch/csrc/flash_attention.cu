@@ -8,8 +8,11 @@
 // the sums run in another order.
 //
 // What it computes, per query row: s = q.k * scale over the keys, masked to
-// -1e30 where kpos >= skv, qpos >= sq, (causal) kpos > qpos or (window)
-// qpos - kpos >= window; then the online softmax of the reference --
+// -1e30 where kpos >= skv, (causal) kpos > qpos or (window) qpos - kpos >=
+// window, where kpos is a key's index and qpos = q_offset + i the query's
+// (q_offset: the key index of query 0, the length of the halo of keys a
+// sequence-sharded prefill puts before a rank's own; 0 for a whole
+// sequence); then the online softmax of the reference --
 // m_new = max(m, max_k s), p = exp(s - m_new) where s > -5e29 else 0,
 // alpha = exp(m - m_new), l = l * alpha + sum p, acc = acc * alpha + p @ v --
 // and out = acc / max(l, 1e-30), rounded once to the input type.  A row with
@@ -78,6 +81,7 @@ struct Params {
   int sq, skv, hq, hkv, hd;
   int g, bq;                        // heads per kv head, positions per block
   int causal, window;
+  int q_offset;                     // key index of query 0
   float scale;
 };
 
@@ -197,19 +201,22 @@ __global__ void __launch_bounds__(MMA_THREADS, HDP <= 64 ? 4 : 1) flash_fwd_bf16
     }
   };
 
-  // this thread's two rows: warp * 16 + gid and that + 8
-  int qpos[2];
+  // this thread's two rows: warp * 16 + gid and that + 8; qpos is the
+  // row's query index, qpos + q_offset its key index
+  int qpos[2], qkey[2];
   bool row_ok[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = warp * 16 + gid + 8 * h;
     qpos[h] = q0 + r / p.g;
+    qkey[h] = p.q_offset + qpos[h];
     row_ok[h] = r < nrows && qpos[h] < p.sq;
   }
   // keys outside [kbeg, kend) are masked for every row of the block
   const int qlast = min(q0 + p.bq, p.sq) - 1;
-  const int kend = p.causal ? min(p.skv, qlast + 1) : p.skv;
-  const int kbeg = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int kfirst = p.q_offset + q0, klast = p.q_offset + qlast;   // the rows' key indices
+  const int kend = p.causal ? min(p.skv, klast + 1) : p.skv;
+  const int kbeg = p.window > 0 ? max(0, kfirst - p.window + 1) : 0;
   const int ntiles = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -257,8 +264,8 @@ __global__ void __launch_bounds__(MMA_THREADS, HDP <= 64 ? 4 : 1) flash_fwd_bf16
 
     // scale, mask (only where the tile crosses an edge), online softmax
     bool edge = k0 + BK > p.skv;
-    if (p.causal) edge = edge || k0 + BK - 1 > q0;
-    if (p.window > 0) edge = edge || qlast - k0 >= p.window;
+    if (p.causal) edge = edge || k0 + BK - 1 > kfirst;
+    if (p.window > 0) edge = edge || klast - k0 >= p.window;
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
     for (int j = 0; j < KT; ++j)
@@ -269,8 +276,8 @@ __global__ void __launch_bounds__(MMA_THREADS, HDP <= 64 ? 4 : 1) flash_fwd_bf16
         if (edge) {
           const int kpos = k0 + j * 8 + tig * 2 + (e & 1);
           bool ok = kpos < p.skv;
-          if (p.causal) ok = ok && kpos <= qpos[h];
-          if (p.window > 0) ok = ok && qpos[h] - kpos < p.window;
+          if (p.causal) ok = ok && kpos <= qkey[h];
+          if (p.window > 0) ok = ok && qkey[h] - kpos < p.window;
           x = ok ? x : NEG_INF;
         }
         s[j][e] = x;
@@ -430,18 +437,19 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(const Params p) {
     for (int w = 0; w < 8; ++w) Qs[(dc * 8 + w) * ROWS + r] = x[w];
   }
 
-  int qpos[4];
+  int qpos[4], qkey[4];                   // query index, key index (+ q_offset)
   bool row_ok[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
     qpos[i] = q0 + r / p.g;
+    qkey[i] = p.q_offset + qpos[i];
     row_ok[i] = r < nrows && qpos[i] < p.sq;
   }
   // keys outside [kbeg, kend) are masked for every row of the block
   const int qlast = min(q0 + p.bq, p.sq) - 1;
-  const int kend = p.causal ? min(p.skv, qlast + 1) : p.skv;
-  const int kbeg = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int kend = p.causal ? min(p.skv, p.q_offset + qlast + 1) : p.skv;
+  const int kbeg = p.window > 0 ? max(0, p.q_offset + q0 - p.window + 1) : 0;
 
   float m[4], l[4], acc[4][DPT];
 #pragma unroll
@@ -494,8 +502,8 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(const Params p) {
       for (int jj = 0; jj < 4; ++jj) {
         const int kpos = k0 + tx * 4 + jj;
         bool ok = row_ok[i] && kpos < p.skv;
-        if (p.causal) ok = ok && kpos <= qpos[i];
-        if (p.window > 0) ok = ok && qpos[i] - kpos < p.window;
+        if (p.causal) ok = ok && kpos <= qkey[i];
+        if (p.window > 0) ok = ok && qkey[i] - kpos < p.window;
         s[i][jj] = ok ? s[i][jj] * p.scale : NEG_INF;
         mx = fmaxf(mx, s[i][jj]);
       }
@@ -580,13 +588,14 @@ cudaError_t launch_f32(const Params& p, int batch, cudaStream_t stream) {
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* o, int sq, int skv,
-                   int hq, int hkv, int hd, int causal, int window, float scale) {
+                   int hq, int hkv, int hd, int causal, int window, int q_offset,
+                   float scale) {
   Params p;
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.sq = sq; p.skv = skv; p.hq = hq; p.hkv = hkv; p.hd = hd;
   p.g = hq / hkv;
   p.bq = ROWS / p.g;
-  p.causal = causal; p.window = window; p.scale = scale;
+  p.causal = causal; p.window = window; p.q_offset = q_offset; p.scale = scale;
   return p;
 }
 
@@ -594,13 +603,14 @@ Params make_params(const void* q, const void* k, const void* v, void* o, int sq,
 
 // The wrapper (kernels/flash_attention.py) picks the route by dtype and
 // checks shapes, types, contiguity, 16-byte alignment, hd % 8 == 0,
-// hd <= 128, Hq % Hkv == 0 and Hq / Hkv <= 64; it launches nothing for an
-// empty input.  Each returns the launch's cudaError_t (0: launched).
+// hd <= 128, Hq % Hkv == 0, Hq / Hkv <= 64 and q_offset >= 0; it launches
+// nothing for an empty input.  Each returns the launch's cudaError_t (0: launched).
 extern "C" int szx_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                             void* o, int batch, int sq, int skv, int hq,
                                             int hkv, int hd, int causal, int window,
-                                            float scale, cudaStream_t stream) {
-  const Params p = make_params(q, k, v, o, sq, skv, hq, hkv, hd, causal, window, scale);
+                                            int q_offset, float scale, cudaStream_t stream) {
+  const Params p = make_params(q, k, v, o, sq, skv, hq, hkv, hd, causal, window, q_offset,
+                               scale);
   cudaError_t err;
   if (hd <= 16) err = launch_bf16<16>(p, batch, stream);
   else if (hd <= 32) err = launch_bf16<32>(p, batch, stream);
@@ -613,8 +623,9 @@ extern "C" int szx_flash_attention_fwd_bf16(const void* q, const void* k, const 
 extern "C" int szx_flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                            void* o, int batch, int sq, int skv, int hq,
                                            int hkv, int hd, int causal, int window,
-                                           float scale, cudaStream_t stream) {
-  const Params p = make_params(q, k, v, o, sq, skv, hq, hkv, hd, causal, window, scale);
+                                           int q_offset, float scale, cudaStream_t stream) {
+  const Params p = make_params(q, k, v, o, sq, skv, hq, hkv, hd, causal, window, q_offset,
+                               scale);
   cudaError_t err;
   if (hd <= 32) err = launch_f32<32>(p, batch, stream);
   else if (hd <= 64) err = launch_f32<64>(p, batch, stream);

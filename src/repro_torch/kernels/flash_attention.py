@@ -47,7 +47,7 @@ _ROUTES = {torch.bfloat16: "szx_flash_attention_fwd_bf16",
            torch.float32: "szx_flash_attention_fwd_f32"}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 
 
 def _count_launch() -> None:
@@ -85,20 +85,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """GQA attention forward: q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) ->
-    (B, Sq, Hq, hd) in q.dtype."""
+    (B, Sq, Hq, hd) in q.dtype.  ``q_offset`` is the key index of query 0
+    (the length of a halo of earlier keys before the queries' own)."""
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=q_offset)
     if q.device.type != "cuda":             # the operator's fake would take a meta tensor
         raise ValueError(f"flash_attention: q on {q.device}; the kernel takes CUDA tensors")
-    return _flash_op(q, k, v, bool(causal), int(window))
+    return _flash_op(q, k, v, bool(causal), int(window), int(q_offset))
 
 
 @torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
                          device_types="cuda")
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-              window: int) -> torch.Tensor:
+              window: int, q_offset: int) -> torch.Tensor:
     """The kernel's launch as an operator: a fake tensor (the dry-run's)
     takes :func:`_flash_shape` and launches nothing."""
     _check(q, k, v)
@@ -110,7 +113,7 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     fn = _build.function("flash_attention", _ROUTES[q.dtype], _ARGTYPES)
     rc = _build.launch(fn, q.device, (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                       b, sq, skv, hq, hkv, hd, int(bool(causal)), int(window),
-                                      1.0 / math.sqrt(hd)))
+                                      int(q_offset), 1.0 / math.sqrt(hd)))
     if rc:
         raise RuntimeError(f"flash_attention kernel launch failed (CUDA error {rc})")
     _count_launch()
@@ -118,15 +121,15 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 
 @_flash_op.register_fake
-def _flash_shape(q, k, v, causal, window):
+def _flash_shape(q, k, v, causal, window, q_offset):
     return torch.empty_like(q)
 
 
-def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave, for queries at positions 0 ..
-    sq-1 over keys at 0 .. skv-1."""
+def visible_pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int = 0) -> int:
+    """(query, key) pairs the masks leave, for queries at key indices
+    q_offset .. q_offset + sq - 1 over keys at 0 .. skv-1."""
     total = 0
-    for i in range(sq):
+    for i in range(q_offset, q_offset + sq):
         hi = min(skv, i + 1) if causal else skv
         lo = max(0, i - window + 1) if window else 0
         total += max(hi - lo, 0)
@@ -134,10 +137,11 @@ def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
-def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None, **kwargs):
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, q_offset=0, *args, out_shape=None,
+                 **kwargs):
     """2 flops a multiply-add of q k^T and of p v, over the visible pairs."""
     b, sq, hq, hd = q_shape
-    return 4 * b * hq * hd * visible_pairs(sq, k_shape[1], causal, window)
+    return 4 * b * hq * hd * visible_pairs(sq, k_shape[1], causal, window, q_offset)
 
 
 NEG_INF = -1e30       # the reference's mask value; s <= NEG_INF / 2 gives p = 0
@@ -145,7 +149,7 @@ BWD_Q_CHUNK = 512     # queries per recompute of the probabilities
 
 
 def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0,
-                        q_chunk: int = BWD_Q_CHUNK):
+                        q_offset: int = 0, q_chunk: int = BWD_Q_CHUNK):
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the output
     cotangent ``do``, in the dtypes of q, k, v.
 
@@ -155,7 +159,7 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0,
     dq = ds k * scale, and dk += ds^T q * scale, dv += p^T do summed over
     the query heads of each kv head (GQA).  Keys that no query of the chunk
     may see (past the causal diagonal, before the window) are skipped: their
-    p is 0."""
+    p is 0.  Query i sits at key index ``q_offset`` + i."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -171,9 +175,9 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0,
         c = min(q_chunk, sq - q0)
         k_lo, k_hi = 0, skv
         if causal:
-            k_hi = min(skv, q0 + c)
+            k_hi = min(skv, q_offset + q0 + c)
         if window:
-            k_lo = max(0, q0 - window + 1)
+            k_lo = max(0, q_offset + q0 - window + 1)
         if k_hi <= k_lo:
             dq[:, q0:q0 + c] = 0
             continue
@@ -184,7 +188,7 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0,
 
         qc, doc = heads(q[:, q0:q0 + c]), heads(do[:, q0:q0 + c])
         kc, vc = kt[:, :, k_lo:k_hi], vt[:, :, k_lo:k_hi]
-        qpos = (q0 + torch.arange(c, device=q.device)).repeat(g)      # rows are (g, c)
+        qpos = (q_offset + q0 + torch.arange(c, device=q.device)).repeat(g)   # rows are (g, c)
         kp = kpos[k_lo:k_hi]
         valid = torch.ones((g * c, k_hi - k_lo), dtype=torch.bool, device=q.device)
         if causal:
@@ -215,13 +219,14 @@ class FlashAttention(torch.autograd.Function):
     gradient; q, k and v are saved, the probabilities recomputed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int, q_offset: int = 0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal, ctx.window = causal, window
-        return flash_attention(q, k, v, causal=causal, window=window)
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
+        return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, causal=ctx.causal, window=ctx.window,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None

@@ -122,11 +122,11 @@ def planes_decode(mu, sexp, planes):
     return planes_mod.planes_decode(mu.to(torch.float32), sexp, planes.to(torch.uint8))
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
     """GQA attention, q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) -> (B, Sq, Hq,
-    hd) in q.dtype; differentiable (the forward kernel, a recomputing
-    backward)."""
-    return flash_mod.FlashAttention.apply(q, k, v, causal, window)
+    hd) in q.dtype, query i at key index ``q_offset`` + i; differentiable
+    (the forward kernel, a recomputing backward)."""
+    return flash_mod.FlashAttention.apply(q, k, v, causal, window, q_offset)
 
 
 def launch_counts() -> dict[str, int]:

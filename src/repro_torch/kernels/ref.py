@@ -511,12 +511,14 @@ NEG_INF = -1e30
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        q_chunk: int = 512, kv_chunk: int = 1024):
+                        q_chunk: int = 512, kv_chunk: int = 1024, q_offset: int = 0):
     """Online-softmax attention, as ``repro/models/layers.py::flash_attention``
     computes it.
 
     q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd) with Hq % Hkv == 0 (query
-    head h reads kv head h // (Hq / Hkv)).  window > 0 masks keys with
+    head h reads kv head h // (Hq / Hkv)).  Query i sits at key index qpos =
+    ``q_offset`` + i (the reference's "absolute position of q[:, 0]"); keys
+    with kpos > qpos are masked when causal, and window > 0 masks keys with
     qpos - kpos >= window.  Scores are q.k^T in float32 times 1/sqrt(hd);
     masked scores are -1e30, and p = exp(s - m) only where s > -5e29, so a
     fully masked row gives 0.  p @ v is in float32 (v promoted).  Query and
@@ -538,7 +540,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     outs = []
     for qi in range(nq):
         qx = qg[:, qi * cq:(qi + 1) * cq].float()                  # (B,cq,hkv,g,hd)
-        qpos = qi * cq + torch.arange(cq, device=dev)
+        qpos = q_offset + qi * cq + torch.arange(cq, device=dev)
         m = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, hkv, g, cq, hd), dtype=torch.float32, device=dev)
@@ -547,7 +549,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
             vx = v[:, ki * ck:(ki + 1) * ck].float()
             kpos = ki * ck + torch.arange(ck, device=dev)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qx, kx) * scale
-            valid = (kpos[None, :] < skv) & (qpos[:, None] < sq)
+            valid = (kpos[None, :] < skv) & (qpos[:, None] < q_offset + sq)
             if causal:
                 valid &= kpos[None, :] <= qpos[:, None]
             if window:

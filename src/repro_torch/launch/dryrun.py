@@ -17,17 +17,17 @@ constants).  Nothing is allocated at full size; the reference sets
 A ``prefill``/``decode`` cell of every family runs rank 0's sharded
 ``engine.prefill``/``engine.decode_step`` the same way, inside the
 rule table the reference's ``lower_cell`` picks for the cell
-(``DEFAULT_RULES``, ``PURE_DP_RULES`` for ``parallelism="dp"``,
-``SERVE_MOE_RULES`` over it with ``serve_layout``; the training step
-picks its own): the parameters placed by ``param_specs_tree``
-(``serve_param_specs_tree`` with ``serve_layout``, replicated with
-``dp``), the cache as the engine keeps it (``mesh.serve_cache_specs``:
-``cache_specs_tree``'s layout, but for an SSM state whose heads do not
-divide the ``model`` axis, split as the layers split its heads).  Each
-serving record holds ``ideal_bytes_per_device`` -- the parameters and the
-cache rank 0 holds -- and a decode record its ``floor_fraction``.
-``long_500k`` (a window sequence-sharded over 'data') waits for a later
-slice: ``SKIP`` with the reason and the ideal bytes.
+(``DEFAULT_RULES``, ``LONG_CONTEXT_RULES`` for ``long_500k``,
+``PURE_DP_RULES`` for ``parallelism="dp"``, ``SERVE_MOE_RULES`` over it
+with ``serve_layout``; the training step picks its own): the parameters
+placed by ``param_specs_tree`` (``serve_param_specs_tree`` with
+``serve_layout``, replicated with ``dp``), the cache as the engine keeps it
+(``mesh.serve_cache_specs``: ``cache_specs_tree``'s layout -- under
+``LONG_CONTEXT_RULES`` the batch whole and the window's W slots over
+'data' -- but for an SSM state whose heads do not divide the ``model``
+axis, split as the layers split its heads).  Each serving record holds
+``ideal_bytes_per_device`` -- the parameters and the cache rank 0 holds --
+and a decode record (``long_500k``'s among them) its ``floor_fraction``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
@@ -52,11 +52,6 @@ from repro_torch import configs
 from repro_torch.configs.base import SHAPES, input_specs
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.roofline import analysis as roofline
-
-LONG_SKIP = ("long-context serving under a mesh (the window sequence-sharded over 'data', "
-             "LONG_CONTEXT_RULES) is a later slice of the port (ROADMAP.md queue 1); "
-             "ideal_bytes_per_device is the sharded parameters and cache a device holds")
-
 
 def fake_process_group(world_size: int):
     """Rank 0 of a fake default process group of ``world_size`` ranks: its
@@ -168,8 +163,8 @@ def lower_cell(
 
         if kind != "train":
             return {**rec, **_serve_cell(cfg, mesh, pspecs_of, rules, kind, batch, seq_len,
-                                         global_batch, long_ctx, kv_mode, num_planes,
-                                         serve_bf16, device)}
+                                         global_batch, kv_mode, num_planes, serve_bf16,
+                                         device)}
 
         from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -213,8 +208,8 @@ def lower_cell(
         dist.destroy_process_group()
 
 
-def _serve_cell(cfg, mesh, pspecs_of, rules, kind, batch, seq_len, global_batch, long_ctx,
-                kv_mode, num_planes, serve_bf16, device) -> dict:
+def _serve_cell(cfg, mesh, pspecs_of, rules, kind, batch, seq_len, global_batch, kv_mode,
+                num_planes, serve_bf16, device) -> dict:
     """A prefill or decode cell's record (module docstring)."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -228,15 +223,10 @@ def _serve_cell(cfg, mesh, pspecs_of, rules, kind, batch, seq_len, global_batch,
     pspecs = pspecs_of(params)
     cache = engine.cache_specs(cfg, global_batch, seq_len, kv_mode=kv_mode,
                                num_planes=num_planes)
-    if long_ctx:
-        cspecs = mesh_lib.cache_specs_tree(cfg, mesh, cache, long_context=True)
-    else:
-        with sharding.use_rules(mesh, rules):
-            cspecs = mesh_lib.serve_cache_specs(mesh, cache)
+    with sharding.use_rules(mesh, rules):
+        cspecs = mesh_lib.serve_cache_specs(mesh, cache)
     ideal = (roofline.sharded_bytes_per_device(params, pspecs, mesh)
              + roofline.sharded_bytes_per_device(cache, cspecs, mesh))
-    if long_ctx:
-        return {"status": "SKIP", "reason": LONG_SKIP, "ideal_bytes_per_device": ideal}
     names = mesh.mesh_dim_names
     with sharding.use_rules(mesh, rules):
         rows = tuple(names[i] for i in sharding.mesh_dims("act_batch"))

@@ -103,12 +103,13 @@ def rope(x, positions, theta: float):
 # attention
 # ---------------------------------------------------------------------------
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0):
     """Online-softmax attention, q: (B, Sq, Hq, hd); k, v: (B, Skv, Hkv, hd)
-    with Hq % Hkv == 0; window > 0 => sliding-window.  The kernel on a CUDA
-    tensor, the plain version (in the reference's 512 x 1024 chunks) on a
-    CPU tensor.  Returns (B, Sq, Hq, hd) in q.dtype."""
-    return ops.flash_attention(q, k, v, causal=causal, window=window)
+    with Hq % Hkv == 0; window > 0 => sliding-window; q_offset: the key
+    index of q[:, 0] (the reference's "absolute position of q[:, 0]").  The
+    kernel on a CUDA tensor, the plain version (in the reference's 512 x
+    1024 chunks) on a CPU tensor.  Returns (B, Sq, Hq, hd) in q.dtype."""
+    return ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
 
 def entry(x):
@@ -170,7 +171,13 @@ def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=Non
     ``act_heads``; K and V are gathered whole over the mesh dims ``wk``/``wv``
     split them on (the cache takes them whole), and the flash kernel runs on
     the local heads with their kv heads; ``wo`` is row-parallel, so the
-    output is all-reduced."""
+    output is all-reduced.  With the sequence split over ``act_seq``
+    (``sharding.seq_split``, the long-context prefill) ``x`` holds this
+    rank's positions [lo, hi): the rotary embedding takes them, the K/V of
+    the ``window - 1`` positions before lo (every earlier one under full
+    attention) come from the preceding ranks (``sharding.halo``), and the
+    kernel runs once on [halo | own] with ``q_offset`` = the halo's length.
+    The K/V returned are the rank's own."""
     b, s, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     heads = S.mesh_dims("act_heads")
@@ -182,21 +189,29 @@ def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=Non
         q = q.reshape(b, s, h1 - h0, hd)          # the columns hold this rank's heads
     else:
         q = S.take(S.gather(q, -1, lq[1], hq * hd).reshape(b, s, hq, hd), 2, heads)
+    split = S.seq_split() if kv_override is None and causal else None
+    window = cfg.sliding_window if causal else 0
     if kv_override is None:
         k = column_whole(xin, p["wk"], hkv * hd).reshape(b, s, hkv, hd)
         v = column_whole(xin, p["wv"], hkv * hd).reshape(b, s, hkv, hd)
         if positions is None:
-            positions = torch.arange(s, device=x.device)
+            lo = 0 if split is None else split[1]
+            positions = torch.arange(lo, lo + s, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     else:
         k, v = kv_override
         if positions is not None:
             q = rope(q, positions, cfg.rope_theta)
+    kx, vx, q_offset = k, v, 0
+    if split is not None:
+        near = S.halo(torch.stack([k, v]), 2, window - 1 if window else None)
+        q_offset = near.shape[2]
+        kx, vx = torch.cat([near[0], k], dim=1), torch.cat([near[1], v], dim=1)
     g = hq // hkv
-    kh, vh = kv_for_heads(k, h0, h1, g, heads), kv_for_heads(v, h0, h1, g, heads)
+    kh, vh = kv_for_heads(kx, h0, h1, g, heads), kv_for_heads(vx, h0, h1, g, heads)
     if h1 > h0:
-        o = flash_attention(q, kh, vh, causal=causal, window=cfg.sliding_window if causal else 0)
+        o = flash_attention(q, kh, vh, causal=causal, window=window, q_offset=q_offset)
     else:
         o = S.tie(q, kh, vh)                       # no head on this rank
     wo, lo = S.weight(p["wo"], keep=(0,))
@@ -393,11 +408,15 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _ssm_conv(u, w):
+def _ssm_conv(u, w, history=None):
     """Depthwise causal conv1d.  u: (B,S,C); w: (W,C).  The W taps are
-    added in order, in u's dtype."""
+    added in order, in u's dtype.  ``history`` (B, W-1, C): the inputs
+    before u[:, 0] (zeros where None, the sequence's start)."""
     width, s = w.shape[0], u.shape[1]
-    u_pad = torch.nn.functional.pad(u, (0, 0, width - 1, 0))
+    if history is None:
+        u_pad = torch.nn.functional.pad(u, (0, 0, width - 1, 0))
+    else:
+        u_pad = torch.cat([history, u], dim=1)
     out = torch.zeros_like(u)
     for i in range(width):
         out = out + u_pad[:, i:i + s, :] * w[i][None, None, :]
@@ -513,7 +532,19 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
     so each enters the split work through ``sharding.enter``: their
     cotangents are summed over the heads' ranks before ``in``'s gather and
     ``conv``'s ``weight`` take back this rank's columns (a rank with no
-    head still joins those sums, through zero-sized tensors)."""
+    head still joins those sums, through zero-sized tensors).
+
+    With the sequence split over ``act_seq`` (``sharding.seq_split``, the
+    long-context prefill; no ``init_state``) ``x`` holds this rank's
+    positions: the conv takes the previous ranks' last W-1 pre-conv xBC
+    rows (``sharding.halo``; zeros before the sequence's start), the rank
+    scans its positions from a zero state, the ranks exchange their final
+    states S_j and total decays D_j = exp(sum dt * A) over ``act_seq``, and
+    each adds to its outputs, in float32 before their rounding, the carried
+    state's term C_t . S_in exp(cum_t), S_in = sum_{j<r} S_j prod_{j<i<r}
+    D_i (``_ssd_chunk``'s y_inter over the rank).  The final state (every
+    rank forms it from the exchange) and the conv tail (the last rank's)
+    are the whole sequence's on every rank."""
     b, s, _ = x.shape
     di, h, n, hp = _ssm_dims(cfg)
     heads, h0, h1 = _ssm_heads(cfg)
@@ -525,14 +556,24 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
     nc = s // q
     f32 = acc_dtype(x.dtype)
 
+    split = S.seq_split()
+    if split is not None and init_state is not None:
+        raise ValueError("mamba2: a sequence split over act_seq starts from a zero state")
     zxbcdt = S.enter(column_whole(x, p["in"], ssm_in_features(cfg)), heads)
     z = zxbcdt[..., h0 * hp:h1 * hp]
     xbc = zxbcdt[..., di:2 * di + 2 * n]
     dt = zxbcdt[..., 2 * di + 2 * n + h0:2 * di + 2 * n + h1]
-    conv_tail = xbc[:, s - (cfg.ssm_conv_width - 1):, :]               # pre-conv history
+    hist = None
+    if split is None:
+        conv_tail = xbc[:, s - (cfg.ssm_conv_width - 1):, :]           # pre-conv history
+    else:
+        near = S.halo(xbc, 1, cfg.ssm_conv_width - 1)
+        hist = torch.nn.functional.pad(near, (0, 0, cfg.ssm_conv_width - 1 - near.shape[1], 0))
+        conv_tail = torch.cat([hist, xbc], dim=1)[:, s:]
+        hist = _head_channels(hist, cfg, h0, h1)
     wc = S.enter(S.weight(p["conv"])[0], heads)
     xbc = _ssm_conv(_head_channels(xbc, cfg, h0, h1),
-                    _head_channels(wc.to(x.dtype), cfg, h0, h1))
+                    _head_channels(wc.to(x.dtype), cfg, h0, h1), hist)
     xbc = torch.nn.functional.silu(xbc.to(f32)).to(x.dtype)
     xs = xbc[..., :hl * hp].reshape(b, s, hl, hp)
     bb = xbc[..., hl * hp:hl * hp + n]                                 # (B,S,N) (G=1)
@@ -546,9 +587,14 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
     ys = []
     for c in range(nc):
         sl = slice(c * q, (c + 1) * q)
-        state, y = _ssd_chunk(state, xs[:, sl], bb[:, sl], cc[:, sl], dt[:, sl], cum[:, c], x.dtype)
+        state, y = _ssd_chunk(state, xs[:, sl], bb[:, sl], cc[:, sl], dt[:, sl], cum[:, c],
+                              x.dtype if split is None else f32)
         ys.append(y)
     y = torch.cat(ys, dim=1)                                           # (B,S,H,hp)
+    if split is not None:
+        y, state = _carry_state(y, state, cc, dt * a, split)
+        conv_tail = S.broadcast(conv_tail.contiguous(), split[0],
+                                S.mesh_size(split[:1]) - 1)
     y = y + xs * _head_vector(p["D"], heads, h0, h1).to(x.dtype)[None, None, :, None]
     y = y.reshape(b, s, hl * hp)
     y = y * torch.nn.functional.silu(z.to(f32)).to(x.dtype)
@@ -556,6 +602,27 @@ def mamba2(p, x, cfg, *, init_state=None, return_state: bool = False):
     if return_state:
         return out, (state, conv_tail)
     return out
+
+
+def _carry_state(y, state, cc, dta, split):
+    """:func:`mamba2`'s hand-off along a sequence split over mesh dim
+    ``split[0]``: y (B,S,H,hp) and state (B,H,N,hp) of this rank's scan from
+    a zero state, in float32 (float64 for float64 inputs); cc (B,S,N);
+    dta = dt * A (B,S,H).  Returns (y corrected by the state carried in
+    from the earlier ranks and rounded to cc's dtype, the whole sequence's
+    final state)."""
+    i = split[0]
+    n, r = S.mesh_size((i,)), S.coordinate(i)
+    cum = torch.cumsum(dta, dim=1)                                     # (B,S,H) over the rank
+    ends = S.gather(state[None], 0, (i,), n)                          # (n,B,H,N,hp)
+    decays = S.gather(torch.exp(cum[:, -1])[None], 0, (i,), n)        # (n,B,H)
+    carried = torch.zeros_like(state)
+    for j in range(n):
+        if j == r:
+            s_in = carried
+        carried = decays[j][:, :, None, None] * carried + ends[j]
+    y = y + torch.einsum("bqn,bhnp->bqhp", cc.to(y.dtype), s_in) * torch.exp(cum)[..., None]
+    return y.to(cc.dtype), carried
 
 
 def mamba2_decode(p, x1, state, conv_state, cfg):

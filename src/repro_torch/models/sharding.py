@@ -610,6 +610,110 @@ def all_reduce_max(x: torch.Tensor, dims) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# a sequence split over act_seq (long-context serving; no gradient)
+# ---------------------------------------------------------------------------
+
+def seq_dim():
+    """The mesh dim with more than one member that ``act_seq`` maps to
+    under the active rules, or None (no rules, ``act_seq`` whole, or a
+    one-member dim: then the sequence is not split and every op below is
+    the identity)."""
+    if not rules_active():
+        return None
+    dims = members(mesh_dims("act_seq"))
+    if len(dims) > 1:
+        raise NotImplementedError(f"act_seq over several mesh dims {dims}: the sequence is "
+                                  f"split over one")
+    return dims[0] if dims else None
+
+
+def member_range(size: int, i: int, c: int) -> tuple[int, int]:
+    """[lo, hi) of a dim of ``size`` that member ``c`` of mesh dim ``i``
+    holds, in :func:`chunk_range`'s chunks of ceil(size / n)."""
+    step = -(-size // _state.ctx.sizes[i])
+    return min(c * step, size), min((c + 1) * step, size)
+
+
+@contextlib.contextmanager
+def sequence(total: int):
+    """Inside: the layers run on this rank's chunk of a sequence of
+    ``total`` positions split over :func:`seq_dim` (the sequence-sharded
+    prefill); :func:`seq_split` reads it."""
+    prev = getattr(_state, "seq", None)
+    _state.seq = total
+    try:
+        yield
+    finally:
+        _state.seq = prev
+
+
+def seq_split():
+    """``(mesh dim, lo, hi, total)``: this rank's positions [lo, hi) of a
+    sequence of ``total`` split over mesh dim ``i`` inside :func:`sequence`
+    under rules that split ``act_seq``; else None."""
+    total = getattr(_state, "seq", None)
+    i = seq_dim() if total is not None else None
+    if i is None:
+        return None
+    return (i,) + member_range(total, i, coordinate(i)) + (total,)
+
+
+def halo(x: torch.Tensor, d: int, length: int | None) -> torch.Tensor:
+    """The ``length`` positions before this rank's chunk (all of them for
+    ``None``; fewer near the sequence's start) of a sequence split by
+    :func:`seq_split` along tensor dim ``d`` of ``x``, this rank's chunk:
+    a shift along the ring, one hop a member the halo spans -- member c - t
+    sends member c what of its chunk falls in c's halo, all hops posted at
+    once -- concatenated in position order.  An empty slice of ``x`` where
+    the sequence is not split."""
+    split = seq_split()
+    if split is None:
+        return x.narrow(d, 0, 0)
+    i, lo, _hi, total = split
+    n, c = _state.ctx.sizes[i], coordinate(i)
+    group = current_mesh().get_group(i)
+
+    def part(src: int, dst: int) -> tuple[int, int]:
+        """The positions of member src's chunk in member dst's halo."""
+        s0, s1 = member_range(total, i, src)
+        h1 = member_range(total, i, dst)[0]
+        h0 = 0 if length is None else max(h1 - length, 0)
+        return max(s0, h0), min(s1, h1)
+
+    ops, recvs = [], []
+    for t in range(1, n):
+        if c + t < n:
+            a, b = part(c, c + t)
+            if b > a:
+                ops.append(dist.P2POp(dist.isend, x.narrow(d, a - lo, b - a).contiguous(),
+                                      dist.get_global_rank(group, c + t), group))
+        if c - t >= 0:
+            a, b = part(c - t, c)
+            if b > a:
+                shape = list(x.shape)
+                shape[d] = b - a
+                buf = x.new_empty(shape)
+                recvs.append((a, buf))
+                ops.append(dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, c - t),
+                                      group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if not recvs:
+        return x.narrow(d, 0, 0)
+    return torch.cat([buf for _a, buf in sorted(recvs, key=lambda r: r[0])], dim=d)
+
+
+def broadcast(x: torch.Tensor, i: int, member: int) -> torch.Tensor:
+    """``x`` of member ``member`` of mesh dim ``i`` on every member of it,
+    in place (the identity on one member)."""
+    if _state.ctx.sizes[i] > 1:
+        group = current_mesh().get_group(i)
+        dist.broadcast(x, src=dist.get_global_rank(group, member), group=group)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # the batch split of a data-parallel step
 # ---------------------------------------------------------------------------
 

@@ -263,10 +263,24 @@ def param_specs(cfg: ArchConfig) -> dict:
 # blocks
 # ---------------------------------------------------------------------------
 
+# positions a dense FFN takes at a time outside autograd (a long prefill)
+FFN_CHUNK = 65536
+
+
 def ffn_part(p, h, cfg: ArchConfig):
     """Post-mixer FFN residual (dense MLP and/or MoE).  Returns (h, aux), aux
-    the MoE's balance loss (0.0 without experts)."""
+    the MoE's balance loss (0.0 without experts).  Outside autograd a dense
+    FFN over more than FFN_CHUNK positions runs FFN_CHUNK of them at a time
+    (it is position-wise): a 524288-token prefill never holds its whole
+    (B, S, 2F) product and float32 gate (14.5 GB each for
+    h2o-danube-1.8b)."""
     aux = 0.0
+    if "ln2" in p and "moe" not in p and h.shape[1] > FFN_CHUNK \
+            and not torch.is_grad_enabled():
+        out = torch.empty_like(h)
+        for i in range(0, h.shape[1], FFN_CHUNK):
+            out[:, i:i + FFN_CHUNK] = ffn_part(p, h[:, i:i + FFN_CHUNK], cfg)[0]
+        return out, aux
     if "ln2" in p:
         hn = L.rms_norm(h, p["ln2"], cfg.norm_eps)
         ff = None
@@ -304,15 +318,21 @@ def _block(p, h, cfg: ArchConfig, *, causal: bool, enc_out=None):
     return h, aux, caps
 
 
-def _run_layers(layers, h, cfg, *, causal: bool, enc_out=None, capture: bool = False):
+def _run_layers(layers, h, cfg, *, causal: bool, enc_out=None, capture: bool = False,
+                capture_from: int = 0):
     """Every layer in turn.  With ``capture`` also returns the layers' caps
-    stacked on a leading axis, as the reference's scan does."""
+    stacked on a leading axis, as the reference's scan does; each layer's
+    K/V are kept from position ``capture_from`` of ``h`` on (a prefill
+    keeps only what its cache holds), copied, so each layer's whole K/V
+    are freed before the next layer runs."""
     aux = 0.0
     caps = []
     for lp in layers:
         h, a, c = _block(lp, h, cfg, causal=causal, enc_out=enc_out)
         aux = aux + a
         if capture:
+            if capture_from:
+                c.update({nm: c[nm][:, capture_from:].clone() for nm in ("k", "v") if nm in c})
             caps.append(c)
     if not capture:
         return h, aux

@@ -36,8 +36,24 @@ bf16 (:func:`_reduce_scores`) and the output gathered over hd; the
 cross-attention reads its hd columns of the cross K/V the same way.  The
 same functions serve with and without a mesh: on plain tensors outside a
 rules context every split, gather and all-reduce they call is the
-identity.  A window sequence-sharded over ``act_seq`` (``long_500k``'s
-``LONG_CONTEXT_RULES``) is not served.
+identity, and so is every one over a mesh dim of one member.
+
+Long-context serving (``long_500k``'s ``LONG_CONTEXT_RULES``: the batch
+whole, the sequence over ``act_seq``'s mesh dim) is served for the dense,
+SSM and hybrid families.  :func:`prefill` gives each rank its contiguous
+chunk of the prompt (``sharding.chunk_range``): the attention takes a halo
+of the window's earlier K/V from the preceding ranks and the SSM hands its
+state along the sequence (``models/layers.py``); each layer's capture keeps
+only the positions the cache holds, which go to the ranks that own their
+ring slots (``pos % W``: :func:`cache_layout` puts W over ``act_seq``'s
+dim where it divides W, else every rank holds the whole window); the last
+position's logits, the SSM state and the conv tail are the last rank's, the
+same on every rank.  A decode step writes the token's K/V (or its SZx
+record) on the rank that owns its slot only, and each rank attends over its
+slots -- ``slot_pos`` stays whole -- and the ranks' partial softmaxes are
+merged over ``act_seq`` (the max, then the rescaled sums and p @ v summed in
+float32): the window is never gathered.  MoE, encoder-decoder and VLM
+models are refused under ``act_seq`` (:func:`_check_rules`).
 
 Where the port differs from the reference:
   - the cache is updated in place: :func:`prefill` builds it, and
@@ -70,11 +86,11 @@ def _reduce_scores(s, dims=()):
     """Scores that are partial sums over head_dim split across mesh
     ``dims`` made whole, as the reference's are under a sharding-rules
     context: cast to bf16 (halving the wire bytes of the cross-shard sum),
-    all-reduced over ``dims`` and cast back to float32.  Outside a rules
-    context, ``s`` as it is."""
+    all-reduced over ``dims`` and cast back -- under any rules context, a
+    one-member mesh's too.  Outside a rules context, ``s`` as it is."""
     if not rules_active():
         return s
-    return S.all_reduce(s.to(torch.bfloat16), dims).to(torch.float32)
+    return S.all_reduce(s.to(torch.bfloat16), dims).to(s.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -158,33 +174,37 @@ def cache_nbytes(cache: dict) -> int:
                for part in ("layers", "cross") for t in cache.get(part, {}).values())
 
 
-def fill_cache(cache: dict, k, v, *, kv_mode: str = "dense", num_planes: int = 1,
-               hd=slice(None)) -> dict:
-    """Write a prefill's K/V (L, B, S, Hkv, hd) into a fresh cache: the last
-    min(W, S) positions, at slot pos % W; then pos = S.  Compressed caches
-    get one encode over all layers for K and one for V, on whole head_dim
-    blocks.  ``hd`` is the slice of head_dim the slabs (the planes) hold."""
+def fill_cache(cache: dict, k, v, *, positions, total: int, kv_mode: str = "dense",
+               num_planes: int = 1, hd=slice(None), slot0: int = 0) -> dict:
+    """Write a prefill's K/V (L, B, n, Hkv, hd) into a fresh cache: row i
+    is absolute position ``positions[i]``, all among the last min(W,
+    ``total``) positions of a prompt of ``total``, and goes to slot pos % W
+    - ``slot0`` of slabs holding W's slots from ``slot0`` (a window split
+    over ``act_seq``; 0 where it is whole); then pos = ``total`` and
+    ``slot_pos`` the whole window's.  Compressed caches get one encode over
+    all layers for K and one for V, on whole head_dim blocks.  ``hd`` is
+    the slice of head_dim the slabs (the planes) hold."""
     lay = cache["layers"]
     w = cache["slot_pos"].shape[0]
-    s = k.shape[2]
-    take = min(w, s)
     dev = cache["slot_pos"].device
-    src_pos = torch.arange(s - take, s, device=dev)
-    slots = src_pos % w
-    k_t, v_t = k[:, :, s - take:], v[:, :, s - take:]
+    take = min(w, total)
+    src_pos = torch.arange(total - take, total, device=dev)
+    slot_pos = torch.full((w,), -1, dtype=torch.int32, device=dev)
+    slot_pos[src_pos % w] = src_pos.to(torch.int32)
+    cache["pos"] = total
+    cache["slot_pos"] = slot_pos
+    if positions.numel() == 0:
+        return cache
+    slots = positions.to(dev) % w - slot0
     if kv_mode == "dense":
-        lay["k"][:, :, slots] = k_t[..., hd].to(lay["k"].dtype)
-        lay["v"][:, :, slots] = v_t[..., hd].to(lay["v"].dtype)
+        lay["k"][:, :, slots] = k[..., hd].to(lay["k"].dtype)
+        lay["v"][:, :, slots] = v[..., hd].to(lay["v"].dtype)
     else:
-        for nm, t in (("k", k_t), ("v", v_t)):
-            mu, sexp, pl = _kv_encode(t, num_planes)         # pl: (P, L, B, take, Hkv, hd)
+        for nm, t in (("k", k), ("v", v)):
+            mu, sexp, pl = _kv_encode(t, num_planes)         # pl: (P, L, B, n, Hkv, hd)
             lay[nm + "mu"][:, :, slots] = mu
             lay[nm + "sexp"][:, :, slots] = sexp
             lay[nm + "pl"][:, :, :, slots] = pl[..., hd].movedim(0, 1)
-    cache["pos"] = s
-    slot_pos = torch.full((w,), -1, dtype=torch.int32, device=dev)
-    slot_pos[slots] = src_pos.to(torch.int32)
-    cache["slot_pos"] = slot_pos
     return cache
 
 
@@ -199,21 +219,41 @@ def _mask(s, slot_pos, qpos: int, window: int):
     return torch.where(valid[None, None, None, :], s, NEG_INF)
 
 
+def _merge(m, l, acc, dims):
+    """A softmax's partials over this rank's slots -- the max m (B,Hkv,G),
+    the sum l of exp(s - m) and p @ v, acc (B,Hkv,G,hd) -- merged over mesh
+    ``dims`` (a window split over ``act_seq``): m maximized, then l and acc
+    rescaled by exp(m - max) and summed, in one all-reduce in their dtype
+    (float32).  Returns (l, acc); as they are where ``dims`` has no
+    member."""
+    if not S.members(dims):
+        return l, acc
+    top = S.all_reduce_max(m.clone(), dims)
+    alpha = torch.exp(m - top)
+    both = S.all_reduce(torch.cat([acc * alpha[..., None], (l * alpha)[..., None]], dim=-1),
+                        dims)
+    return both[..., -1], both[..., :-1]
+
+
 def _slab_attend(q, kslab, vslab, slot_pos, qpos: int, *, window: int, hd=None,
-                 hd_dims=()):
+                 hd_dims=(), seq_dims=()):
     """q: (B,1,Hq,hd); slabs: (B,W,Hkv,hd); slot_pos: (W,) absolute
-    positions.  Single-shot masked attention, float32 scores and p @ v.
-    Under a mesh q and the slabs hold the head_dim columns of mesh
-    ``hd_dims`` and ``hd`` is the whole head_dim (the scale's)."""
+    positions.  Single-shot masked attention, float32 scores and p @ v
+    (float64 for float64 q).  Under a mesh q and the slabs hold the
+    head_dim columns of mesh ``hd_dims`` and ``hd`` is the whole head_dim
+    (the scale's); the slabs hold this rank's slots of a window split over
+    ``seq_dims``, whose partials :func:`_merge` joins."""
     b, _, hq, hdl = q.shape
     hkv = kslab.shape[2]
-    qg = q.reshape(b, hkv, hq // hkv, hdl).to(torch.float32)
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, kslab.to(torch.float32)) / math.sqrt(hd or hdl)
+    f32 = L.acc_dtype(q.dtype)
+    qg = q.reshape(b, hkv, hq // hkv, hdl).to(f32)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, kslab.to(f32)) / math.sqrt(hd or hdl)
     s = _mask(_reduce_scores(s, hd_dims), slot_pos, qpos, window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(s > NEG_INF / 2, torch.exp(s - m), 0.0)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, vslab.to(torch.float32))
-    out = out / torch.clamp(p.sum(-1)[..., None], min=1e-30)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, vslab.to(f32))
+    l, out = _merge(m[..., 0], p.sum(-1), out, seq_dims)
+    out = out / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, 1, hq, hdl).to(q.dtype)
 
 
@@ -222,27 +262,31 @@ def _chunks(w: int, chunk: int) -> list[slice]:
     return [slice(i, i + chunk) for i in range(0, w, chunk)]
 
 
-def _chunked_slab_attend(q, chunks, qpos: int, *, window: int, hd=None, hd_dims=()):
+def _chunked_slab_attend(q, chunks, qpos: int, *, window: int, hd=None, hd_dims=(),
+                         seq_dims=()):
     """Online-softmax loop over ``chunks`` of the cache: (k (B,c,Hkv,hd),
     v, slot_pos (c,)) triples, dequantized already where the cache is
-    compressed; ``hd`` and ``hd_dims`` as :func:`_slab_attend`'s."""
+    compressed; ``hd``, ``hd_dims`` and ``seq_dims`` as
+    :func:`_slab_attend`'s."""
     b, _, hq, hdl = q.shape
     scale = math.sqrt(hd or hdl)
-    m = torch.tensor(NEG_INF, device=q.device)          # broadcast to (B,Hkv,G)
-    l = torch.zeros((), device=q.device)
-    acc = torch.zeros((), device=q.device)
+    f32 = L.acc_dtype(q.dtype)
+    m = torch.tensor(NEG_INF, dtype=f32, device=q.device)   # broadcast to (B,Hkv,G)
+    l = torch.zeros((), dtype=f32, device=q.device)
+    acc = torch.zeros((), dtype=f32, device=q.device)
     for kc, vc, sp in chunks:
         hkv = kc.shape[2]
-        qg = q.reshape(b, hkv, hq // hkv, hdl).to(torch.float32)
-        s = torch.einsum("bhgd,bkhd->bhgk", qg, kc.to(torch.float32)) / scale
+        qg = q.reshape(b, hkv, hq // hkv, hdl).to(f32)
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, kc.to(f32)) / scale
         s = _mask(_reduce_scores(s, hd_dims), sp, qpos, window)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.where(s > NEG_INF / 2, torch.exp(s - m_new[..., None]), 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
-        pv = torch.einsum("bhgk,bkhd->bhgd", p, vc.to(torch.float32))
+        pv = torch.einsum("bhgk,bkhd->bhgd", p, vc.to(f32))
         acc = alpha[..., None] * acc + pv
         m = m_new
+    l, acc = _merge(m, l, acc, seq_dims)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(b, 1, hq, hdl).to(q.dtype)
 
@@ -254,12 +298,18 @@ def decode_attention(p, x1, lc, cache_meta, cfg: ArchConfig, *, kv_mode: str,
     Under a mesh (module docstring) q, k and v come whole over the model
     axis, and this rank's head_dim columns (mesh dims
     ``cache_meta["hd_dims"]``, the cache's split) are written and attended;
-    the output is gathered over head_dim and ``wo`` is row-parallel."""
+    the output is gathered over head_dim and ``wo`` is row-parallel.  With
+    the window split over ``cache_meta["w_dims"]`` the rank holds slots
+    [w0, w1): it writes the token only where its slot is among them, and
+    attends over them, merged across the window's ranks."""
     b = x1.shape[0]
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     pos, slot_pos, w = cache_meta["pos"], cache_meta["slot_pos"], cache_meta["w"]
-    hd_dims = cache_meta["hd_dims"]
-    slot = pos % w
+    hd_dims, w_dims = cache_meta["hd_dims"], cache_meta["w_dims"]
+    w0, w1 = S.chunk_range(w, w_dims)
+    slot = pos % w - w0
+    mine = 0 <= slot < w1 - w0
+    slot_pos, w = slot_pos[w0:w1], w1 - w0
     q = L.column_whole(x1, p["wq"], hq * hd).reshape(b, 1, hq, hd)
     k = L.column_whole(x1, p["wk"], hkv * hd).reshape(b, 1, hkv, hd)
     v = L.column_whole(x1, p["wv"], hkv * hd).reshape(b, 1, hkv, hd)
@@ -270,18 +320,19 @@ def decode_attention(p, x1, lc, cache_meta, cfg: ArchConfig, *, kv_mode: str,
     q = q[..., h0:h1]
     window = cfg.sliding_window
     if kv_mode == "dense":
-        lc["k"][:, slot] = k[:, 0, :, h0:h1]
-        lc["v"][:, slot] = v[:, 0, :, h0:h1]
+        if mine:
+            lc["k"][:, slot] = k[:, 0, :, h0:h1]
+            lc["v"][:, slot] = v[:, 0, :, h0:h1]
         if w <= DECODE_CHUNK * 2:
             out = _slab_attend(q, lc["k"], lc["v"], slot_pos, pos, window=window, hd=hd,
-                               hd_dims=hd_dims)
+                               hd_dims=hd_dims, seq_dims=w_dims)
         else:
             out = _chunked_slab_attend(
                 q, ((lc["k"][:, sl], lc["v"][:, sl], slot_pos[sl])
                     for sl in _chunks(w, DECODE_CHUNK)), pos, window=window, hd=hd,
-                hd_dims=hd_dims)
+                hd_dims=hd_dims, seq_dims=w_dims)
     else:
-        for nm, t in (("k", k), ("v", v)):
+        for nm, t in (("k", k), ("v", v)) if mine else ():
             # whole head_dim blocks: (B,Hkv), (B,Hkv), (P,B,Hkv,hd)
             mu, sexp, pl = _kv_encode(t[:, 0], num_planes)
             lc[nm + "mu"][:, slot] = mu
@@ -295,7 +346,7 @@ def decode_attention(p, x1, lc, cache_meta, cfg: ArchConfig, *, kv_mode: str,
         out = _chunked_slab_attend(
             q, ((dequant("k", sl), dequant("v", sl), slot_pos[sl])
                 for sl in _chunks(w, min(w, DECODE_CHUNK))), pos, window=window, hd=hd,
-            hd_dims=hd_dims)
+            hd_dims=hd_dims, seq_dims=w_dims)
     out = S.gather(out, -1, hd_dims, hd)
     return L.row_parallel(out.reshape(b, 1, hq * hd), p["wo"])
 
@@ -338,37 +389,61 @@ def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
     cache in :func:`cache_layout`'s layout, made from the layers' K/V and
     the cross K/V, which come whole over 'model' (the dense slabs take this
     rank's head_dim columns, the compressed cache encodes whole blocks),
-    the SSM's final state of this rank's heads and its whole conv tail."""
+    the SSM's final state of this rank's heads and its whole conv tail.
+    With the sequence split over ``act_seq`` each rank runs its chunk of
+    the prompt (module docstring)."""
     meshed = rules_active()
     bdims = S.mesh_dims("act_batch")
     b_all = tokens.shape[0]
     if meshed:
-        _check_rules()
+        _check_rules(cfg)
         if S.dividing(bdims, b_all) != bdims:
             raise ValueError(f"a batch of {b_all} does not split over the mesh dims {bdims} "
                              f"of act_batch")
     rows = [None if t is None else _batch_rows(t, bdims) for t in (tokens, frames, image_embeds)]
-    h, enc_out = T._inputs(params, cfg, *rows, T._run_layers)
-    h, _, caps = T._run_layers(params["layers"], h, cfg, causal=True, enc_out=enc_out,
-                               capture=True)
+    s_all = rows[0].shape[1] + (rows[2].shape[1] if cfg.prefix_embeds and rows[2] is not None
+                                else 0)
+    whole = make_cache(cfg, b_all, seq_len or s_all, kv_mode=kv_mode, num_planes=num_planes,
+                       dtype=T.compute_dtype(cfg), device="meta")
+    w = whole["slot_pos"].shape[0]
+    take = min(w, s_all)
+    seq = S.seq_dim()
+    lo, hi = 0, s_all
+    if seq is not None:
+        n = S.mesh_size((seq,))
+        if S.member_range(s_all, seq, n - 1)[0] >= s_all:
+            raise ValueError(f"a prompt of {s_all} tokens leaves the last of the {n} members of "
+                             f"act_seq without a position")
+        lo, hi = S.member_range(s_all, seq, S.coordinate(seq))
+        rows[0] = rows[0][:, lo:hi]
+    with S.sequence(s_all):
+        h, enc_out = T._inputs(params, cfg, *rows, T._run_layers)
+        h, _, caps = T._run_layers(params["layers"], h, cfg, causal=True, enc_out=enc_out,
+                                   capture=True, capture_from=max(s_all - take - lo, 0))
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    logits = T.logits_for(params, cfg, h[:, -1:])
-    s = h.shape[1]
-    whole = make_cache(cfg, b_all, seq_len or s, kv_mode=kv_mode, num_planes=num_planes,
-                       dtype=h.dtype, device="meta")
+    last = h[:, -1:].contiguous()
+    if seq is not None:                          # the last position is the last rank's
+        S.broadcast(last, seq, S.mesh_size((seq,)) - 1)
+    logits = T.logits_for(params, cfg, last)
     lays = {part: {name: cache_layout(name, t.shape) for name, t in whole[part].items()}
             for part in ("layers", "cross") if part in whole}
-    cache = {"pos": s, "slot_pos": torch.full(whole["slot_pos"].shape, -1, dtype=torch.int32,
-                                              device=h.device)}
+    cache = {"pos": s_all, "slot_pos": torch.full(whole["slot_pos"].shape, -1,
+                                                  dtype=torch.int32, device=h.device)}
     for part, lay in lays.items():
         cache[part] = {name: torch.zeros(_local_shape(whole[part][name].shape, lay[name]),
                                          dtype=whole[part][name].dtype, device=h.device)
                        for name in lay}
     if "k" in caps:
-        h0, h1 = S.chunk_range(cfg.resolved_head_dim,
-                               lays["layers"]["k" if kv_mode == "dense" else "kpl"][-1])
-        fill_cache(cache, caps["k"], caps["v"], kv_mode=kv_mode, num_planes=num_planes,
-                   hd=slice(h0, h1))
+        kv_lay = lays["layers"]["k" if kv_mode == "dense" else "kpl"]
+        h0, h1 = S.chunk_range(cfg.resolved_head_dim, kv_lay[-1])
+        w_dims = kv_lay[-3]
+        k, v = caps["k"], caps["v"]
+        positions = torch.arange(s_all - take, s_all, device=h.device)
+        if seq is not None:
+            k, v, positions = _to_slot_owners(k, v, seq, max(lo, s_all - take), hi, s_all, w,
+                                              w_dims)
+        fill_cache(cache, k, v, kv_mode=kv_mode, num_planes=num_planes, hd=slice(h0, h1),
+                   positions=positions, total=s_all, slot0=S.chunk_range(w, w_dims)[0])
     if "state" in caps:
         cache["layers"]["state"].copy_(caps["state"])              # this rank's heads
         cache["layers"]["conv"].copy_(S.take(caps["conv"], -1, lays["layers"]["conv"][-1]))
@@ -383,6 +458,37 @@ def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
     return cache, logits
 
 
+def _to_slot_owners(k, v, seq: int, p0: int, p1: int, total: int, w: int, w_dims):
+    """The sequence-sharded prefill's K/V (L, B, n, Hkv, hd) of positions
+    [p0, p1) (this rank's among the last min(W, total)) sent to the ranks
+    along mesh dim ``seq`` that hold their slots pos % W: the window's
+    chunks over ``w_dims`` (``seq``'s where it splits W), or the whole
+    window on every rank.  One all-to-all of the rows.  Returns (k, v, the
+    positions of their rows), the rows this rank's slots take."""
+    n = S.mesh_size((seq,))
+    split_w = seq in S.members(w_dims)
+
+    def rows_for(src: int, dst: int) -> list[int]:
+        """Positions of member src's that member dst's slots take, in order."""
+        a, b = S.member_range(total, seq, src)
+        a = max(a, total - min(w, total))
+        if not split_w:
+            return list(range(a, b))
+        s0, s1 = S.member_range(w, seq, dst)
+        return [p for p in range(a, b) if s0 <= p % w < s1]
+
+    me = S.coordinate(seq)
+    sent = [rows_for(me, t) for t in range(n)]
+    got = [rows_for(t, me) for t in range(n)]
+    order = torch.tensor([p - p0 for ps in sent for p in ps], dtype=torch.long,
+                         device=k.device)
+    x = torch.stack([k, v]).movedim(3, 0).index_select(0, order)      # (rows, 2, L, B, Hkv, hd)
+    x = S.all_to_all(x, [len(ps) for ps in sent], [len(ps) for ps in got], seq)
+    x = x.movedim(0, 3)
+    positions = torch.tensor([p for ps in got for p in ps], dtype=torch.long, device=k.device)
+    return x[0], x[1], positions
+
+
 @torch.no_grad()
 @L.exact_matmuls()
 def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "dense",
@@ -394,16 +500,16 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
     slabs = {name: S.placed(t) for name, t in cache["layers"].items()}
     cross = {name: S.placed(t) for name, t in cache.get("cross", {}).items()}
     bdims = S.mesh_dims("act_batch")
-    hd_dims = cross_dims = ()
+    hd_dims = cross_dims = w_dims = ()
     if rules_active():
-        _check_rules()
+        _check_rules(cfg)
         for name, (_t, lay) in list(slabs.items()) + list(cross.items()):
             split = lay[2 if name.endswith("pl") else 1]
             if S.members(split) != S.members(bdims):
                 raise ValueError(f"the cache's {name} has its batch split over mesh dims "
                                  f"{split}, the rules' act_batch over {bdims}")
         kv = slabs.get("k" if kv_mode == "dense" else "kpl")
-        hd_dims = kv[1][-1] if kv else ()
+        hd_dims, w_dims = (kv[1][-1], kv[1][-3]) if kv else ((), ())
         cross_dims = cross["k"][1][-1] if cross else ()
     h = T.embed_tokens(params, cfg, _batch_rows(token, bdims))
     pos = cache["pos"]
@@ -412,7 +518,7 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
     # mark the current token's slot before the layers so attention sees the
     # token it is appending (self-attention to position `pos`)
     slot_pos[pos % w] = pos
-    meta = {"pos": pos, "slot_pos": slot_pos, "w": w, "hd_dims": hd_dims}
+    meta = {"pos": pos, "slot_pos": slot_pos, "w": w, "hd_dims": hd_dims, "w_dims": w_dims}
     attn = T.has_attention(cfg)
     for i, lp in enumerate(params["layers"]):
         lc = {name: slab[i] for name, (slab, _lay) in slabs.items()}
@@ -445,12 +551,22 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
 # serving under a mesh (module docstring)
 # ---------------------------------------------------------------------------
 
-def _check_rules() -> None:
-    if S.mesh_dims("act_seq"):
-        raise NotImplementedError("serving with the window sequence-sharded over act_seq "
-                                  "(LONG_CONTEXT_RULES, the long_500k cells) is not ported: it "
-                                  "needs a ring attention over the window's chunks, a later "
-                                  "slice (ROADMAP.md); serve under rules that leave act_seq whole")
+def _check_rules(cfg: ArchConfig) -> None:
+    """Refuse what the sequence split over ``act_seq`` does not serve: the
+    MoE layer (its routing capacity counts a whole sequence's tokens), the
+    encoder-decoder (its non-causal encoder and cross-attention) and the
+    VLM's image prefix (ROADMAP.md item 15's remainder)."""
+    if not S.mesh_dims("act_seq"):
+        return
+    missing = ("the MoE layer's routing over a split sequence" if cfg.n_experts else
+               "the encoder-decoder's encoder and cross-attention over a split sequence"
+               if cfg.encoder_decoder else
+               "the VLM's image prefix over a split sequence" if cfg.prefix_embeds else None)
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: serving with the sequence split over act_seq "
+                                  f"(LONG_CONTEXT_RULES) is not ported for this family: it "
+                                  f"needs {missing} (ROADMAP.md item 15); serve it under rules "
+                                  f"that leave act_seq whole")
 
 
 def cache_layout(name: str, shape) -> tuple:
@@ -473,6 +589,7 @@ def cache_layout(name: str, shape) -> tuple:
     if name in ("k", "v") or name[1:] in ("mu", "sexp", "pl"):
         bi = 2 if name.endswith("pl") else 1
         lay[bi] = S.dividing(bdims, shape[bi])
+        lay[bi + 1] = S.dividing(S.mesh_dims("act_seq"), shape[bi + 1])
         if name in ("k", "v") or name.endswith("pl"):
             lay[-1] = S.dividing(S.mesh_dims("act_hd"), shape[-1])
     elif name == "state":

@@ -695,6 +695,33 @@ def test_flash_attention_kernel_matches_plain(card, case, dtype):
     assert ops.launch_counts()["flash_attention"] == 1
 
 
+# (B, Sq, Hq, Hkv, hd, causal, window, Skv, q_offset): queries at key
+# indices q_offset + i after a halo of earlier keys, the sequence-sharded
+# prefill's launch -- offsets on and off the 64-key tiles, a window shorter
+# and longer than a tile, h2o-danube-1.8b's hd 80 and G = 4, non-causal
+FLASH_OFFSET_CASES = [(2, 70, 4, 1, 16, True, 8, 77, 7), (1, 130, 32, 8, 80, True, 64, 193, 63),
+                      (1, 64, 4, 4, 64, True, 0, 128, 64), (1, 200, 4, 2, 32, False, 0, 250, 50),
+                      (1, 300, 32, 8, 80, True, 100, 399, 99), (2, 33, 8, 2, 64, True, 0, 500, 467)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH_OFFSET_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_kernel_with_q_offset_matches_plain(card, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    b, sq, hq, hkv, hd, causal, window, skv, off = case
+    g = torch.Generator(device=card).manual_seed(sq * hq + hd + off)
+    q = torch.randn((b, sq, hq, hd), device=card, generator=g).to(dtype)
+    k = torch.randn((b, skv, hkv, hd), device=card, generator=g).to(dtype)
+    v = torch.randn((b, skv, hkv, hd), device=card, generator=g).to(dtype)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    assert bool(((got.float() - want.float()).abs() <= rtol * want.float().abs() + 1e-6).all())
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
 def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(card):
     from repro_torch.kernels import flash_attention as fa
 

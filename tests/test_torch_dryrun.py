@@ -6,8 +6,8 @@ fake tensors over a fake process group.
 kernel and without a real collective, and its argument bytes must be the
 spec arithmetic (rank 0's shard of every state leaf plus its batch rows).
 A serving cell of every family runs rank 0's sharded prefill or decode
-step (``OK``); a ``long_500k`` cell (a window sequence-sharded over
-'data') is a SKIP.  Either way its ``ideal_bytes_per_device`` is the
+step (``OK``), a ``long_500k`` cell (the window's slots over 'data',
+``LONG_CONTEXT_RULES``) among them.  Its ``ideal_bytes_per_device`` is the
 reference's arithmetic over its specs (``repro/launch/dryrun.py:199-204``),
 but for an SSM state whose heads the 'model' axis does not divide, which
 the engine splits as its layers split the heads.  On this CPU-only build the
@@ -112,7 +112,9 @@ def test_compressed_and_pure_dp_cells():
     ("llama3.2-1b", "decode_32k", "compressed", False, False, "OK"),
     ("hymba-1.5b", "decode_32k", "compressed", False, False, "OK"),
     ("whisper-medium", "decode_32k", "dense", False, False, "OK"),
-    ("mamba2-1.3b", "long_500k", "dense", False, False, "SKIP"),
+    ("mamba2-1.3b", "long_500k", "dense", False, False, "OK"),
+    ("h2o-danube-1.8b", "long_500k", "dense", False, False, "OK"),
+    ("hymba-1.5b", "long_500k", "compressed", False, False, "OK"),
     # the plain flash version's 64 x 32 chunk pairs a layer at S 32768 take
     # ~10 min on fake CPU tensors: the prefill cell runs reduced on (2, 2)
     ("llama3.2-1b", "prefill_32k", "dense", False, True, "OK"),
@@ -122,9 +124,11 @@ def test_serving_cells_trace_or_skip_with_the_reference_ideal_bytes(arch, shape,
                                                                      serve_layout, reduced,
                                                                      status):
     """The serving cells trace rank 0's sharded prefill or decode step
-    (``OK``, a decode cell with its floor fraction); ``long_500k`` is a
-    ``SKIP`` naming the later slice.  Either way ``ideal_bytes_per_device``
-    is the reference's arithmetic over its specs
+    (``OK``, a decode cell with its floor fraction; ``long_500k`` under
+    ``LONG_CONTEXT_RULES``, the batch of 1 whole, the window's slots over
+    'data' and their partial softmaxes merged over it: an all-reduce over
+    'data' in every attention layer).  ``ideal_bytes_per_device`` is the
+    reference's arithmetic over its specs
     (``repro/launch/dryrun.py:199-204``), but for hymba-1.5b's SSM state:
     its 50 heads do not divide the 16-way 'model' axis, so the reference
     keeps it whole, and the engine splits it in chunks of 4 heads (rank 0
@@ -143,10 +147,9 @@ def test_serving_cells_trace_or_skip_with_the_reference_ideal_bytes(arch, shape,
         seq, batch = min(seq, 64), min(batch, 4)
     assert rec["ideal_bytes_per_device"] == _reference_ideal_bytes(
         rcfg, shape, kv_mode, serve_layout, rm, seq, batch)
-    if status == "SKIP":
-        assert "later slice" in rec["reason"] and "sequence-sharded" in rec["reason"]
-        return
     rl = rec["roofline"]
+    if shape == "long_500k" and rcfg.sliding_window:
+        assert rl["collectives_by_axis"]["data"]["all-reduce"] > 0
     cfg = configs.get(arch).reduced() if reduced else configs.get(arch)
     assert rec["kind"] == SHAPES[shape]["kind"] and rec["ops"] > 100
     if rec["kind"] == "decode":
@@ -180,7 +183,7 @@ def _reference_ideal_bytes(rcfg, shape, kv_mode, serve_layout, rm, seq, batch) -
            + ranalysis.sharded_bytes_per_device(cache, cspecs, rm))
     n = dict(zip(rm.axis_names, rm.devices.shape))["model"]
     state = cache["layers"].get("state")
-    if state is not None and not long_ctx and state.shape[2] % n:
+    if state is not None and state.shape[2] % n:
         whole = ranalysis.sharded_bytes_per_device({"s": state}, {"s": cspecs["layers"]["state"]},
                                                    rm)
         got += whole * (-(-state.shape[2] // n) / state.shape[2] - 1)
@@ -224,7 +227,7 @@ def test_shape_skips_and_an_existing_group():
 
 def test_main_writes_a_record(tmp_path, capsys):
     for shape, status, tally in (("decode_32k", "OK", "1 OK, 0 SKIP"),
-                                 ("long_500k", "SKIP", "0 OK, 1 SKIP")):
+                                 ("long_500k", "OK", "1 OK, 0 SKIP")):
         with pytest.raises(SystemExit) as e:
             dryrun.main(["--arch", "mamba2-1.3b", "--shape", shape, "--device", "cpu",
                          "--out", str(tmp_path)])

@@ -359,7 +359,10 @@ def test_prefill_cache_bit_identical_on_the_same_kv(arch, mode, planes):
                                     capture=True)
     cache = E.make_cache(cfg, B, _seq(cfg), kv_mode=mode, num_planes=planes,
                          dtype=torch.float32, device="cpu")
-    E.fill_cache(cache, _t(caps["k"]), _t(caps["v"]), kv_mode=mode, num_planes=planes)
+    s = caps["k"].shape[2]
+    take = min(cache["slot_pos"].shape[0], s)
+    E.fill_cache(cache, _t(caps["k"][:, :, s - take:]), _t(caps["v"][:, :, s - take:]),
+                 positions=torch.arange(s - take, s), total=s, kv_mode=mode, num_planes=planes)
     want = _reference_run(arch, mode, planes)[0][1]
     got = _np_cache(cache)
     assert got["pos"] == want["pos"] == S + cfg.prefix_embeds

@@ -167,8 +167,10 @@ def test_prefill_cache_bit_identical_on_the_same_kv(arch, mode, planes):
     _h, _aux, caps = RT._run_layers(rp["layers"], h, rcfg, causal=True, capture=True)
     cache = E.make_cache(cfg, toks.shape[0], s + extra, kv_mode=mode, num_planes=planes,
                          dtype=torch.float32, device="cpu")
-    E.fill_cache(cache, torch.tensor(np.asarray(caps["k"])), torch.tensor(np.asarray(caps["v"])),
-                 kv_mode=mode, num_planes=planes)
+    take = min(cache["slot_pos"].shape[0], s)
+    E.fill_cache(cache, torch.tensor(np.asarray(caps["k"][:, :, s - take:])),
+                 torch.tensor(np.asarray(caps["v"][:, :, s - take:])),
+                 positions=torch.arange(s - take, s), total=s, kv_mode=mode, num_planes=planes)
     want = _reference_run(arch, mode, planes)[0][1]
     got = _np_cache(cache)
     assert got["pos"] == want["pos"] and np.array_equal(got["slot_pos"], want["slot_pos"])

@@ -497,21 +497,3 @@ def test_sharded_training_is_tensor_parallel_and_matches_the_plain_step(runs, sh
         assert (sharded < share * plain).all(), (sharded / plain)
         assert {tuple(int(v) for v in s) for s in rk[f"train/{short}/gathered_whole"]} == conv
 
-
-def test_long_context_rules_are_refused_plainly():
-    """A window sequence-sharded over ``act_seq`` (``LONG_CONTEXT_RULES``,
-    the ``long_500k`` cells) is not served: the engine says so."""
-    import types
-
-    import torch
-
-    from repro_torch import configs
-    from repro_torch.models import sharding as SH, transformer as T
-    from repro_torch.serve import engine as E
-
-    cfg = configs.get("mamba2-1.3b").reduced()
-    model = T.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
-    with SH.use_rules(mesh, SH.LONG_CONTEXT_RULES):
-        with pytest.raises(NotImplementedError, match="sequence-sharded over act_seq"):
-            E.prefill(model, cfg, torch.zeros((1, 8), dtype=torch.int32))
