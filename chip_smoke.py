@@ -138,12 +138,13 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      the fused one decode_body (``--service`` runs only this phase, after
      the build, with its stores made from --seed).
 
- 14. serves the MoE, SSM and hybrid families at full width and depth:
+ 14. serves the MoE, SSM and hybrid families at full width:
      mamba2-1.3b (24 of its 48 layers, attention-free; phase 20 serves it
-     at full depth), hymba-1.5b (32 layers, 25
-     query heads over 5 kv heads beside a Mamba2 mixer, a 2048-token window)
-     and deepseek-moe-16b (28 layers, 64 experts top-6 and 2 shared, 16.88 B
-     float32 weights, 67.5 GB, last, on a card the earlier phases freed);
+     at full depth), hymba-1.5b (16 of its 32 layers, 25
+     query heads over 5 kv heads beside a Mamba2 mixer, a 2048-token window;
+     phase 20 serves it at full depth) and deepseek-moe-16b (8 of its 28
+     layers, 64 experts top-6 and 2 shared, 5.12 B float32
+     weights, 20.5 GB, last);
      weights from --seed on the card, bf16 compute, 4 prompts of 2048 tokens
      and 16 greedy steps with a dense cache and, where there is attention,
      SZx-planes caches at P = 1 and 2.  Launch counters are zeroed just
@@ -158,14 +159,15 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      (``--families`` runs this phase alone, after the flash kernel's checks
      at its two prefill shapes, then times the kernel at them).
 
- 15. serves and trains the audio encoder-decoder and the VLM at full width
-     and depth: whisper-medium (24 encoder and 24 decoder layers, d_model
-     1024, 16 heads of 64, vocab 51865; 4 x 1500 stub frame embeddings from
-     --seed, the encoder's 30 s of audio, then 384-token prompts and 16
-     greedy steps, within Whisper's 448-position text context) and
-     internvl2-1b (24 layers, d_model 896, 14 query heads over 2, vocab
-     151655, tied embeddings; 4 x 256 stub image embeddings and 1792
-     tokens, 16 steps);
+ 15. serves and trains the audio encoder-decoder and the VLM at full
+     width: whisper-medium (12 of its 24 encoder and 24 decoder layers,
+     d_model 1024, 16 heads of 64, vocab 51865; 4 x 1500 stub frame
+     embeddings from --seed, the encoder's 30 s of audio, then 384-token
+     prompts and 16 greedy steps, within Whisper's 448-position text
+     context) and internvl2-1b (12 of its 24 layers, d_model
+     896, 14 query heads over 2, vocab 151655, tied embeddings; 4 x 256 stub
+     image embeddings and 1792 tokens, 16 steps; phase 20 serves both at
+     full depth);
      float32 weights from --seed on the card, bf16 compute, dense and
      SZx-planes caches at P = 1 and 2 (whisper's cross K/V dense in all
      three).  Launch counters are zeroed just before and read after: the
@@ -186,10 +188,11 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      then times the kernel at them).
 
  16. trains the MoE, SSM and hybrid families: mamba2-1.3b (d_model 2048, 64
-     SSD heads of 64, state 128; 16 of its 48 layers, a cut that pays for
-     phases 19d and 18f) and hymba-1.5b (d_model 1600, 25/5 heads of 64
-     with a 2048 window beside 50 SSD heads, d_ff 5504; 16 of its 32
-     layers, a cut that pays for phase 18f, which trains it at full depth)
+     SSD heads of 64, state 128; 8 of its 48 layers, cuts that pay for
+     phases 19d, 18f and 20) and hymba-1.5b (d_model 1600, 25/5 heads of 64
+     with a 2048 window beside 50 SSD heads, d_ff 5504; 8 of its 32
+     layers, cuts that pay for phases 18f, which trains it at full depth,
+     and 20)
      at full width through
      ``launch.train.run`` with --ckpt-compress: 3 plain steps of B 4 x S 2048
      SyntheticLM tokens with per-layer remat, every loss finite, the SSM's
@@ -284,19 +287,27 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      window; float32 weights from --seed, bf16 compute, B 1) on a
      32768-token prompt against the unsharded engine, then on a
      524288-token prompt (long_500k's), hymba-1.5b and mamba2-1.3b at full
-     width and depth on 32768 tokens against the unsharded engine; 16
-     decode steps each with a dense cache and, where there is attention, a
-     P = 1 cache.  Every run held to the unsharded engine is bit for bit in
+     width and depth on 32768 tokens, deepseek-moe-16b at full width on 4
+     of its 28 layers on 32768 tokens, internvl2-1b at full depth on 256
+     image embeddings and 32512 tokens, and whisper-medium at full depth on
+     1500 frames and a 432-token prompt, each against the unsharded engine;
+     16 decode steps each (deepseek-moe-16b and internvl2-1b 8) with a
+     dense cache and, where there is attention, a P = 1 cache.  Every run held to the unsharded engine is bit for bit in
      its prefill logits and cache (deterministic algorithms on); its decode
      logits, the scores rounded to bf16 as under any rules, are reported,
      and a second run with the scores summed in float32 is bit for bit
      (prefill and decode); prefill s, decode ms a step, peak memory.  Launch
      counters are set to 0 before the first run under the rules and read
-     after: the flash kernel exactly once an attention layer, both planes
-     kernels in a P = 1 run.  Then the flash kernel is timed at the one
-     member's 524288-token shape and at a rank of 16's (32768 queries after
-     a 4095-key halo), beside its bound, and there beside
-     scaled_dot_product_attention with a dense mask (``--long-context``
+     after: the flash kernel exactly once an attention layer (whisper's
+     encoder and cross-attention layers too: 72), both planes kernels in a
+     P = 1 run.  Then the flash kernel is timed at the one member's
+     524288-token shape, at a rank of 16's (32768 queries after a 4095-key
+     halo), at deepseek-moe-16b's and internvl2-1b's 32768-position
+     prefills and at two shapes of a rank of 4 (deepseek's last rank, 8192
+     queries after a 24576-key halo; a whisper encoder rank's 375 frames
+     against 1500), beside its bound, and where it fits beside
+     scaled_dot_product_attention, with a dense mask where the attention
+     needs one (``--long-context``
      runs this phase alone, after the flash
      kernel's checks with an offset, and then traces the six long_500k
      dry-run cells; in the whole run phase 18e traces them).
@@ -314,7 +325,8 @@ prefills: hymba's G = 5 with a window equal to S, deepseek's G = 1 at hd
 128; phase 15's: whisper's non-causal encoder over 1500 frames and its
 cross-attention of 384 positions against them, its causal decoder, and
 internvl2-1b's G = 7; phase 20's: 4096 queries after h2o-danube-1.8b's
-4095-key halo, and a float32 case with an offset), and timed at
+4095-key halo, a float32 case with an offset, and a whisper encoder rank's
+375 frames against 1500), and timed at
 llama3.2-1b's, phase 14's, phase 15's and phase 20's shapes.
 
 Any failed check raises, so the exit code is non-zero.  The last two lines
@@ -1697,9 +1709,19 @@ ENC_VLM_FLASH = {"8d whisper-medium encoder": (4, 1500, 16, 16, 64, False, 0, 15
 # q_offset): h2o-danube-1.8b's long-context prefill (32 query heads over 8 of
 # 80, a 4096 window; configs/h2o_danube_1p8b.py) on one member, the whole
 # 524288-token prompt, and on a rank of 16 along 'data', its 32768 queries
-# after the 4095-key halo of the window before them
+# after the 4095-key halo of the window before them; deepseek-moe-16b's and
+# internvl2-1b's prefill of 32768 positions on one member (16 heads of 128;
+# 14 query heads over 2 of 64: configs/deepseek_moe_16b.py,
+# configs/internvl2_1b.py); two shapes only a rank of 4 runs (the CPU tests'
+# gloo ranks): deepseek's last rank, 8192 queries after a 24576-key halo,
+# and a whisper-medium encoder rank's 375 frames against all 1500
 LONG_FLASH = {"20 h2o-danube-1.8b, one member": (1, 524288, 32, 8, 80, True, 4096, 524288, 0),
-              "20 h2o-danube-1.8b, a rank of 16": (1, 32768, 32, 8, 80, True, 4096, 36863, 4095)}
+              "20 h2o-danube-1.8b, a rank of 16": (1, 32768, 32, 8, 80, True, 4096, 36863, 4095),
+              "20 deepseek-moe-16b, one member": (1, 32768, 16, 16, 128, True, 0, 32768, 0),
+              "20 internvl2-1b, one member": (1, 32768, 14, 2, 64, True, 0, 32768, 0),
+              "20 deepseek-moe-16b, the last rank of 4": (1, 8192, 16, 16, 128, True, 0, 32768,
+                                                          24576),
+              "20 whisper-medium encoder, a rank of 4": (1, 375, 16, 16, 64, False, 0, 1500, 0)}
 FLASH_CASES = (            # (B, S, Hq, Hkv, hd, causal, window[, Skv[, q_offset]], dtype name)
     (4, 2048, 32, 8, 64, True, 0, "bfloat16"),      # llama3.2-1b's prefill, the main path
     (4, 2048, 32, 8, 64, True, 512, "bfloat16"),    # a sliding window
@@ -1710,10 +1732,12 @@ FLASH_CASES = (            # (B, S, Hq, Hkv, hd, causal, window[, Skv[, q_offset
     FAMILY_FLASH["hymba-1.5b"] + ("bfloat16",),      # G = 5, window = S (phase 14)
     FAMILY_FLASH["deepseek-moe-16b"] + ("bfloat16",),  # G = 1, hd 128 (phase 14)
 ) + tuple(shape + ("bfloat16",) for shape in ENC_VLM_FLASH.values()) + (      # phase 15
-    # phase 20: 4096 queries after h2o-danube-1.8b's 4095-key halo, and a
-    # full-causal float32 case with an offset
+    # phase 20: 4096 queries after h2o-danube-1.8b's 4095-key halo, a
+    # full-causal float32 case with an offset, and a whisper-medium encoder
+    # rank of 4 (375 frames against all 1500, non-causal)
     (1, 4096, 32, 8, 80, True, 4096, 8191, 4095, "bfloat16"),
     (1, 1024, 32, 8, 64, True, 0, 2560, 1536, "float32"),
+    LONG_FLASH["20 whisper-medium encoder, a rank of 4"] + ("bfloat16",),
 )
 
 
@@ -3113,16 +3137,17 @@ def phase_service(args) -> dict:
 # ---------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------
-# phase 14: the MoE, SSM and hybrid families at full width and depth
+# phase 14: the MoE, SSM and hybrid families at full width
 # ---------------------------------------------------------------------------
 
-# smallest first; deepseek-moe-16b's 16.88 B f32 weights (67.5 GB) last, on
-# a card the earlier phases have freed (configs/*.py, full width and depth)
+# smallest first; deepseek-moe-16b's f32 weights last, on a card the earlier
+# phases have freed (configs/*.py, full width)
 FAMILY_ARCHS = ("mamba2-1.3b", "hymba-1.5b", "deepseek-moe-16b")
 FAMILY_SERVE_STEPS = 16            # greedy steps a mode; phase 9 keeps SERVE_STEPS
-# phase 14's depth cuts (the rest at full depth): mamba2-1.3b on 24 of its 48
-# layers, which pays for phase 20 (that phase serves it at full depth)
-FAMILY_LAYERS = {"mamba2-1.3b": 24}
+# phase 14's depth cuts, which pay for phase 20 (that phase serves mamba2-1.3b
+# and hymba-1.5b at full depth): mamba2-1.3b on 24 of its 48 layers,
+# hymba-1.5b on 16 of its 32 and deepseek-moe-16b on 8 of its 28
+FAMILY_LAYERS = {"mamba2-1.3b": 24, "hymba-1.5b": 16, "deepseek-moe-16b": 8}
 TEACHER_PROMPTS = (4, 3, 2, 1)     # the float32 checks take as many as fit
 
 
@@ -3308,7 +3333,7 @@ def family_teacher_checks(model, cfg, prompts, runs: dict) -> dict:
 
 def phase_families(args) -> dict:
     """Phase 14: mamba2-1.3b, hymba-1.5b and deepseek-moe-16b at full width
-    and depth (but FAMILY_LAYERS' cuts), float32 weights from --seed on the card, bf16 compute: 4
+    on FAMILY_LAYERS' depths, float32 weights from --seed on the card, bf16 compute: 4
     prompts of 2048 tokens and FAMILY_SERVE_STEPS greedy decode steps with
     a dense cache (and SZx-planes caches at P = 1, 2 where there is
     attention); launch counts, cache bytes, finite logits; decode vs
@@ -3395,10 +3420,14 @@ def phase_families(args) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the audio encoder-decoder and the VLM at full width and depth
+# phase 15: the audio encoder-decoder and the VLM at full width
 # ---------------------------------------------------------------------------
 
 ENC_VLM_ARCHS = ("whisper-medium", "internvl2-1b")
+# phase 15's depth cuts, which pay for phase 20 serving both at full
+# depth: whisper-medium on 12 of its 24 encoder and 24 decoder layers,
+# internvl2-1b on 12 of its 24
+ENC_VLM_LAYERS = {"whisper-medium": 12, "internvl2-1b": 12}
 # per model: text prompt, decode steps, training sequence.  whisper-medium:
 # 30 s of audio (1500 encoder frames) and Whisper's 448-position text
 # context, a 384-token prompt and 16 steps; internvl2-1b: 256 image
@@ -3642,8 +3671,8 @@ def train_launcher(args, cfg, seq: int, seed: int, watch: tuple, tag: str, *,
 
 
 def phase_enc_vlm(args) -> tuple:
-    """Phase 15: whisper-medium and internvl2-1b at full width and depth,
-    float32 weights from --seed on the card, bf16 compute, B 4: prefill
+    """Phase 15: whisper-medium and internvl2-1b at full width on
+    ENC_VLM_LAYERS' depths, float32 weights from --seed on the card, bf16 compute, B 4: prefill
     (whisper: 1500 stub frames through the encoder, a 384-token prompt;
     internvl2-1b: 256 stub image embeddings and 1792 tokens) and 16 greedy
     steps with a dense and SZx-planes (P = 1, 2) caches; launch counts,
@@ -3665,7 +3694,10 @@ def phase_enc_vlm(args) -> tuple:
     ops.reset_launch_counts()
     with FlashShapes() as shapes:
         for i, arch in enumerate(ENC_VLM_ARCHS):
-            cfg = configs.get(arch)
+            cfg, cut = configs.get(arch), ENC_VLM_LAYERS[arch]
+            full = cfg.n_layers
+            cfg = dataclasses.replace(cfg, n_layers=cut,
+                                      n_encoder_layers=cut if cfg.encoder_decoder else 0)
             prompt, steps, train_seq = ENC_VLM_TRAFFIC[arch]
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3687,7 +3719,8 @@ def phase_enc_vlm(args) -> tuple:
                 f"{total / 1e9:.2f} GB free before); {cfg.n_layers} decoder layers"
                 + (f" and {cfg.n_encoder_layers} encoder layers over {cfg.encoder_len} frames"
                    if cfg.encoder_decoder else f", {cfg.prefix_embeds} image embeddings")
-                + f" (full depth), {SERVE_BATCH} prompts of {prompt} tokens, {steps} greedy steps")
+                + f" (cut to {cut} of {full}), {SERVE_BATCH} prompts of {prompt} tokens, "
+                  f"{steps} greedy steps")
             t_first = timed(lambda: serve_and_check(model, cfg, prompts, "dense", 1, 1, 0,
                                                     extra) and None)[1]
             log(f"enc-vlm {arch}: first prefill and step (allocator and cuBLAS warm-up) "
@@ -3769,9 +3802,10 @@ SSM_WATCH = tuple(f"layers/0/ssm/{w}" for w in ("in", "conv", "A_log", "dt_bias"
 FAMILY_TRAIN_WATCH = {"mamba2-1.3b": SSM_WATCH,
                       "hymba-1.5b": SSM_WATCH + ("layers/0/attn/wq", "layers/0/mlp/wi")}
 # phase 16's depth cuts (layers trained of the config's) at full width, which
-# pay for phases 19d and 18f: mamba2-1.3b 16 of its 48 layers, hymba-1.5b 16
-# of its 32 (18f trains it at full depth)
-FAMILY_TRAIN_LAYERS = {"mamba2-1.3b": 16, "hymba-1.5b": 16}
+# pay for phases 19d, 18f and 20:
+# mamba2-1.3b 8 of its 48 layers, hymba-1.5b 8 of its 32 (18f trains it at
+# full depth)
+FAMILY_TRAIN_LAYERS = {"mamba2-1.3b": 8, "hymba-1.5b": 8}
 # deepseek-moe-16b at full width on MOE_TRAIN_LAYERS of its 28 layers
 MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "deepseek-moe-16b", 4
 MOE_WATCH = tuple(f"layers/0/{w}" for w in ("attn/wq", "moe/router", "moe/wi", "moe/wo",
@@ -3839,7 +3873,7 @@ def train_moe_cut(args) -> dict:
 
 
 def phase_families_train(args) -> tuple:
-    """Phase 16: mamba2-1.3b (16 of its 48 layers) and hymba-1.5b (16 of its
+    """Phase 16: mamba2-1.3b (8 of its 48 layers) and hymba-1.5b (8 of its
     32, FAMILY_TRAIN_LAYERS) trained at full width through
     ``launch.train.run`` (B 4 x S 2048, 3 steps, SZx checkpoints
     restored on the card within their bound, a compressed P = 1 step, a
@@ -4458,7 +4492,7 @@ SERVE_DRYRUN_CELLS = (("llama3.2-1b", "prefill_32k", "dense", False),   # (arch,
 # the bf16-score decode's tolerance, or None where it is reported and not
 # held).  Each is cut (mamba2-1.3b 12 of 48 layers, hymba-1.5b 16 of 32,
 # whisper-medium 6 + 6 of 24 + 24, internvl2-1b 8 of 24) to pay for the phases
-# in the script's time limit; phases 14 and 20 serve hymba-1.5b at full depth.
+# in the script's time limit; phase 20 serves hymba-1.5b at full depth.
 # hymba-1.5b's 32 random-weight layers carry the bf16 rounding of its scores
 # to 0.04-0.11 of the largest logit in 8 steps on an H100 (PERF.md), as its
 # own bf16 serving moves by up to half of it (phase 14): its bf16 run is
@@ -4780,16 +4814,30 @@ LONG_STEPS = 16
 # where the one-member runs are held bit for bit to the unsharded engine: a
 # prompt both runs of each mode fit the time at
 LONG_CHECK_PROMPT = 32768
-# the SSM and hybrid at full width and depth, a shorter prompt each
-LONG_FAMILIES = {"hymba-1.5b": 32768, "mamba2-1.3b": 32768}
+# every other family at full width, on 32768 positions or its own limit
+# (prompt tokens, layers or None for full depth, decode steps, the
+# LONG_FLASH row its prefill's flash launches are counted under or None
+# where no row has its shape): the SSM and the hybrid at full depth; deepseek-moe-16b on 4 of its 28 layers, as
+# phases 16, 18 and 19 cut it; internvl2-1b at full depth, 256 image
+# embeddings and 32512 tokens; whisper-medium at full depth over 1500 frames
+# with a 432-token prompt (432 + 16 steps is its 448 text positions).
+# deepseek-moe-16b and internvl2-1b decode 4 steps: full attention over
+# 32768 slots is 17 host-issued chunks a layer a step (PERF.md)
+LONG_FAMILIES = {"hymba-1.5b": (32768, None, LONG_STEPS, None),
+                 "mamba2-1.3b": (32768, None, LONG_STEPS, None),
+                 "deepseek-moe-16b": (32768, 4, 4, "20 deepseek-moe-16b, one member"),
+                 "internvl2-1b": (32512, None, 4, "20 internvl2-1b, one member"),
+                 "whisper-medium": (432, None, LONG_STEPS, None)}
 LONG_DRYRUN_CELLS = tuple((arch, mode) for arch in ("h2o-danube-1.8b", "hymba-1.5b",
                                                     "mamba2-1.3b")
                           for mode in ("dense", "compressed"))
 
 
-def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: bool) -> int:
-    """One model's prompt (B 1) served on a one-member mesh under
-    LONG_CONTEXT_RULES, a prefill and LONG_STEPS decode steps in each mode
+def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: bool,
+               extra=None, steps: int = LONG_STEPS) -> int:
+    """One model's prompt (B 1; with ``extra``: stub frames or image
+    embeddings) served on a one-member mesh under
+    LONG_CONTEXT_RULES, a prefill and ``steps`` decode steps in each mode
     (dense and P = 1 where it has attention), the scores rounded to bf16 as
     under any rules (``engine._reduce_scores``).  With ``check_plain`` the
     unsharded engine first on the same prompt (deterministic algorithms
@@ -4799,9 +4847,10 @@ def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: b
     one-member mesh then runs the unsharded engine's ops) held to it bit
     for bit, prefill and decode.  Launch counters are set to 0 before the
     first sharded run and read after: the flash kernel exactly once an
-    attention layer (in the prefill, never in decode), both planes kernels
-    in a P = 1 run; the counts are added to ``counts``.  Returns that run's
-    flash launches."""
+    attention layer (``attention_layers``: whisper-medium's encoder and
+    cross-attention layers too; in the prefill, never in decode), both
+    planes kernels in a P = 1 run; the counts are added to ``counts``.
+    Returns that run's flash launches."""
     import torch
     from repro_torch.models import sharding as SH
     from repro_torch.serve import engine as E
@@ -4816,15 +4865,16 @@ def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: b
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             if check_plain:
-                a = serve_teacher(model, cfg, prompts, mode, 1, LONG_STEPS)
+                a = serve_teacher(model, cfg, prompts, mode, 1, steps, extra=extra)
             run = {}
             with SH.use_rules(mesh, SH.LONG_CONTEXT_RULES):
-                sh = serve_teacher(params, cfg, prompts, mode, 1, LONG_STEPS,
-                                   None if a is None else a[3], run)
+                sh = serve_teacher(params, cfg, prompts, mode, 1, steps,
+                                   None if a is None else a[3], run, extra=extra)
                 if check_plain and layers:
                     E._reduce_scores = lambda s, dims=(): SH.all_reduce(s, dims)  # noqa: E731
                     try:
-                        f32 = serve_teacher(params, cfg, prompts, mode, 1, LONG_STEPS, a[3])
+                        f32 = serve_teacher(params, cfg, prompts, mode, 1, steps, a[3],
+                                            extra=extra)
                     finally:
                         E._reduce_scores = bf16_reduce
         finally:
@@ -4865,8 +4915,11 @@ def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: b
                            "with float32 scores bit for bit, with bf16 scores max |d| / max "
                            "|logit| " + ", ".join(f"{r:.5f}" for r in r16) + " (reported)")
         mean = lambda ts: sum(ts[1:]) / len(ts[1:])   # noqa: E731  (the first step warms up)
+        inputs = "".join(f" after {v.shape[1]} {k.replace('_', ' ')}" for k, v in
+                         (extra or {}).items())
         log(f"{tag} {cfg.name} ({cfg.n_layers} layers) kv={mode} P=1 under LONG_CONTEXT_RULES on "
-            f"a (1, 1) mesh, a prompt of {prompts.shape[1]} tokens: prefill {sh[4]:.3f} s"
+            f"a (1, 1) mesh, a prompt of {prompts.shape[1]} tokens{inputs}: prefill "
+            f"{sh[4]:.3f} s"
             + (f" (unsharded {a[4]:.3f} s)" if a is not None else "")
             + f", decode {mean(sh[5]) * 1e3:.2f} ms a step"
             + (f" (unsharded {mean(a[5]) * 1e3:.2f})" if a is not None else "")
@@ -4882,9 +4935,12 @@ def phase_long_context(args) -> tuple:
     model mesh: h2o-danube-1.8b at full width and depth (float32 weights
     from --seed, bf16 compute, B 1) held bit for bit to the unsharded engine
     at LONG_CHECK_PROMPT tokens, then served at LONG_PROMPT (524288) tokens;
-    LONG_FAMILIES' models at full width and depth at their prompts, held bit
-    for bit.  Returns the sharded runs' launches and the flash launches by
+    LONG_FAMILIES' models at full width at their prompts and depths (with
+    stub frames or image embeddings drawn from the seed), held bit for
+    bit.  Returns the sharded runs' launches and the flash launches by
     LONG_FLASH row."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
     from repro_torch import configs
@@ -4897,13 +4953,20 @@ def phase_long_context(args) -> tuple:
                             world_size=1, rank=0)
     try:
         mesh = one_member_mesh(("data", "model"))
-        runs = [(LONG_ARCH, LONG_CHECK_PROMPT, True), (LONG_ARCH, LONG_PROMPT, False)] + [
-            (arch, prompt, True) for arch, prompt in LONG_FAMILIES.items()]
-        model = None
-        for i, (arch, prompt, check_plain) in enumerate(runs):
+        # (arch, prompt, layers, steps, held to the unsharded engine, LONG_FLASH
+        # row): danube's check run (32768 keys from key 0) has no row
+        runs = [(LONG_ARCH, LONG_CHECK_PROMPT, None, LONG_STEPS, True, None),
+                (LONG_ARCH, LONG_PROMPT, None, LONG_STEPS, False,
+                 "20 h2o-danube-1.8b, one member")] + [
+            (arch, prompt, layers, steps, True, row)
+            for arch, (prompt, layers, steps, row) in LONG_FAMILIES.items()]
+        model = params = None
+        for i, (arch, prompt, layers, steps, check_plain, row) in enumerate(runs):
             cfg = configs.get(arch)
+            if layers:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
             if model is None or model.cfg.name != arch:
-                del model
+                model = params = None
                 torch.cuda.empty_cache()
                 gen = torch.Generator(device="cuda").manual_seed(args.seed + 100 + i)
                 model = T.init_params(cfg, gen, "cuda")
@@ -4911,10 +4974,19 @@ def phase_long_context(args) -> tuple:
                 params = mesh_lib.shard_tree(tree, mesh_lib.param_specs_tree(cfg, tree, mesh),
                                              mesh)
             prompts = torch.randint(0, cfg.vocab_size, (1, prompt), device="cuda", generator=gen)
+            extra = {}
+            if cfg.encoder_decoder:
+                extra["frames"] = torch.randn((1, cfg.encoder_len, cfg.d_model), device="cuda",
+                                              generator=gen)
+            if cfg.prefix_embeds:
+                extra["image_embeds"] = torch.randn((1, cfg.prefix_embeds, cfg.d_model),
+                                                    device="cuda", generator=gen)
             n = long_serve("long context 20", model, params, mesh, cfg, prompts, counts,
-                           check_plain=check_plain)
-            if prompt == LONG_PROMPT:
-                flash[next(iter(LONG_FLASH))] = n
+                           check_plain=check_plain, extra=extra, steps=steps)
+            if row is not None:
+                check(LONG_FLASH[row][1] == prompt + cfg.prefix_embeds,
+                      f"{arch}: a prompt of {prompt} is not LONG_FLASH row {row!r}'s shape")
+                flash[row] = n
         del model, params
         torch.cuda.empty_cache()
     finally:
@@ -4949,9 +5021,10 @@ def long_flash_rows(gen, reps: int, launches: dict) -> list:
     (``visible_pairs`` with the offset); the plain version timed where its
     chunk pairs fit (it visits every key chunk for each query chunk: at
     524288 queries, 512 x 1024 chunk pairs), else null; the library call
-    (``long_flash_library_ms``) where its dense mask fits, else null
+    (``long_flash_library_ms``) where its mask fits, else null
     (scaled_dot_product_attention has no window short of a dense mask, at
-    524288 queries 524288^2)."""
+    524288 queries 524288^2).  A row only the CPU tests' ranks run counts
+    no launch."""
     import torch
     from repro_torch.kernels import flash_attention as fa
 
@@ -4971,9 +5044,10 @@ def long_flash_rows(gen, reps: int, launches: dict) -> list:
             err = float(d.max())
             MAX_ERR["flash_attention"] = max(MAX_ERR["flash_attention"], err)
             del want, d
+            # one timed call: the plain version takes 0.5-2.6 s a call here
             plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
-                q, k, v, causal=causal, window=window, q_offset=off), max(reps // 10, 3))
-            lib_ms = long_flash_library_ms(row, q, k, v, window, off, reps)
+                q, k, v, causal=causal, window=window, q_offset=off), 1)
+            lib_ms = long_flash_library_ms(row, q, k, v, causal, window, off, reps)
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         flops = 4 * b * hq * hd * fa.visible_pairs(s, skv, causal, window, off)
         bound_ms = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
@@ -4994,30 +5068,40 @@ def long_flash_rows(gen, reps: int, launches: dict) -> list:
     return rows
 
 
-def long_flash_library_ms(row, q, k, v, window: int, off: int, reps: int) -> float | None:
+def long_flash_library_ms(row, q, k, v, causal: bool, window: int, off: int,
+                          reps: int) -> float | None:
     """scaled_dot_product_attention on the same function as the kernel at
-    a LONG_FLASH shape: a dense boolean mask (Sq x Skv bytes) of the keys
-    each query sees (kpos <= q_offset + i, q_offset + i - kpos < window),
-    the memory-efficient or cuDNN backend (the math backend would hold
-    Hq x Sq x Skv scores), with ``enable_gqa``; where no such backend takes
-    the GQA form, on K/V repeated to the query heads (made before the
-    timing).  Its output is held to the kernel's loosely (2 % of the
-    largest |value|: a wrong mask moves it by more).  Returns its time
-    (CUDA events), or None with the reason logged where no backend runs
-    it."""
+    a LONG_FLASH shape: with no mask where the attention is non-causal,
+    ``is_causal`` where it is causal over Sq = Skv from key 0 with no
+    window, else a dense boolean mask (Sq x Skv bytes) of the keys each
+    query sees (kpos <= q_offset + i where causal, q_offset + i - kpos <
+    window where windowed); the flash (maskless only), memory-efficient or
+    cuDNN backend (the math backend would hold Hq x Sq x Skv scores), with
+    ``enable_gqa``; where no such backend takes the GQA form, on K/V
+    repeated to the query heads (made before the timing).  Its output is
+    held to the kernel's loosely (2 % of the largest |value|: a wrong mask
+    moves it by more).  Returns its time (CUDA events), or None with the
+    reason logged where no backend runs it."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
 
     s, skv, hq, hkv = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
-    qpos = torch.arange(off, off + s, device="cuda")[:, None]
-    kpos = torch.arange(skv, device="cuda")[None, :]
-    mask = (kpos <= qpos) & (qpos - kpos < window)
-    del qpos, kpos
+    mask, is_causal = None, causal
+    if causal and (window or off or s != skv):
+        qpos = torch.arange(off, off + s, device="cuda")[:, None]
+        kpos = torch.arange(skv, device="cuda")[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= qpos - kpos < window
+        del qpos, kpos
+        is_causal = False
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    want = fa.flash_attention(q, k, v, causal=True, window=window, q_offset=off)
+    want = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
     backends = [SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
+    if mask is None:
+        backends.insert(0, SDPBackend.FLASH_ATTENTION)
     lib_ms, form, errors = None, None, []
     for form in ("enable_gqa", "K/V repeated to the query heads"):
         if form != "enable_gqa":
@@ -5025,7 +5109,8 @@ def long_flash_library_ms(row, q, k, v, window: int, off: int, reps: int) -> flo
 
         def call(kt=kt, vt=vt, gqa=form == "enable_gqa"):
             with sdpa_kernel(backends):
-                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      is_causal=is_causal, enable_gqa=gqa)
         try:
             got = call().transpose(1, 2)
         except RuntimeError as e:         # no backend of the two takes this form
@@ -5034,13 +5119,14 @@ def long_flash_library_ms(row, q, k, v, window: int, off: int, reps: int) -> flo
             continue
         d = float((got.float() - want.float()).abs().max())
         top = float(want.float().abs().max())
-        check(d <= 0.02 * top, f"flash {row}: scaled_dot_product_attention with the dense mask "
-              f"differs from the kernel by {d:.3e} (largest |value| {top:.3e})")
+        check(d <= 0.02 * top, f"flash {row}: scaled_dot_product_attention differs from the "
+              f"kernel by {d:.3e} (largest |value| {top:.3e})")
         del got
         lib_ms = cuda_ms(call, reps)
-        log(f"flash {row}: scaled_dot_product_attention ({form}, a {s} x {skv} boolean mask, "
-            f"memory-efficient or cuDNN backend) {lib_ms:.4f} ms, max |d| from the kernel "
-            f"{d:.3e} of {top:.3e}")
+        how = (f"a {s} x {skv} boolean mask, memory-efficient or cuDNN backend" if mask is not None
+               else f"is_causal={is_causal}, no mask, flash, memory-efficient or cuDNN backend")
+        log(f"flash {row}: scaled_dot_product_attention ({form}, {how}) {lib_ms:.4f} ms, max |d| "
+            f"from the kernel {d:.3e} of {top:.3e}")
         break
     if lib_ms is None:
         log(f"flash {row}: scaled_dot_product_attention not run: " + "; ".join(errors))
@@ -5139,8 +5225,8 @@ def main() -> int:
                          "and stop")
     ap.add_argument("--families-train", action="store_true",
                     help="build, hold the flash kernel to its plain version at phase 14's "
-                         "prefill shapes, run phase 16 alone (mamba2-1.3b on 16 layers and "
-                         "hymba-1.5b on 16, deepseek-moe-16b on 4, trained at full width) "
+                         "prefill shapes, run phase 16 alone (mamba2-1.3b on 8 layers and "
+                         "hymba-1.5b on 8, deepseek-moe-16b on 4, trained at full width) "
                          "and stop")
     ap.add_argument("--examples", action="store_true",
                     help="build, run phase 17 alone (the four examples/*_torch.py on the "
@@ -5155,7 +5241,8 @@ def main() -> int:
     ap.add_argument("--long-context", action="store_true",
                     help="build, hold the flash kernel with an offset to its plain version, "
                          "run phase 20 alone (long-context serving under LONG_CONTEXT_RULES: "
-                         "h2o-danube-1.8b at 524288 tokens, hymba-1.5b and mamba2-1.3b), time "
+                         "h2o-danube-1.8b at 524288 tokens, hymba-1.5b, mamba2-1.3b, "
+                         "deepseek-moe-16b, internvl2-1b and whisper-medium), time "
                          "the flash kernel at its shapes, trace the long_500k dry-run cells "
                          "and stop")
     ap.add_argument("--sharded-serve", action="store_true",

@@ -153,7 +153,8 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0,
     """Gradients (dq, dk, dv) of ``flash_attention(q, k, v)`` for the output
     cotangent ``do``, in the dtypes of q, k, v.
 
-    Per chunk of ``q_chunk`` queries: s = (q k^T) * scale in float32 with
+    Per chunk of ``q_chunk`` queries: s = (q k^T) * scale in float32
+    (float64 for float64 inputs, as the plain forward) with
     the reference's masks (-1e30, then p = 0 where s <= -5e29), p the row
     softmax, o = p v; then dp = do v^T, ds = p (dp - rowsum(do * o)),
     dq = ds k * scale, and dk += ds^T q * scale, dv += p^T do summed over
@@ -164,7 +165,7 @@ def flash_attention_bwd(q, k, v, do, *, causal: bool = True, window: int = 0,
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     scale = 1.0 / math.sqrt(hd)
-    f32 = torch.float32
+    f32 = torch.promote_types(q.dtype, torch.float32)
     kt = k.to(f32).permute(0, 2, 1, 3)                      # (B, Hkv, Skv, hd)
     vt = v.to(f32).permute(0, 2, 1, 3)
     dk = torch.zeros_like(kt)

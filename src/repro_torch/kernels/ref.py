@@ -519,9 +519,10 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     head h reads kv head h // (Hq / Hkv)).  Query i sits at key index qpos =
     ``q_offset`` + i (the reference's "absolute position of q[:, 0]"); keys
     with kpos > qpos are masked when causal, and window > 0 masks keys with
-    qpos - kpos >= window.  Scores are q.k^T in float32 times 1/sqrt(hd);
-    masked scores are -1e30, and p = exp(s - m) only where s > -5e29, so a
-    fully masked row gives 0.  p @ v is in float32 (v promoted).  Query and
+    qpos - kpos >= window.  Scores are q.k^T in float32 (float64 for
+    float64 inputs: the float64 checks) times 1/sqrt(hd); masked scores are
+    -1e30, and p = exp(s - m) only where s > -5e29, so a fully masked row
+    gives 0.  p @ v is in float32 (v promoted; float64 likewise).  Query and
     key chunks of ``q_chunk`` x ``kv_chunk`` set the order of summation.
     Returns (B, Sq, Hq, hd) in q.dtype.
     """
@@ -537,16 +538,17 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     nq, nk = (sq + pad_q) // cq, (skv + pad_k) // ck
     qg = q.reshape(b, sq + pad_q, hkv, g, hd)
     dev = q.device
+    f32 = torch.promote_types(q.dtype, torch.float32)
     outs = []
     for qi in range(nq):
-        qx = qg[:, qi * cq:(qi + 1) * cq].float()                  # (B,cq,hkv,g,hd)
+        qx = qg[:, qi * cq:(qi + 1) * cq].to(f32)                  # (B,cq,hkv,g,hd)
         qpos = q_offset + qi * cq + torch.arange(cq, device=dev)
-        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32, device=dev)
-        l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=dev)
-        acc = torch.zeros((b, hkv, g, cq, hd), dtype=torch.float32, device=dev)
+        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=f32, device=dev)
+        l = torch.zeros((b, hkv, g, cq), dtype=f32, device=dev)
+        acc = torch.zeros((b, hkv, g, cq, hd), dtype=f32, device=dev)
         for ki in range(nk):
-            kx = k[:, ki * ck:(ki + 1) * ck].float()
-            vx = v[:, ki * ck:(ki + 1) * ck].float()
+            kx = k[:, ki * ck:(ki + 1) * ck].to(f32)
+            vx = v[:, ki * ck:(ki + 1) * ck].to(f32)
             kpos = ki * ck + torch.arange(ck, device=dev)
             s = torch.einsum("bqhgd,bkhd->bhgqk", qx, kx) * scale
             valid = (kpos[None, :] < skv) & (qpos[:, None] < q_offset + sq)

@@ -173,11 +173,14 @@ def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=Non
     the local heads with their kv heads; ``wo`` is row-parallel, so the
     output is all-reduced.  With the sequence split over ``act_seq``
     (``sharding.seq_split``, the long-context prefill) ``x`` holds this
-    rank's positions [lo, hi): the rotary embedding takes them, the K/V of
-    the ``window - 1`` positions before lo (every earlier one under full
-    attention) come from the preceding ranks (``sharding.halo``), and the
-    kernel runs once on [halo | own] with ``q_offset`` = the halo's length.
-    The K/V returned are the rank's own."""
+    rank's positions [lo, hi) and the rotary embedding takes them.  Causal:
+    the K/V of the ``window - 1`` positions before lo (every earlier one
+    under full attention) come from the preceding ranks (``sharding.halo``),
+    and the kernel runs once on [halo | own] with ``q_offset`` = the halo's
+    length.  Non-causal (whisper's encoder): every position's K/V, gathered
+    whole over ``act_seq`` (``sharding.gather``), and the kernel runs once
+    on them.  The K/V returned are the rank's own.  With
+    ``kv_override`` (the cross-attention) the K/V are whole already."""
     b, s, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     heads = S.mesh_dims("act_heads")
@@ -189,7 +192,7 @@ def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=Non
         q = q.reshape(b, s, h1 - h0, hd)          # the columns hold this rank's heads
     else:
         q = S.take(S.gather(q, -1, lq[1], hq * hd).reshape(b, s, hq, hd), 2, heads)
-    split = S.seq_split() if kv_override is None and causal else None
+    split = S.seq_split() if kv_override is None else None
     window = cfg.sliding_window if causal else 0
     if kv_override is None:
         k = column_whole(xin, p["wk"], hkv * hd).reshape(b, s, hkv, hd)
@@ -204,10 +207,12 @@ def attention(p, x, cfg, *, positions=None, causal: bool = True, kv_override=Non
         if positions is not None:
             q = rope(q, positions, cfg.rope_theta)
     kx, vx, q_offset = k, v, 0
-    if split is not None:
+    if split is not None and causal:
         near = S.halo(torch.stack([k, v]), 2, window - 1 if window else None)
         q_offset = near.shape[2]
         kx, vx = torch.cat([near[0], k], dim=1), torch.cat([near[1], v], dim=1)
+    elif split is not None:
+        kx, vx = S.gather(torch.stack([k, v]), 2, split[:1], split[3]).unbind(0)
     g = hq // hkv
     kh, vh = kv_for_heads(kx, h0, h1, g, heads), kv_for_heads(vx, h0, h1, g, heads)
     if h1 > h0:
@@ -306,10 +311,23 @@ def moe_route(x, router, cfg):
 def dispatch(probs, idx, cfg):
     """:func:`moe_route` after the top-k: the gates of the experts ``idx``
     chooses (``probs`` at ``idx``, as top-k returns them), renormalized, and
-    each expert's FIFO capacity (GShard drop)."""
+    each expert's FIFO capacity (GShard drop).
+
+    With the sequence split over ``act_seq`` (``sharding.seq_split``, the
+    long-context prefill) ``probs`` holds this rank's positions [lo, hi) of
+    the sequence, and the capacity is the whole sequence's, as the
+    reference's (its priority the global position): ``cap`` counts the
+    whole sequence, the tokens each expert took on the earlier ranks come
+    from a prefix sum of the ranks' counts (``sharding.seq_prefix_sum``),
+    and a routed token is kept while its order within its expert over the
+    whole sequence is below ``cap``.  An expert filled on an earlier rank
+    drops this rank's tokens.  ``src`` then holds min(cap, hi - lo) slots
+    an expert, in this rank's positions."""
     s = probs.shape[1]
+    split = S.seq_split()
+    total = s if split is None else split[3]
     e_, k_ = cfg.n_experts, cfg.top_k
-    cap = min(s, max(8, int(s * k_ / e_ * cfg.capacity_factor)))
+    cap = min(total, max(8, int(total * k_ / e_ * cfg.capacity_factor)))
     gate = torch.gather(probs, -1, idx)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     onehot = torch.nn.functional.one_hot(idx, e_).to(torch.float32)    # (B,S,K,E)
@@ -319,8 +337,12 @@ def dispatch(probs, idx, cfg):
     # have distinct scores, so the order of equals never matters
     spos = torch.arange(s, dtype=torch.float32, device=probs.device)[None, :, None]
     score = torch.where(routed, -spos, -1e9)
-    top_sc, src = torch.topk(score.transpose(1, 2), cap, dim=-1)      # (B,E,C)
+    top_sc, src = torch.topk(score.transpose(1, 2), min(cap, s), dim=-1)   # (B,E,C)
     valid = top_sc > -5e8
+    if split is not None:
+        before = S.seq_prefix_sum(routed.sum(1))                       # (B,E)
+        order = torch.arange(src.shape[-1], device=probs.device)
+        valid &= order < (cap - before)[..., None]
     src = torch.where(valid, src, 0)
     return probs, idx, gate_full, routed, src, valid
 
@@ -340,7 +362,13 @@ def moe_ffn(p, x, cfg):
     mesh dims, over which each token must meet every expert); the partial
     ``y`` is all-reduced over the expert and F dims, and each rank keeps
     its ``act_batch`` rows.  The balance loss is then over the rank's
-    tokens (serving drops it).
+    tokens (serving drops it).  With the sequence split over ``act_seq``
+    (the long-context prefill) a rank routes its positions against the
+    whole sequence's capacity (:func:`dispatch`), ``act_moe_batch`` never
+    splits the batch again over ``act_seq``'s mesh dims (the rank holds
+    every row of its positions; a decode step's batch stays whole there
+    too), and the balance loss is over the rank's positions (serving drops
+    it).
 
     p: {'router': (D,E), 'wi': (E,D,2Fe), 'wo': (E,Fe,D) [, 'shared_wi',
     'shared_wo']}; x: (B,S,D).  Returns (out (B,S,D), aux_loss)."""
@@ -351,7 +379,8 @@ def moe_ffn(p, x, cfg):
     if lwo[0] != e_dims:                          # the experts where wi holds them
         wo = S.reshard(wo, lwo, (e_dims, f_out, ()), p["wo"].shape)
     b_all = bl * S.mesh_size(S.mesh_dims("act_batch"))
-    t_dims = tuple(i for i in S.mesh_dims("act_moe_batch") if i not in e_dims + f_in + f_out)
+    held = e_dims + f_in + f_out + S.mesh_dims("act_seq")
+    t_dims = tuple(i for i in S.mesh_dims("act_moe_batch") if i not in held)
     xt = S.shard_activation(x, (t_dims, None, None), src=("act_batch", None, None),
                             shape=(b_all, s, d))
     b = xt.shape[0]

@@ -610,7 +610,9 @@ def all_reduce_max(x: torch.Tensor, dims) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# a sequence split over act_seq (long-context serving; no gradient)
+# a sequence split over act_seq (long-context serving; no gradient): the
+# causal attention's halo, the MoE's prefix sum of expert counts, the last
+# rank's broadcast (the non-causal attention's whole sequence is `gather`'s)
 # ---------------------------------------------------------------------------
 
 def seq_dim():
@@ -702,6 +704,18 @@ def halo(x: torch.Tensor, d: int, length: int | None) -> torch.Tensor:
     if not recvs:
         return x.narrow(d, 0, 0)
     return torch.cat([buf for _a, buf in sorted(recvs, key=lambda r: r[0])], dim=d)
+
+
+def seq_prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` (a small tensor: the MoE's (B, E) counts) over the
+    members of :func:`seq_dim` before this rank -- an exclusive prefix sum
+    along the sequence, from one all-gather.  Zeros where :func:`seq_dim`
+    is None."""
+    i = seq_dim()
+    if i is None:
+        return torch.zeros_like(x)
+    parts = _gather_dim(x[None], 0, i, _state.ctx.sizes[i])
+    return parts[:coordinate(i)].sum(0)
 
 
 def broadcast(x: torch.Tensor, i: int, member: int) -> torch.Tensor:

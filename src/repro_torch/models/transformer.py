@@ -382,11 +382,26 @@ def embed_tokens(params, cfg, tokens):
 
 def _inputs(params, cfg: ArchConfig, tokens, frames, image_embeds, run_layers):
     """The decoder's input (B, S', D) -- the VLM's projected prefix before
-    the token embeddings -- and the encoder's output (or None)."""
-    h = embed_tokens(params, cfg, tokens)
-    if cfg.prefix_embeds and image_embeds is not None:
-        pre = L.column_whole(image_embeds.to(h.dtype), params["frontend_proj"], cfg.d_model)
-        h = torch.cat([pre, h], dim=1)
+    the token embeddings -- and the encoder's output (or None).  With the
+    sequence split over ``act_seq`` (``sharding.seq_split``, the
+    long-context prefill; ``tokens`` and ``image_embeds`` whole) only this
+    rank's positions [lo, hi) of the P + S: the prefix rows [lo, min(hi,
+    P)) through ``frontend_proj``, the token rows [max(lo - P, 0), hi - P)
+    embedded; a part the rank holds none of is not computed."""
+    npre = image_embeds.shape[1] if cfg.prefix_embeds and image_embeds is not None else 0
+    split = S.seq_split()
+    if split is not None:
+        lo, hi = split[1:3]
+        tokens = tokens[:, max(lo - npre, 0):max(hi - npre, 0)]
+        if npre:
+            image_embeds = image_embeds[:, min(lo, npre):min(hi, npre)]
+    parts = []
+    if npre and image_embeds.shape[1]:
+        parts.append(L.column_whole(image_embeds.to(compute_dtype(cfg)),
+                                    params["frontend_proj"], cfg.d_model))
+    if tokens.shape[1] or not parts:
+        parts.append(embed_tokens(params, cfg, tokens))
+    h = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     enc_out = None
     if cfg.encoder_decoder:
         enc_out = _encode(params, cfg, frames, run_layers)
@@ -394,6 +409,28 @@ def _inputs(params, cfg: ArchConfig, tokens, frames, image_embeds, run_layers):
 
 
 def _encode(params, cfg: ArchConfig, frames, run_layers):
+    """The encoder's output (B, T, D).  With the sequence split over
+    ``act_seq`` (the long-context prefill) this rank runs its frames [f0,
+    f1) of the T, in ``sharding.member_range``'s chunks (the reference's
+    ``_run_layers`` constrains the encoder's activations over ``act_seq``):
+    the non-causal attention reads every frame's K/V, gathered whole, and
+    the output is gathered whole over ``act_seq``, as every decoder rank's
+    cross-attention reads all of it."""
+    split = S.seq_split()
+    t = frames.shape[1]
+    if split is None:
+        return _encoder_layers(params, cfg, frames, run_layers)
+    i = split[0]
+    if S.member_range(t, i, S.mesh_size((i,)) - 1)[0] >= t:
+        raise ValueError(f"{t} frames leave the last of the {S.mesh_size((i,))} members of "
+                         f"act_seq without a frame")
+    f0, f1 = S.member_range(t, i, S.coordinate(i))
+    with S.sequence(t):
+        h = _encoder_layers(params, cfg, frames[:, f0:f1], run_layers)
+    return S.gather(h, 1, (i,), t)
+
+
+def _encoder_layers(params, cfg: ArchConfig, frames, run_layers):
     enc = params["encoder"]
     h = L.column_whole(frames.to(compute_dtype(cfg)), params["frontend_proj"], cfg.d_model)
     h, _ = run_layers(enc["layers"], h, cfg, causal=False)

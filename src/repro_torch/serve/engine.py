@@ -39,21 +39,26 @@ rules context every split, gather and all-reduce they call is the
 identity, and so is every one over a mesh dim of one member.
 
 Long-context serving (``long_500k``'s ``LONG_CONTEXT_RULES``: the batch
-whole, the sequence over ``act_seq``'s mesh dim) is served for the dense,
-SSM and hybrid families.  :func:`prefill` gives each rank its contiguous
-chunk of the prompt (``sharding.chunk_range``): the attention takes a halo
-of the window's earlier K/V from the preceding ranks and the SSM hands its
-state along the sequence (``models/layers.py``); each layer's capture keeps
+whole, the sequence over ``act_seq``'s mesh dim) is served for every
+family.  :func:`prefill` gives each rank its contiguous chunk of the
+sequence (``sharding.member_range``; the VLM's prefix and tokens are one
+sequence, of which the rank builds its range): the attention takes a halo
+of the window's earlier K/V from the preceding ranks, the SSM hands its
+state along the sequence, the MoE routes against the whole sequence's
+capacity and the encoder-decoder's encoder runs its chunk of the frames
+against all of their K/V (``models/layers.py``, ``models/transformer.py``);
+each layer's capture keeps
 only the positions the cache holds, which go to the ranks that own their
 ring slots (``pos % W``: :func:`cache_layout` puts W over ``act_seq``'s
 dim where it divides W, else every rank holds the whole window); the last
 position's logits, the SSM state and the conv tail are the last rank's, the
-same on every rank.  A decode step writes the token's K/V (or its SZx
-record) on the rank that owns its slot only, and each rank attends over its
-slots -- ``slot_pos`` stays whole -- and the ranks' partial softmaxes are
-merged over ``act_seq`` (the max, then the rescaled sums and p @ v summed in
-float32): the window is never gathered.  MoE, encoder-decoder and VLM
-models are refused under ``act_seq`` (:func:`_check_rules`).
+same on every rank; the cross K/V keep the frames of the rank's chunk of
+T where ``act_seq``'s members divide T.  A decode step writes the token's
+K/V (or its SZx record) on the rank that owns its slot only, and each rank
+attends over its slots -- ``slot_pos`` stays whole -- and over its frames
+of the cross K/V, and the ranks' partial softmaxes are merged over
+``act_seq`` (the max, then the rescaled sums and p @ v summed in float32):
+neither the window nor the frames are gathered.
 
 Where the port differs from the reference:
   - the cache is updated in place: :func:`prefill` builds it, and
@@ -351,23 +356,26 @@ def decode_attention(p, x1, lc, cache_meta, cfg: ArchConfig, *, kv_mode: str,
     return L.row_parallel(out.reshape(b, 1, hq * hd), p["wo"])
 
 
-def _cross_attend(p, x1, cross_k, cross_v, cfg: ArchConfig, hd_dims=()):
+def _cross_attend(p, x1, cross_k, cross_v, cfg: ArchConfig, t: int, hd_dims=(), t_dims=()):
     """Decoder cross-attention of x1 (B,1,D) against one layer's cached
-    encoder K/V (B,T,Hkv,hd): every slot valid, no rotary embedding.  Under
+    encoder K/V (B,T,Hkv,hd) of ``t`` frames: every slot valid, no rotary
+    embedding.  Under
     a mesh tensor-parallel over head_dim as :func:`decode_attention` is: q
     comes whole over ``wq``'s split, its head_dim columns of mesh dims
     ``hd_dims`` (the cross cache's split) score against the rank's columns
     of the K/V, the partial scores are all-reduced in bf16 (the reference's
     ``_slab_attend`` shards its ``qg`` over ``act_hd``), the output is
-    gathered over head_dim and ``wo`` is row-parallel."""
+    gathered over head_dim and ``wo`` is row-parallel.  With the frames
+    split over ``t_dims`` (``act_seq``'s) the rank scores its frames and
+    the partial softmaxes are merged (:func:`_merge`)."""
     b = x1.shape[0]
     hd, hq = cfg.resolved_head_dim, cfg.n_heads
     q = L.column_whole(x1, p["wq"], hq * hd).reshape(b, 1, hq, hd)
     h0, h1 = S.chunk_range(hd, hd_dims)
-    t = cross_k.shape[1]
-    slot_pos = torch.arange(t, dtype=torch.int32, device=x1.device)
+    t0, t1 = S.chunk_range(t, t_dims)
+    slot_pos = torch.arange(t0, t1, dtype=torch.int32, device=x1.device)
     out = _slab_attend(q[..., h0:h1], cross_k, cross_v, slot_pos, t, window=0, hd=hd,
-                       hd_dims=hd_dims)
+                       hd_dims=hd_dims, seq_dims=t_dims)
     out = S.gather(out, -1, hd_dims, hd)
     return L.row_parallel(out.reshape(b, 1, hq * hd), p["wo"])
 
@@ -396,7 +404,6 @@ def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
     bdims = S.mesh_dims("act_batch")
     b_all = tokens.shape[0]
     if meshed:
-        _check_rules(cfg)
         if S.dividing(bdims, b_all) != bdims:
             raise ValueError(f"a batch of {b_all} does not split over the mesh dims {bdims} "
                              f"of act_batch")
@@ -415,7 +422,6 @@ def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
             raise ValueError(f"a prompt of {s_all} tokens leaves the last of the {n} members of "
                              f"act_seq without a position")
         lo, hi = S.member_range(s_all, seq, S.coordinate(seq))
-        rows[0] = rows[0][:, lo:hi]
     with S.sequence(s_all):
         h, enc_out = T._inputs(params, cfg, *rows, T._run_layers)
         h, _, caps = T._run_layers(params["layers"], h, cfg, causal=True, enc_out=enc_out,
@@ -447,8 +453,9 @@ def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
     if "state" in caps:
         cache["layers"]["state"].copy_(caps["state"])              # this rank's heads
         cache["layers"]["conv"].copy_(S.take(caps["conv"], -1, lays["layers"]["conv"][-1]))
-    for nm in ("k", "v") if cfg.encoder_decoder else ():
-        cache["cross"][nm].copy_(S.take(caps["cross_" + nm], -1, lays["cross"][nm][-1]))
+    for nm in ("k", "v") if cfg.encoder_decoder else ():    # whole: this rank's frames, hd
+        lay = lays["cross"][nm]
+        cache["cross"][nm].copy_(S.take(S.take(caps["cross_" + nm], 2, lay[2]), -1, lay[-1]))
     if meshed:
         cache["slot_pos"] = S.from_local(cache["slot_pos"], ((),), whole["slot_pos"].shape)
         for part, lay in lays.items():
@@ -500,9 +507,8 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
     slabs = {name: S.placed(t) for name, t in cache["layers"].items()}
     cross = {name: S.placed(t) for name, t in cache.get("cross", {}).items()}
     bdims = S.mesh_dims("act_batch")
-    hd_dims = cross_dims = w_dims = ()
+    hd_dims = cross_dims = w_dims = t_dims = ()
     if rules_active():
-        _check_rules(cfg)
         for name, (_t, lay) in list(slabs.items()) + list(cross.items()):
             split = lay[2 if name.endswith("pl") else 1]
             if S.members(split) != S.members(bdims):
@@ -510,7 +516,7 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
                                  f"{split}, the rules' act_batch over {bdims}")
         kv = slabs.get("k" if kv_mode == "dense" else "kpl")
         hd_dims, w_dims = (kv[1][-1], kv[1][-3]) if kv else ((), ())
-        cross_dims = cross["k"][1][-1] if cross else ()
+        cross_dims, t_dims = (cross["k"][1][-1], cross["k"][1][2]) if cross else ((), ())
     h = T.embed_tokens(params, cfg, _batch_rows(token, bdims))
     pos = cache["pos"]
     slot_pos = S.to_local(cache["slot_pos"])
@@ -536,7 +542,7 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
         if "cross" in lp:
             hn = L.rms_norm(h, lp["ln_cross"], cfg.norm_eps)
             h = h + _cross_attend(lp["cross"], hn, cross["k"][0][i], cross["v"][0][i], cfg,
-                                  cross_dims)
+                                  cache["cross"]["k"].shape[2], cross_dims, t_dims)
         h, _ = T.ffn_part(lp, h, cfg)
     h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
     cache["pos"] = pos + 1
@@ -551,31 +557,15 @@ def decode_step(params, cfg: ArchConfig, cache: dict, token, *, kv_mode: str = "
 # serving under a mesh (module docstring)
 # ---------------------------------------------------------------------------
 
-def _check_rules(cfg: ArchConfig) -> None:
-    """Refuse what the sequence split over ``act_seq`` does not serve: the
-    MoE layer (its routing capacity counts a whole sequence's tokens), the
-    encoder-decoder (its non-causal encoder and cross-attention) and the
-    VLM's image prefix (ROADMAP.md item 15's remainder)."""
-    if not S.mesh_dims("act_seq"):
-        return
-    missing = ("the MoE layer's routing over a split sequence" if cfg.n_experts else
-               "the encoder-decoder's encoder and cross-attention over a split sequence"
-               if cfg.encoder_decoder else
-               "the VLM's image prefix over a split sequence" if cfg.prefix_embeds else None)
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: serving with the sequence split over act_seq "
-                                  f"(LONG_CONTEXT_RULES) is not ported for this family: it "
-                                  f"needs {missing} (ROADMAP.md item 15); serve it under rules "
-                                  f"that leave act_seq whole")
-
-
 def cache_layout(name: str, shape) -> tuple:
     """The layout (``models/sharding.py``) the engine keeps a cache leaf
     ``name`` of whole ``shape`` in under the active rules: the batch over
-    ``act_batch``'s mesh dims and head_dim over ``act_hd``'s, each where it
-    divides the dim -- ``launch/mesh.cache_specs_tree``'s layout under
-    ``DEFAULT_RULES``: K/V (L, B, W, Hkv, hd) and the cross K/V (L, B, T,
-    Hkv, hd), mu/sexp (L, B, W, Hkv) whole over head_dim's dims, the planes
+    ``act_batch``'s mesh dims, head_dim over ``act_hd``'s and the window's
+    W (the cross K/V's T) over ``act_seq``'s, each where it divides the dim
+    -- ``launch/mesh.cache_specs_tree``'s layout under ``DEFAULT_RULES``
+    and, with ``long_context=True``, under ``LONG_CONTEXT_RULES``: K/V (L,
+    B, W, Hkv, hd) and the cross K/V (L, B, T, Hkv, hd), mu/sexp (L, B, W,
+    Hkv) whole over head_dim's dims, the planes
     (L, P, B, W, Hkv, hd), the conv tail (L, B, W-1, CC) with CC over
     ``act_heads``'s dims where they divide it (as ``conv``'s columns).  The
     SSM state (L, B, H, N, hp) is split over ``act_heads``'s dims in the

@@ -661,8 +661,10 @@ def test_wrappers_raise_when_a_launch_fails(card, monkeypatch):
 # llama3.2-1b's prefill length (causal and a window of 512), the prefills
 # of hymba-1.5b (G = 5, a window equal to S) and deepseek-moe-16b (G = 1, hd 128),
 # whisper-medium's encoder (non-causal, S = 1500, a ragged last key tile), its
-# cross-attention (Sq 384 against Skv 1500) and decoder, and internvl2-1b's
-# prefill (G = 7, which does not divide the kernel's 64 rows)
+# cross-attention (Sq 384 against Skv 1500) and decoder, internvl2-1b's
+# prefill (G = 7, which does not divide the kernel's 64 rows), and a
+# whisper-medium encoder rank of 4 under the long-context split (its 375
+# frames against all 1500, non-causal)
 FLASH_CASES = [(2, 64, 4, 2, 32, True, 0, 64), (2, 96, 2, 1, 16, True, 16, 96),
                (2, 128, 8, 8, 8, False, 0, 128), (1, 50, 4, 2, 16, True, 0, 50),
                (2, 48, 6, 1, 16, True, 8, 48), (1, 40, 4, 2, 32, False, 0, 77),
@@ -671,7 +673,8 @@ FLASH_CASES = [(2, 64, 4, 2, 32, True, 0, 64), (2, 96, 2, 1, 16, True, 16, 96),
                (1, 2048, 32, 8, 64, True, 0, 2048), (1, 2048, 32, 8, 64, True, 512, 2048),
                (4, 2048, 25, 5, 64, True, 2048, 2048), (4, 2048, 16, 16, 128, True, 0, 2048),
                (4, 1500, 16, 16, 64, False, 0, 1500), (4, 384, 16, 16, 64, False, 0, 1500),
-               (4, 384, 16, 16, 64, True, 0, 384), (4, 2048, 14, 2, 64, True, 0, 2048)]
+               (4, 384, 16, 16, 64, True, 0, 384), (4, 2048, 14, 2, 64, True, 0, 2048),
+               (1, 375, 16, 16, 64, False, 0, 1500)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)

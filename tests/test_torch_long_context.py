@@ -1,8 +1,9 @@
 """Long-context serving: the sequence split over ``act_seq``
 (``LONG_CONTEXT_RULES``) on gloo ranks, against the unsharded port engine
 and the JAX package's GSPMD-partitioned engine; the flash kernel's
-``q_offset``; the families the split refuses; what a long prefill keeps
-(each layer's whole K/V freed, the chunked FFN).
+``q_offset``; what a long prefill keeps (each layer's whole K/V freed,
+the chunked FFN).  The MoE, encoder-decoder and VLM families under the
+same split: ``test_torch_long_context_families.py``.
 
 The harness is ``test_torch_sharded_families_serve.py``'s: four worker
 processes form a gloo group on a ``FileStore`` under the test's temporary
@@ -446,29 +447,6 @@ def test_flash_q_offset_matches_the_reference(causal, window, q_offset):
                                                                           v[:, q_offset:])),
                                         causal=causal, window=window).numpy()
         assert np.abs(alone - want).max() > 1e-3
-
-
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "whisper-medium", "internvl2-1b"])
-def test_unported_families_are_refused_under_act_seq(arch):
-    """The sequence split over ``act_seq`` serves the dense, SSM and hybrid
-    families; the MoE, encoder-decoder and VLM models are refused plainly,
-    with what is missing named."""
-    import types
-
-    import torch
-
-    from repro_torch import configs
-    from repro_torch.models import sharding as SH, transformer as T
-    from repro_torch.serve import engine as E
-
-    cfg = configs.get(arch).reduced()
-    model = T.init_params(cfg, torch.Generator().manual_seed(7), device="cpu")
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
-    missing = {"deepseek-moe-16b": "MoE", "whisper-medium": "encoder-decoder",
-               "internvl2-1b": "VLM"}[arch]
-    with SH.use_rules(mesh, SH.LONG_CONTEXT_RULES):
-        with pytest.raises(NotImplementedError, match=f"sequence split over act_seq.*{missing}"):
-            E.prefill(model, cfg, torch.zeros((1, 8), dtype=torch.int32))
 
 
 def test_prefill_frees_each_layers_whole_kv_before_the_next_layer(monkeypatch):
