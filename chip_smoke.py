@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--edge 512] [--reps 50]
                           [--store-kernels | --ingest | --service | --families |
                            --enc-vlm | --families-train | --examples | --sharding |
-                           --sharded-serve | --long-context]
+                           --sharded-serve | --long-context | --dense-configs]
 
 Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit.  It imports nothing of the JAX package.  In order it:
@@ -142,9 +142,9 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      mamba2-1.3b (24 of its 48 layers, attention-free; phase 20 serves it
      at full depth), hymba-1.5b (16 of its 32 layers, 25
      query heads over 5 kv heads beside a Mamba2 mixer, a 2048-token window;
-     phase 20 serves it at full depth) and deepseek-moe-16b (8 of its 28
-     layers, 64 experts top-6 and 2 shared, 5.12 B float32
-     weights, 20.5 GB, last);
+     phase 20 serves it at full depth) and deepseek-moe-16b (all 28
+     layers, 64 experts top-6 and 2 shared, 16.88 B float32 weights,
+     67.5 GB, last);
      weights from --seed on the card, bf16 compute, 4 prompts of 2048 tokens
      and 16 greedy steps with a dense cache and, where there is attention,
      SZx-planes caches at P = 1 and 2.  Launch counters are zeroed just
@@ -244,9 +244,10 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      ``launch.dryrun`` process of its own started (at the lowest CPU
      priority) before (a) and read after (f), each record on a line with
      its wall time beside its parent tree's flops, then deepseek-moe-16b's
-     state bytes a card on a (4, 1) mesh from the specs.  Launch counters
-     are zeroed before (a) and read after (f): flash, planes, encode and
-     decode_body must each have run (``--sharding`` runs this phase alone);
+     state bytes a card on a (4, 1) mesh from the specs (in the whole run
+     the records are read after phase 21).  Launch counters are zeroed
+     before (a) and read after (f): flash, planes, encode and decode_body
+     must each have run (``--sharding`` runs this phase alone);
  19. serves under a device mesh (one-rank NCCL group, one-member (1, 1)
      data x model meshes, the parameters ``DTensor``s placed by the
      reference's spec trees, ``models.sharding.use_rules``): (a)
@@ -272,12 +273,14 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      layers, 256 image embeddings and 1792 tokens): prefill bit for bit,
      decode within 0.05 with bf16 scores (hymba-1.5b's reported) and 1e-5
      with float32 scores, the peak memory, flash and both planes kernels
-     launched; (c) with the group destroyed, the dry-run's serving cells on
-     fake CUDA tensors on (16, 16): llama3.2-1b prefill_32k and decode_32k
-     (dense and compressed), deepseek-moe-16b decode_32k with
-     ``serve_layout``, arctic-480b decode_32k, mamba2-1.3b decode_32k,
-     hymba-1.5b decode_32k compressed, whisper-medium prefill_32k.  Launch
-     counters are set to 0 before each
+     launched; (c) the dry-run's serving cells on fake CUDA tensors on (16,
+     16), each a ``launch.dryrun`` process of its own started (at the
+     lowest CPU priority) before (a) and read after (d) (in the whole run
+     started with phase 21 and read after it): llama3.2-1b prefill_32k and decode_32k (dense and
+     compressed), deepseek-moe-16b decode_32k with ``serve_layout``,
+     arctic-480b decode_32k, mamba2-1.3b decode_32k, hymba-1.5b decode_32k
+     compressed, whisper-medium prefill_32k.  Launch counters are set to 0
+     before each
      sharded run and read after it: flash, planes_encode and planes_decode
      must each have run there (``--sharded-serve`` runs this phase alone).
  20. serves long contexts under ``LONG_CONTEXT_RULES`` (the batch whole,
@@ -291,12 +294,15 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      of its 28 layers on 32768 tokens, internvl2-1b at full depth on 256
      image embeddings and 32512 tokens, and whisper-medium at full depth on
      1500 frames and a 432-token prompt, each against the unsharded engine;
-     16 decode steps each (deepseek-moe-16b and internvl2-1b 8) with a
-     dense cache and, where there is attention, a P = 1 cache.  Every run held to the unsharded engine is bit for bit in
-     its prefill logits and cache (deterministic algorithms on); its decode
-     logits, the scores rounded to bf16 as under any rules, are reported,
-     and a second run with the scores summed in float32 is bit for bit
-     (prefill and decode); prefill s, decode ms a step, peak memory.  Launch
+     16 decode steps each (deepseek-moe-16b and internvl2-1b 4) with a
+     dense cache and, where there is attention, a P = 1 cache.  Every run
+     held to the unsharded engine is bit for bit in its prefill logits and
+     cache (deterministic algorithms on); its decode logits, the scores'
+     sum rounded to bf16 as under any rules, are reported, and a second run
+     with the scores summed in float32 is bit for bit (prefill and decode);
+     danube's 32768-token runs decode a third time with each score partial
+     rounded before the (one-member) sum, the bits of the second run's
+     rounding after it; prefill s, decode ms a step, peak memory.  Launch
      counters are set to 0 before the first run under the rules and read
      after: the flash kernel exactly once an attention layer (whisper's
      encoder and cross-attention layers too: 72), both planes kernels in a
@@ -311,6 +317,32 @@ toolkit.  It imports nothing of the JAX package.  In order it:
      runs this phase alone, after the flash
      kernel's checks with an offset, and then traces the six long_500k
      dry-run cells; in the whole run phase 18e traces them).
+ 21. serves and trains the dense configs that no other phase runs, at
+     full width: stablelm-3b (32 layers, d_model 2560, 32 query and 32 kv
+     heads of 80, d_ff 6912, vocab 50304; 11.18 GB of float32 weights) and
+     yi-6b (32 layers, d_model 4096, 32 query heads over 4 of 128, d_ff
+     11008, vocab 64000, rope theta 5e6; 24.24 GB) served at full depth
+     with phase 9's traffic (4 prompts of 2048 tokens, 16 greedy steps,
+     dense and SZx-planes caches at P = 1 and 2): the flash kernel once a
+     layer a prefill and never in decode, the planes kernels in every
+     compressed step on the vector route, the cache bytes the slabs'
+     shapes, finite logits, decode held to forward over the same tokens in
+     bf16 where a mode meets phase 9's criterion and in float32 compute
+     (on as many prompts as fit) where it does not, the bf16 figure
+     measured beside it; the peak memory and a profile of a dense prefill
+     and 2 steps each.  Then stablelm-3b and h2o-danube-1.8b (its 4096
+     window longer than the 2048 positions) trained at full depth and
+     yi-6b on 16 of its 32 layers (its full depth's 96.97 GB of training
+     state waits for more cards; the cut is printed and must leave 10 GB
+     of the card free): ``make_train_step``, a warm-up and 3 plain steps
+     of B 4 x S 2048 with remat and a profiled one, every loss finite, the
+     embedding, ``wq``, ``wi`` and ``ln1`` moved, the flash kernel exactly
+     twice a layer a step; the state reckoned at 16 bytes a parameter
+     beside the peak.  Launch counters are set to 0 before the phase and
+     read after; the flash launches are also counted by shape, rows 8m-8n
+     each launched (``--dense-configs`` runs this phase alone, after the
+     flash kernel's checks at its two prefill shapes, then times the
+     kernel at them).
 
 Phase 2 also holds the planes kernels against their plain versions on both
 routes (P = 1, 2, 3; bs 1, 3, 4, 6, 8, 16, 32, 64, 128, 4096; leading dims;
@@ -326,8 +358,9 @@ prefills: hymba's G = 5 with a window equal to S, deepseek's G = 1 at hd
 cross-attention of 384 positions against them, its causal decoder, and
 internvl2-1b's G = 7; phase 20's: 4096 queries after h2o-danube-1.8b's
 4095-key halo, a float32 case with an offset, and a whisper encoder rank's
-375 frames against 1500), and timed at
-llama3.2-1b's, phase 14's, phase 15's and phase 20's shapes.
+375 frames against 1500; phase 21's: stablelm-3b's and yi-6b's prefills
+at B 4 x S 2048), and timed at llama3.2-1b's, phase 14's, phase 15's,
+phase 20's and phase 21's shapes.
 
 Any failed check raises, so the exit code is non-zero.  The last two lines
 are the kernels JSON and the result JSON.
@@ -1722,12 +1755,19 @@ LONG_FLASH = {"20 h2o-danube-1.8b, one member": (1, 524288, 32, 8, 80, True, 409
               "20 deepseek-moe-16b, the last rank of 4": (1, 8192, 16, 16, 128, True, 0, 32768,
                                                           24576),
               "20 whisper-medium encoder, a rank of 4": (1, 375, 16, 16, 64, False, 0, 1500, 0)}
+# phase 21's prefill shapes, rows 8m-8n of PERF.md's kernel table (B, S, Hq,
+# Hkv, hd, causal, window): stablelm-3b's 32 heads of 80 with as many kv
+# heads, yi-6b's 32 query heads over 4 of 128 (configs/stablelm_3b.py,
+# configs/yi_6b.py); both train at the same shapes
+DENSE_FLASH = {"8m stablelm-3b prefill": (4, 2048, 32, 32, 80, True, 0),
+               "8n yi-6b prefill": (4, 2048, 32, 4, 128, True, 0)}
 FLASH_CASES = (            # (B, S, Hq, Hkv, hd, causal, window[, Skv[, q_offset]], dtype name)
     (4, 2048, 32, 8, 64, True, 0, "bfloat16"),      # llama3.2-1b's prefill, the main path
     (4, 2048, 32, 8, 64, True, 512, "bfloat16"),    # a sliding window
     (4, 2000, 32, 8, 64, True, 0, "bfloat16"),      # unaligned S
     (2, 1024, 32, 32, 80, True, 0, "bfloat16"),     # hd 80 (stablelm-3b)
     (2, 1024, 32, 4, 128, True, 0, "bfloat16"),     # hd 128 (yi-6b)
+) + tuple(shape + ("bfloat16",) for shape in DENSE_FLASH.values()) + (       # phase 21
     (2, 1024, 32, 8, 64, True, 0, "float32"),
     FAMILY_FLASH["hymba-1.5b"] + ("bfloat16",),      # G = 5, window = S (phase 14)
     FAMILY_FLASH["deepseek-moe-16b"] + ("bfloat16",),  # G = 1, hd 128 (phase 14)
@@ -3145,9 +3185,10 @@ def phase_service(args) -> dict:
 FAMILY_ARCHS = ("mamba2-1.3b", "hymba-1.5b", "deepseek-moe-16b")
 FAMILY_SERVE_STEPS = 16            # greedy steps a mode; phase 9 keeps SERVE_STEPS
 # phase 14's depth cuts, which pay for phase 20 (that phase serves mamba2-1.3b
-# and hymba-1.5b at full depth): mamba2-1.3b on 24 of its 48 layers,
-# hymba-1.5b on 16 of its 32 and deepseek-moe-16b on 8 of its 28
-FAMILY_LAYERS = {"mamba2-1.3b": 24, "hymba-1.5b": 16, "deepseek-moe-16b": 8}
+# and hymba-1.5b at full depth): mamba2-1.3b on 24 of its 48 layers and
+# hymba-1.5b on 16 of its 32; deepseek-moe-16b is served on all 28 (67.5 GB of
+# float32 weights)
+FAMILY_LAYERS = {"mamba2-1.3b": 24, "hymba-1.5b": 16}
 TEACHER_PROMPTS = (4, 3, 2, 1)     # the float32 checks take as many as fit
 
 
@@ -3780,12 +3821,13 @@ def phase_enc_vlm(args) -> tuple:
     return counts, by_row
 
 
-def enc_vlm_flash_rows(gen, reps: int, launches: dict) -> list:
-    """The flash kernel timed at phase 15's shapes (rows 8d-8g), as entries
-    of the kernels JSON's flash row with their max |kernel - plain| and
-    their bf16 launches in phase 15."""
+def flash_rows(gen, reps: int, table: dict, launches: dict) -> list:
+    """The flash kernel timed at the shapes of ``table`` (row -> shape:
+    ENC_VLM_FLASH's rows 8d-8g, DENSE_FLASH's 8m-8n), as entries of the
+    kernels JSON's flash row with their max |kernel - plain| and their bf16
+    launches in the phase (``launches[row]``)."""
     rows = []
-    for row, shape in ENC_VLM_FLASH.items():
+    for row, shape in table.items():
         ms, plain_ms, lib_ms, bound_ms = time_flash(gen, reps, shape)
         rows.append({"row": row, "shape": list(shape), "launches": launches.get(row),
                      "max_abs_err": MAX_ERR_CASES.get(shape), "ms": ms, "plain_ms": plain_ms,
@@ -3816,23 +3858,15 @@ TRAIN_STATE_BYTES = 16             # f32 weights, gradients and two AdamW moment
 def train_moe_cut(args) -> dict:
     """deepseek-moe-16b at full width (d 2048, 64 routed experts top-6 and 2
     shared of 1408, vocab 102400, capacity factor 1.25) on MOE_TRAIN_LAYERS
-    of its 28 layers: ``make_train_step`` on the cut config, a warm-up and
-    TRAIN_STEPS plain steps of B 4 x S 2048 SyntheticLM tokens from --seed,
-    AdamW at TRAIN_LR; every loss finite, the watched leaves moved, the
-    flash kernel twice a layer a step; a profiled step.  Returns the step
-    times, the peak memory and the busy share."""
+    of its 28 layers (``train_steps``).  Returns the step times, the peak
+    memory and the busy share."""
     import dataclasses
 
     import torch
     from repro_torch import configs
-    from repro_torch.core import pytree
-    from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.optim import AdamW
-    from repro_torch.train import step as step_mod
 
     full = configs.get(MOE_TRAIN_ARCH)
     cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
-    check(cfg.remat, f"{MOE_TRAIN_ARCH} trains with per-layer remat")
     total = torch.cuda.mem_get_info()[1]
     log(f"families-train {MOE_TRAIN_ARCH}: cut to {MOE_TRAIN_LAYERS} of its {full.n_layers} "
         f"layers at full width, because the full depth's {full.param_count()} parameters need "
@@ -3840,33 +3874,52 @@ def train_moe_cut(args) -> dict:
         f"AdamW moments against the card's {total / 1e9:.1f} GB; {MOE_TRAIN_LAYERS} layers have "
         f"{cfg.param_count()} ({cfg.param_count() * TRAIN_STATE_BYTES / 1e9:.1f} GB). Full "
         f"depth needs four cards (ROADMAP.md queue 1 item 12)")
+    return train_steps(args, cfg, MOE_WATCH, "families-train", args.seed + 50)
+
+
+def train_steps(args, cfg, watch: tuple, tag: str, seed: int) -> dict:
+    """``make_train_step`` on ``cfg`` (full width, at its depth or a cut), a
+    warm-up and TRAIN_STEPS plain steps of B 4 x S 2048 SyntheticLM tokens
+    from --seed with per-layer remat, AdamW at TRAIN_LR; every loss finite,
+    the ``watch`` leaves moved, the flash kernel twice an attention layer a
+    step (forward and recompute); a profiled step.  Returns the step
+    times, the peak memory and the busy share."""
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamW
+    from repro_torch.train import step as step_mod
+
+    arch = cfg.name
+    check(cfg.remat, f"{arch} trains with per-layer remat")
+    total = torch.cuda.mem_get_info()[1]
     opt = AdamW(lr=TRAIN_LR)
     ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
-    gen = torch.Generator(device="cuda").manual_seed(args.seed + 50)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state, t_init = timed(lambda: step_mod.init_state(cfg, opt, gen, device="cuda"))
-    init = {n: corner(t) for n, t in pytree.leaf_paths(state["params"]) if n in MOE_WATCH}
-    check(len(init) == len(MOE_WATCH), f"{MOE_TRAIN_ARCH}: watched leaves {sorted(init)}")
+    init = {n: corner(t) for n, t in pytree.leaf_paths(state["params"]) if n in watch}
+    check(len(init) == len(watch), f"{arch}: watched leaves {sorted(init)}")
     nparams = sum(t.numel() for t in pytree.leaves(state["params"]))
     fn = step_mod.make_train_step(cfg, opt)
     state, m, t_warm, losses, times, before, after = warm_and_time(fn, state, ds)
     peak = torch.cuda.max_memory_allocated()
-    check(all(math.isfinite(v) for v in losses), f"{MOE_TRAIN_ARCH}: losses {losses}")
+    check(all(math.isfinite(v) for v in losses), f"{arch}: losses {losses}")
     moved = moved_leaves(state["params"], init)
-    check(all(v > 0 for v in moved.values()), f"{MOE_TRAIN_ARCH}: the weights did not move {moved}")
+    check(all(v > 0 for v in moved.values()), f"{arch}: the weights did not move {moved}")
     flash = after["flash_attention"] - before["flash_attention"]
-    check(flash == 2 * cfg.n_layers * TRAIN_STEPS,
-          f"{MOE_TRAIN_ARCH}: {flash} flash launches in {TRAIN_STEPS} steps (forward + remat)")
+    check(flash == 2 * attention_layers(cfg) * TRAIN_STEPS,
+          f"{arch}: {flash} flash launches in {TRAIN_STEPS} steps (forward + remat)")
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"families-train {MOE_TRAIN_ARCH} plain ({cfg.n_layers} layers, {nparams} parameters, "
+    log(f"{tag} {arch} plain ({cfg.n_layers} layers, {nparams} parameters, "
         f"state made in {t_init:.2f} s; B {TRAIN_BATCH} x S {TRAIN_SEQ}): warm-up step "
         f"{t_warm * 1e3:.1f} ms; steps " + ", ".join(f"{t * 1e3:.1f}" for t in times)
         + f" ms ({tokens / (sum(times) / len(times)):.0f} tokens/s); loss curve "
         + ", ".join(f"{v:.4f}" for v in losses) + "; max |d w| "
         + ", ".join(f"{n} {v:.3e}" for n, v in moved.items())
         + f"; peak {peak / 1e9:.2f} GB of {total / 1e9:.2f}; flash launches {flash}")
-    busy = profile_train(fn, state, train_batch(ds, TRAIN_STEPS + 1), f"{MOE_TRAIN_ARCH} plain")
+    busy = profile_train(fn, state, train_batch(ds, TRAIN_STEPS + 1), f"{arch} plain")
     del state, m
     torch.cuda.empty_cache()
     return {"plain": times, "peak": peak, "busy": busy}
@@ -4310,25 +4363,39 @@ def sharded_checkpoint(cfg, state, mesh):
         f"launches {launches}")
 
 
-def start_dryrun_cells(out_dir) -> list:
-    """18e: one ``python -m repro_torch.launch.dryrun`` process a cell of
-    DRYRUN_CELLS and of LONG_DRYRUN_CELLS (the long_500k decode cells under
-    LONG_CONTEXT_RULES; fake CUDA tensors), at the lowest CPU priority, each
-    writing its record under ``out_dir``; they run beside 18a-18f.
-    Returns [(cell, process, start time)]."""
+def train_dryrun_cells() -> list:
+    """18e's cells, (arch, shape, multi_pod, P, kv_mode, serve_layout): the
+    train_4k cells of DRYRUN_CELLS and the long_500k decode cells of
+    LONG_DRYRUN_CELLS under LONG_CONTEXT_RULES."""
+    return [cell + ("dense", False) for cell in DRYRUN_CELLS] + [
+        (arch, "long_500k", False, 0, mode, False) for arch, mode in LONG_DRYRUN_CELLS]
+
+
+def serve_dryrun_cells() -> list:
+    """19c's cells, as ``train_dryrun_cells``'s: SERVE_DRYRUN_CELLS."""
+    return [(arch, shape, False, 0, mode, layout)
+            for arch, shape, mode, layout in SERVE_DRYRUN_CELLS]
+
+
+def start_dryrun_cells(out_dir, cells) -> list:
+    """One ``python -m repro_torch.launch.dryrun`` process a cell of
+    ``cells`` (fake CUDA tensors on (16, 16), or (2, 16, 16) for a
+    multi-pod cell), at the lowest CPU priority, each writing its record
+    under ``out_dir``; they run beside the card's work.  Returns [(cell,
+    process, start time)]."""
     out_dir.mkdir(parents=True, exist_ok=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     procs = []
-    cells = [cell + ("dense",) for cell in DRYRUN_CELLS] + [
-        (arch, "long_500k", False, 0, mode) for arch, mode in LONG_DRYRUN_CELLS]
     for cell in cells:
-        arch, shape, multi_pod, P, mode = cell
+        arch, shape, multi_pod, P, mode, layout = cell
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
                shape, "--kv-mode", mode, "--out", str(out_dir)]
         if multi_pod:
             cmd.append("--multi-pod")
         if P:
             cmd += ["--grad-compress", str(P)]
+        if layout:
+            cmd.append("--serve-layout")
         procs.append((cell, subprocess.Popen(
             cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True, preexec_fn=lambda: os.nice(19)), time.perf_counter()))
@@ -4336,11 +4403,12 @@ def start_dryrun_cells(out_dir) -> list:
 
 
 def finish_dryrun_cells(procs, out_dir):
-    """18e: each cell's record (its process waited for, killed past
-    DRYRUN_TIMEOUT_S) on a line with its wall time, beside its parent's
-    flops a device, which a tensor-parallel rank must halve; then
-    deepseek-moe-16b's exact state bytes a card on a (4, 1) mesh from the
-    specs."""
+    """18e and 19c: each cell's record (its process waited for, killed past
+    DRYRUN_TIMEOUT_S from its start) on a line with its wall time: a train
+    cell's beside its parent's flops a device, which a tensor-parallel rank
+    must halve, a decode cell's with its floor fraction; then, where a
+    train cell ran, deepseek-moe-16b's exact state bytes a card on a (4, 1)
+    mesh from the specs.  ``out_dir`` is removed after."""
     import types
 
     import torch
@@ -4350,7 +4418,7 @@ def finish_dryrun_cells(procs, out_dir):
     from repro_torch.train import step as step_mod
 
     try:
-        for (arch, shape, multi_pod, P, mode), proc, t0 in procs:
+        for (arch, shape, multi_pod, P, mode, layout), proc, t0 in procs:
             try:
                 text, _ = proc.communicate(timeout=max(
                     DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1))
@@ -4359,15 +4427,23 @@ def finish_dryrun_cells(procs, out_dir):
                 text, _ = proc.communicate()
             t = time.perf_counter() - t0
             name = f"{arch}.{shape}.{'multi' if multi_pod else 'single'}" + (
-                f".{mode}" if mode != "dense" else "") + (f".gc{P}" if P else "") + ".json"
+                f".{mode}" if mode != "dense" else "") + (f".gc{P}" if P else "") + (
+                ".serve_layout" if layout else "") + ".json"
             path = out_dir / name
             check(proc.returncode == 0 and path.exists(),
-                  f"18e: dry-run {arch} {shape} exited {proc.returncode}: {text[-2000:]}")
+                  f"dry-run {arch} {shape} {mode} exited {proc.returncode}: {text[-2000:]}")
             if not path.exists():
                 continue
             rec = json.loads(path.read_text())
-            check(rec["status"] == "OK", f"18e: dry-run {arch} {shape}: {rec}")
+            check(rec["status"] == "OK", f"dry-run {arch} {shape} {mode}: {rec}")
             rl = rec["roofline"]
+            if shape in ("prefill_32k", "decode_32k"):
+                check(shape != "decode_32k" or "floor_fraction" in rl,
+                      f"19c: {arch} {shape}: no floor fraction")
+                log(f"sharded serve 19c dry-run {arch} {shape} kv={mode} serve_layout={layout} "
+                    f"mesh {rec['mesh']}: wall {rec['wall_s']} s in its process, read {t:.1f} s "
+                    f"after its start; " + json.dumps(rec))
+                continue
             if shape == "long_500k":
                 check("floor_fraction" in rl, f"18e: {arch} long_500k {mode}: no floor fraction")
                 log(f"sharding 18e dry-run {arch} long_500k kv={mode} mesh {rec['mesh']} under "
@@ -4393,6 +4469,8 @@ def finish_dryrun_cells(procs, out_dir):
                 proc.kill()
                 proc.communicate()
         shutil.rmtree(out_dir, ignore_errors=True)
+    if not any(cell[1] == "train_4k" for cell, _p, _t in procs):
+        return
     cfg = configs.get(MOE_TRAIN_ARCH)
     pm = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(4, 1))
     template = step_mod.state_template(cfg)
@@ -4407,28 +4485,28 @@ def finish_dryrun_cells(procs, out_dir):
         f"beside this card's {total / 1e9:.2f} GB")
 
 
-def phase_sharding(args) -> dict:
+def phase_sharding(args, dryrun: bool = True) -> dict:
     """Phase 18 (``--sharding`` runs it alone): 18e's dry-run processes
     started, 18a-18d and 18f in a one-rank NCCL group on one-member meshes,
-    then 18e's records read.  Launch counters are zeroed before and read
-    after: the flash, planes, encode and decode_body kernels must each have
-    run.  Returns the launch counts."""
+    then 18e's records read (without ``dryrun`` the caller starts and reads
+    them).  Launch counters are zeroed before and read after: the flash,
+    planes, encode and decode_body kernels must each have run.  Returns the
+    launch counts."""
     import torch
-    import torch.distributed as dist
-    from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.optim import AdamW
 
     opt = AdamW(lr=TRAIN_LR)
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
-    dry_dir = SMOKE_DRYRUN_DIR
-    shutil.rmtree(dry_dir, ignore_errors=True)
-    dry = start_dryrun_cells(dry_dir)
+    if not dryrun:
+        return sharded_steps(args, opt)
+    shutil.rmtree(SMOKE_DRYRUN_DIR, ignore_errors=True)
+    dry = start_dryrun_cells(SMOKE_DRYRUN_DIR, train_dryrun_cells())
     try:
         counts = sharded_steps(args, opt)
     finally:
-        finish_dryrun_cells(dry, dry_dir)
+        finish_dryrun_cells(dry, SMOKE_DRYRUN_DIR)
     return counts
 
 
@@ -4735,26 +4813,12 @@ def sharded_families(args) -> dict:
     return counts
 
 
-def serve_dryrun_cells() -> None:
-    """19c: the dry-run's serving cells on fake CUDA tensors on (16, 16),
-    each record a line of its own with its wall time."""
-    from repro_torch.launch import dryrun
-
-    for arch, shape, kv_mode, serve_layout in SERVE_DRYRUN_CELLS:
-        rec, t = timed(lambda: dryrun.lower_cell(arch, shape, kv_mode=kv_mode,
-                                                 serve_layout=serve_layout))
-        check(rec["status"] == "OK", f"19c: dry-run {arch} {shape} {kv_mode}: {rec}")
-        check(shape != "decode_32k" or "floor_fraction" in rec["roofline"],
-              f"19c: {arch} {shape}: no floor fraction")
-        log(f"sharded serve 19c dry-run {arch} {shape} kv={kv_mode} serve_layout={serve_layout} "
-            f"mesh {rec['mesh']}: wall {t:.1f} s; " + json.dumps(rec))
-
-
-def phase_sharded_serve(args) -> dict:
-    """Phase 19 (``--sharded-serve`` runs it alone): 19a, 19b and 19d in a
-    one-rank NCCL group on one-member meshes, then (the group destroyed)
-    19c's dry-run cells.  Returns the launches of the sharded runs, which
-    must include the flash and both planes kernels."""
+def phase_sharded_serve(args, dryrun: bool = True) -> dict:
+    """Phase 19 (``--sharded-serve`` runs it alone): 19c's dry-run cells
+    started as processes, 19a, 19b and 19d in a one-rank NCCL group on
+    one-member meshes, then 19c's records read (without ``dryrun`` the
+    caller starts and reads them).  Returns the launches of the sharded
+    runs, which must include the flash and both planes kernels."""
     import dataclasses
 
     import torch
@@ -4763,6 +4827,13 @@ def phase_sharded_serve(args) -> dict:
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import sharding as SH, transformer as T
 
+    if dryrun:
+        shutil.rmtree(SMOKE_DRYRUN_DIR, ignore_errors=True)
+        dry = start_dryrun_cells(SMOKE_DRYRUN_DIR, serve_dryrun_cells())
+        try:
+            return phase_sharded_serve(args, dryrun=False)
+        finally:
+            finish_dryrun_cells(dry, SMOKE_DRYRUN_DIR)
     counts = {}
     torch.cuda.empty_cache()
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
@@ -4800,7 +4871,6 @@ def phase_sharded_serve(args) -> dict:
     log(f"phase 19 launches on the sharded serving path: {counts}")
     for k in ("flash_attention",) + PLANES_KERNELS:
         check(counts.get(k, 0) > 0, f"kernel {k} was not launched on the sharded serving path")
-    serve_dryrun_cells()
     return counts
 
 
@@ -4858,10 +4928,15 @@ def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: b
     flash = 0
     layers = attention_layers(cfg)
     bf16_reduce = E._reduce_scores
+    # the order before the scores' sum was rounded once: each rank's partial
+    # rounded to bf16, then summed
+    def partials_rounded(s, dims=()):
+        return SH.all_reduce(s.to(torch.bfloat16), dims).to(s.dtype)
+
     for mode, _P in family_modes(cfg)[:2]:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        a = f32 = None
+        a = f32 = twice = None
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             if check_plain:
@@ -4875,6 +4950,10 @@ def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: b
                     try:
                         f32 = serve_teacher(params, cfg, prompts, mode, 1, steps, a[3],
                                             extra=extra)
+                        if cfg.name == LONG_ARCH:
+                            E._reduce_scores = partials_rounded
+                            twice = serve_teacher(params, cfg, prompts, mode, 1, steps, a[3],
+                                                  extra=extra)
                     finally:
                         E._reduce_scores = bf16_reduce
         finally:
@@ -4914,6 +4993,15 @@ def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: b
                 verdict = ("prefill logits and cache bit for bit the unsharded engine's; decode "
                            "with float32 scores bit for bit, with bf16 scores max |d| / max "
                            "|logit| " + ", ".join(f"{r:.5f}" for r in r16) + " (reported)")
+                if twice is not None:
+                    # a one-member all-reduce is the identity, so rounding the
+                    # sum once or each partial before it gives the same bits
+                    check(same_prefill(twice, sh) and same_bits(twice[2], sh[2]),
+                          f"{tag} {cfg.name} {mode}: the scores rounded before their "
+                          f"one-member sum differ from those rounded after it by "
+                          f"{float((twice[2] - sh[2]).abs().max()):.3e}")
+                    verdict += ("; the scores rounded to bf16 before their one-member sum "
+                                "instead of after it: the same bits, prefill and decode")
         mean = lambda ts: sum(ts[1:]) / len(ts[1:])   # noqa: E731  (the first step warms up)
         inputs = "".join(f" after {v.shape[1]} {k.replace('_', ' ')}" for k, v in
                          (extra or {}).items())
@@ -4925,7 +5013,7 @@ def long_serve(tag, model, params, mesh, cfg, prompts, counts, *, check_plain: b
             + (f" (unsharded {mean(a[5]) * 1e3:.2f})" if a is not None else "")
             + f" ({len(sh[5])} steps, host clock, synchronized), peak memory {peak:.2f} GB, "
               f"launches {run}; {verdict}")
-        del a, sh, f32
+        del a, sh, f32, twice
     return flash
 
 
@@ -5135,6 +5223,211 @@ def long_flash_library_ms(row, q, k, v, causal: bool, window: int, off: int,
     return lib_ms
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the dense configs that no other phase runs, at full width
+# ---------------------------------------------------------------------------
+
+# 21a: served at full width and depth (configs/stablelm_3b.py, configs/yi_6b.py)
+DENSE_SERVE_ARCHS = ("stablelm-3b", "yi-6b")
+DENSE_SERVE_STEPS = 16
+# 21b: trained at full width: arch -> layers (None: its full depth).  yi-6b's
+# 32 layers need 96.97 GB of training state (TRAIN_STATE_BYTES a parameter),
+# more than the card holds; 16 layers need 52.68 GB, which leaves the step's
+# transients (9.2 GB over llama3.2-1b's state in phase 11) and at least
+# DENSE_TRAIN_FREE of the card free.  h2o-danube-1.8b's window of 4096 is
+# longer than S 2048, so it trains with full causal attention
+DENSE_TRAIN_LAYERS = {"stablelm-3b": None, "h2o-danube-1.8b": None, "yi-6b": 16}
+DENSE_TRAIN_FREE = 10e9
+DENSE_WATCH = ("embed", "layers/0/attn/wq", "layers/0/mlp/wi", "layers/0/ln1")
+
+
+def dense_teacher_check(model, cfg, prompts, runs: dict) -> None:
+    """Decode vs forward over the same tokens (phase 9's criterion) for a
+    model of 21a, from the served runs: each mode held in bf16, as served,
+    where it meets TEACHER_TOL; the modes that do not are measured in bf16
+    and held in float32 compute (exact products) on as many prompts as
+    fit, as phase 14 holds its models."""
+    import dataclasses
+
+    vocab = cfg.vocab_size
+    rel16 = {key: teacher_rel(forward_logits(model, cfg, prompts, toks), dec, vocab)
+             for key, (toks, dec) in runs.items()}
+    f32_keys = [key for key, rel in rel16.items() if max(rel) >= TEACHER_TOL[key[0]]]
+    for (mode, P), rel in rel16.items():
+        held = (mode, P) not in f32_keys
+        log(f"dense check {cfg.name} kv={mode} P={P} bfloat16, {prompts.shape[0]} prompts: "
+            f"prefill and {TEACHER_STEPS} decode steps vs forward over the same tokens, max |d| "
+            f"/ max |logit| = " + ", ".join(f"{r:.5f}" for r in rel)
+            + (f" (tolerance {TEACHER_TOL[mode]})" if held else
+               " (measured; over the tolerance, held in float32 below)"))
+    if not f32_keys:
+        return
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+
+    def checks(nb):
+        out = {}
+        for key in f32_keys:
+            cache, toks, dec, _, _ = serve_and_check(model, f32, prompts[:nb], *key,
+                                                     TEACHER_STEPS, TEACHER_STEPS)
+            del cache
+            out[key] = teacher_rel(forward_logits(model, f32, prompts[:nb], toks), dec, vocab)
+        return out
+
+    nb, res = fit_prompts(cfg.name, "the float32 check", checks)
+    for (mode, P), rel in res.items():
+        check(max(rel) < TEACHER_TOL[mode], f"{cfg.name} {mode} P={P}: decode vs forward in "
+              f"float32 {rel}")
+        log(f"dense check {cfg.name} kv={mode} P={P} float32, {nb} prompts: prefill and "
+            f"{TEACHER_STEPS} decode steps vs forward over the same tokens, max |d| / max "
+            f"|logit| = " + ", ".join(f"{r:.5f}" for r in rel)
+            + f" (tolerance {TEACHER_TOL[mode]})")
+
+
+def dense_serve(args, arch: str, seed: int) -> None:
+    """21a: one dense model at full width and depth, float32 weights from
+    --seed on the card, bf16 compute: 4 prompts of 2048 tokens and
+    DENSE_SERVE_STEPS greedy steps with a dense cache and SZx-planes caches
+    at P = 1, 2 (``serve_and_check``: the launch counts, the cache bytes,
+    finite logits); decode vs forward (``dense_teacher_check``); the peak
+    memory; a profile of a dense prefill and 2 decode steps."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops, planes as PL
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as E
+
+    cfg = configs.get(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    routes0 = ops.planes_route_counts()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model, t_init = timed(lambda: T.init_params(cfg, gen, "cuda"))
+    nparams = sum(p.numel() for p in model.parameters())
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model        # param_count() leaves the norms out
+    check(nparams == cfg.param_count() + norms, f"{arch}: {nparams} parameters")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), device="cuda",
+                            generator=gen)
+    log(f"dense {arch}: {nparams} parameters, {nparams * 4 / 1e9:.2f} GB f32, made on the card "
+        f"in {t_init:.2f} s ({free / 1e9:.2f} of {total / 1e9:.2f} GB free before); "
+        f"{cfg.n_layers} layers (full depth), d_model {cfg.d_model}, {cfg.n_heads} query heads "
+        f"over {cfg.n_kv_heads} of {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, rope theta {cfg.rope_theta:g}; {SERVE_BATCH} prompts of "
+        f"{SERVE_PROMPT} tokens, {DENSE_SERVE_STEPS} greedy steps")
+    t_first = timed(lambda: serve_and_check(model, cfg, prompts, "dense", 1, 1, 0) and None)[1]
+    log(f"dense {arch}: first prefill and step (allocator and cuBLAS warm-up) "
+        f"{t_first * 1e3:.1f} ms")
+    runs = {}
+    for mode, P in SERVE_MODES:
+        cache, toks, dec, t_pre, t_dec = serve_and_check(model, cfg, prompts, mode, P,
+                                                         DENSE_SERVE_STEPS, TEACHER_STEPS)
+        log(f"dense {arch} kv={mode} P={P}: prefill {t_pre * 1e3:.1f} ms "
+            f"({SERVE_BATCH * SERVE_PROMPT / t_pre:.0f} tok/s), decode {DENSE_SERVE_STEPS} "
+            f"steps in {t_dec:.3f} s = {SERVE_BATCH * DENSE_SERVE_STEPS / t_dec:.1f} tok/s "
+            f"({t_dec / DENSE_SERVE_STEPS * 1e3:.2f} ms a step), cache {E.cache_nbytes(cache)} B "
+            f"({E.cache_nbytes(cache) / 2**20:.1f} MiB), sample row {toks[0, :8].tolist()}")
+        runs[(mode, P)] = (toks, dec)
+        del cache
+    dense_teacher_check(model, cfg, prompts, runs)
+    # a head_dim block's route is the one planes.route gives its width on
+    # fresh (aligned) slabs: the vector route for a power of two (yi-6b's
+    # 128), the scalar route for the rest (stablelm-3b's 80)
+    want = PL.route(cfg.resolved_head_dim, 0, 0)
+    other = "scalar" if want == "vector" else "vector"
+    got = {k: v - routes0[k] for k, v in ops.planes_route_counts().items()}
+    for k in PLANES_KERNELS:
+        check(got[f"{k}_{want}"] > 0 and got[f"{k}_{other}"] == 0,
+              f"{arch}: {k} launches by route {got}, not all on the {want} route")
+    log(f"dense {arch}: planes launches by route {got}: head_dim {cfg.resolved_head_dim} "
+        f"takes the {want} route")
+    dense_toks = runs[("dense", 1)][0]
+    for (mode, P), (toks, _) in runs.items():
+        if mode != "dense":
+            log(f"dense {arch} kv={mode} P={P}: greedy tokens equal to dense's: "
+                f"{float((toks == dense_toks).float().mean()):.3f}")
+    del runs
+    _, t_prof = timed(lambda: profile_serve(model, cfg, prompts, modes=SERVE_MODES[:1]))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"dense {arch}: peak memory allocated {peak} B ({peak / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f}), weights {nparams * 4 / 1e9:.2f} GB; profile {t_prof:.1f} s")
+    del model, prompts
+    torch.cuda.empty_cache()
+
+
+def dense_train(args, arch: str, layers, seed: int) -> dict:
+    """21b: one dense model trained at full width on ``layers`` of its
+    depth (None: all), its training state reckoned at TRAIN_STATE_BYTES a
+    parameter and printed beside the card's memory (``train_steps``); a cut
+    must leave DENSE_TRAIN_FREE of the card free at its peak."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+
+    full = configs.get(arch)
+    cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+    total = torch.cuda.mem_get_info()[1]
+    state = cfg.param_count() * TRAIN_STATE_BYTES
+    more = None if layers is None else dataclasses.replace(full, n_layers=layers + 4)
+    if layers is None:
+        log(f"dense-train {arch}: full depth ({full.n_layers} layers) at full width, "
+            f"{full.param_count()} parameters, {state / 1e9:.2f} GB of f32 weights, gradients "
+            f"and AdamW moments against the card's {total / 1e9:.1f} GB")
+    else:
+        log(f"dense-train {arch}: cut to {layers} of its {full.n_layers} layers at full width, "
+            f"because the full depth's {full.param_count()} parameters need "
+            f"{full.param_count() * TRAIN_STATE_BYTES / 1e9:.2f} GB of f32 weights, gradients "
+            f"and AdamW moments against the card's {total / 1e9:.1f} GB; {layers} layers have "
+            f"{cfg.param_count()} ({state / 1e9:.2f} GB; "
+            f"{more.param_count() * TRAIN_STATE_BYTES / 1e9:.2f} GB at {more.n_layers}), "
+            f"leaving at least {DENSE_TRAIN_FREE / 1e9:.0f} GB free beside "
+            f"the step's transients. Full depth needs four cards (ROADMAP.md queue 1 item 12)")
+    out = train_steps(args, cfg, DENSE_WATCH, "dense-train", seed)
+    if layers is not None:
+        check(out["peak"] <= total - DENSE_TRAIN_FREE,
+              f"{arch}: the cut's peak {out['peak'] / 1e9:.2f} GB leaves less than "
+              f"{DENSE_TRAIN_FREE / 1e9:.0f} GB of {total / 1e9:.2f} free")
+    log(f"dense-train {arch}: state {state / 1e9:.2f} GB reckoned, peak "
+        f"{out['peak'] / 1e9:.2f} GB measured ({(out['peak'] - state) / 1e9:.2f} GB over the "
+        f"state)")
+    return out
+
+
+def phase_dense_configs(args) -> tuple:
+    """Phase 21 (``--dense-configs`` runs it alone): stablelm-3b and yi-6b
+    served at full width and depth (``dense_serve``), then stablelm-3b and
+    h2o-danube-1.8b trained at full depth and yi-6b on DENSE_TRAIN_LAYERS'
+    cut (``dense_train``).  Launch counters are set to 0 before and read
+    after: the flash and both planes kernels must each have run, the planes
+    kernels on the route their head_dim takes (``dense_serve``); the flash
+    launches are also counted by shape, and DENSE_FLASH's rows must each
+    have been launched.  Returns
+    the phase's launch counts and the flash launches by DENSE_FLASH row."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import ops
+
+    gc.collect()                    # the earlier phases' cycles hold memory on the card
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    with FlashShapes() as shapes:
+        for i, arch in enumerate(DENSE_SERVE_ARCHS):
+            dense_serve(args, arch, args.seed + 210 + i)
+        for i, (arch, layers) in enumerate(DENSE_TRAIN_LAYERS.items()):
+            dense_train(args, arch, layers, args.seed + 220 + i)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    log(f"phase 21 launches on the dense configs' path: {counts}; planes by route "
+        f"{ops.planes_route_counts()}; flash by shape (B, Sq, Hq, Hkv, hd, causal, window, "
+        f"Skv, dtype): {dict(shapes.seen)}")
+    for k in ("flash_attention",) + PLANES_KERNELS:
+        check(counts.get(k, 0) > 0, f"kernel {k} was not launched on the dense configs' path")
+    flash = {row: shapes.seen[shape + (shape[1], "bfloat16")] for row, shape in DENSE_FLASH.items()}
+    for row, n in flash.items():
+        check(n > 0, f"phase 21: no flash launch at row {row}'s shape {DENSE_FLASH[row]}")
+    return counts, flash
+
+
 def dispatch_cost(reps: int, rounds: int = 5) -> dict:
     """``--dispatch``: the cost of the custom operator that every flash and
     planes call goes through.  Each wrapper call, through its operator,
@@ -5249,6 +5542,11 @@ def main() -> int:
                     help="build, run phase 19 alone (serving under one-member meshes, the "
                          "SSM, hybrid, audio and VLM families among them, the dry-run's "
                          "serving cells) and stop")
+    ap.add_argument("--dense-configs", action="store_true",
+                    help="build, hold the flash kernel to its plain version at phase 21's "
+                         "prefill shapes, run phase 21 alone (stablelm-3b and yi-6b served at "
+                         "full width and depth; stablelm-3b, h2o-danube-1.8b and a depth cut "
+                         "of yi-6b trained), time the flash kernel at those shapes and stop")
     args = ap.parse_args()
 
     import torch
@@ -5325,7 +5623,7 @@ def main() -> int:
             import shutil
 
             shutil.rmtree(CKPT_DIR, ignore_errors=True)
-        rows = enc_vlm_flash_rows(gen, max(args.reps // 2, 5), flash)
+        rows = flash_rows(gen, max(args.reps // 2, 5), ENC_VLM_FLASH, flash)
         log(f"phase 15 flash rows: {json.dumps(rows)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -5351,6 +5649,14 @@ def main() -> int:
         return 0
     if args.sharded_serve:
         phase_sharded_serve(args)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.dense_configs:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        phase_flash_kernel(gen, [c for c in FLASH_CASES if c[:-1] in DENSE_FLASH.values()])
+        _, flash = phase_dense_configs(args)
+        rows = flash_rows(gen, max(args.reps // 2, 5), DENSE_FLASH, flash)
+        log(f"phase 21 flash rows: {json.dumps(rows)}")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.long_context:
@@ -5467,22 +5773,36 @@ def main() -> int:
         example_launches = phase_examples()
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    # 18e's dry-run cells run as processes beside phases 18-21, 19c's beside
+    # phase 21 (mostly device-bound: its host-bound decode steps are few),
+    # and all are read after phase 21
     log(f"phase 18 starts {time.perf_counter() - t_start:.1f} s into the run")
-    sharding_launches = phase_sharding(args)
-    log(f"phase 19 starts {time.perf_counter() - t_start:.1f} s into the run")
-    sharded_serve_launches = phase_sharded_serve(args)
-    log(f"phase 20 starts {time.perf_counter() - t_start:.1f} s into the run")
-    long_launches, long_flash = phase_long_context(args)
+    shutil.rmtree(SMOKE_DRYRUN_DIR, ignore_errors=True)
+    dry = start_dryrun_cells(SMOKE_DRYRUN_DIR, train_dryrun_cells())
+    try:
+        sharding_launches = phase_sharding(args, dryrun=False)
+        log(f"phase 19 starts {time.perf_counter() - t_start:.1f} s into the run")
+        sharded_serve_launches = phase_sharded_serve(args, dryrun=False)
+        log(f"phase 20 starts {time.perf_counter() - t_start:.1f} s into the run")
+        long_launches, long_flash = phase_long_context(args)
+        log(f"phase 21 starts {time.perf_counter() - t_start:.1f} s into the run")
+        dry += start_dryrun_cells(SMOKE_DRYRUN_DIR, serve_dryrun_cells())
+        dense_launches, dense_flash = phase_dense_configs(args)
+        log(f"18e's and 19c's dry-run records read {time.perf_counter() - t_start:.1f} s into "
+            f"the run")
+    finally:
+        finish_dryrun_cells(dry, SMOKE_DRYRUN_DIR)
     for counts in (train_launches, example_launches, sharding_launches,
-                   sharded_serve_launches, long_launches):
+                   sharded_serve_launches, long_launches, dense_launches):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     for arch, n in train_flash.items():
         if arch in family_flash:
             family_flash[arch] += n
     flash_cases = (family_flash_rows(gen, max(args.reps // 2, 5), family_flash)
-                   + enc_vlm_flash_rows(gen, max(args.reps // 2, 5), enc_vlm_flash)
-                   + long_flash_rows(gen, max(args.reps // 10, 3), long_flash))
+                   + flash_rows(gen, max(args.reps // 2, 5), ENC_VLM_FLASH, enc_vlm_flash)
+                   + long_flash_rows(gen, max(args.reps // 10, 3), long_flash)
+                   + flash_rows(gen, max(args.reps // 2, 5), DENSE_FLASH, dense_flash))
     log(f"time train step {TRAIN_ARCH} B={TRAIN_BATCH} S={TRAIN_SEQ} plain: store-fed (batch "
         f"draw + step) " + ", ".join(f"{t * 1e3:.1f}" for t in store_s)
         + " ms vs synthetic tokens (phase 11, step only) "

@@ -283,6 +283,9 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-mode", default="dense", choices=["dense", "compressed"])
     ap.add_argument("--num-planes", type=int, default=1)
     ap.add_argument("--grad-compress", type=int, default=0)
+    ap.add_argument("--serve-layout", action="store_true",
+                    help="serving cells: the decode-oriented weight layout "
+                         "(serve_param_specs_tree, SERVE_MOE_RULES for the MoE)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the fake tensors' device (no card is needed for either)")
     ap.add_argument("--out", default=None, help="directory for per-cell JSON")
@@ -304,7 +307,7 @@ def main(argv=None) -> None:
         try:
             rec = lower_cell(a, s, multi_pod=mp, kv_mode=args.kv_mode,
                              num_planes=args.num_planes, grad_compress=args.grad_compress,
-                             device=args.device)
+                             serve_layout=args.serve_layout, device=args.device)
         except Exception as e:  # a failing cell is a bug: record + continue
             rec = {"arch": a, "shape": s, "mesh": "multi" if mp else "single",
                    "status": "FAIL", "error": f"{type(e).__name__}: {e}",
@@ -327,6 +330,8 @@ def main(argv=None) -> None:
             suffix = "" if args.kv_mode == "dense" else f".{args.kv_mode}"
             if args.grad_compress:
                 suffix += f".gc{args.grad_compress}"
+            if args.serve_layout:
+                suffix += ".serve_layout"
             fn = f"{a}.{s}.{'multi' if mp else 'single'}{suffix}.json"
             with open(os.path.join(args.out, fn), "w") as f:
                 json.dump(rec, f, indent=1)

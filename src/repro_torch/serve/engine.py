@@ -32,7 +32,8 @@ vocabulary).  A decode step takes the token's K/V whole over ``model``,
 writes this rank's hd columns (the compressed cache encodes whole hd
 blocks, so mu and sexp are the unsharded encode's, and keeps this rank's
 columns of the planes), and attends with hd-partial scores all-reduced in
-bf16 (:func:`_reduce_scores`) and the output gathered over hd; the
+float32 and rounded to bf16 once (:func:`_reduce_scores`) and the output
+gathered over hd; the
 cross-attention reads its hd columns of the cross K/V the same way.  The
 same functions serve with and without a mesh: on plain tensors outside a
 rules context every split, gather and all-reduce they call is the
@@ -89,13 +90,17 @@ DECODE_CHUNK = 2048
 
 def _reduce_scores(s, dims=()):
     """Scores that are partial sums over head_dim split across mesh
-    ``dims`` made whole, as the reference's are under a sharding-rules
-    context: cast to bf16 (halving the wire bytes of the cross-shard sum),
-    all-reduced over ``dims`` and cast back -- under any rules context, a
-    one-member mesh's too.  Outside a rules context, ``s`` as it is."""
+    ``dims`` made whole, as the reference's compiled step makes them under
+    a sharding-rules context: the partials all-reduced over ``dims`` in
+    their own dtype, then the sum rounded to bf16 once and cast back --
+    under any rules context, a one-member mesh's too.  (The reference
+    writes the bf16 cast before its sharding constraint, but GSPMD places
+    the all-reduce that completes the head_dim contraction on the float32
+    partials, before the convert.)  Outside a rules context, ``s`` as it
+    is."""
     if not rules_active():
         return s
-    return S.all_reduce(s.to(torch.bfloat16), dims).to(s.dtype)
+    return S.all_reduce(s, dims).to(torch.bfloat16).to(s.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -363,8 +368,8 @@ def _cross_attend(p, x1, cross_k, cross_v, cfg: ArchConfig, t: int, hd_dims=(), 
     a mesh tensor-parallel over head_dim as :func:`decode_attention` is: q
     comes whole over ``wq``'s split, its head_dim columns of mesh dims
     ``hd_dims`` (the cross cache's split) score against the rank's columns
-    of the K/V, the partial scores are all-reduced in bf16 (the reference's
-    ``_slab_attend`` shards its ``qg`` over ``act_hd``), the output is
+    of the K/V, the partial scores are all-reduced and rounded to bf16 (the
+    reference's ``_slab_attend`` shards its ``qg`` over ``act_hd``), the output is
     gathered over head_dim and ``wo`` is row-parallel.  With the frames
     split over ``t_dims`` (``act_seq``'s) the rank scores its frames and
     the partial softmaxes are merged (:func:`_merge`)."""

@@ -35,15 +35,15 @@ torch 2.13 and jax 0.9, x86-64 CPU):
     flash sums its keys in another order and the SSM adds the carried
     state's term after the rank's scan;
   - decode logits within 3e-2 of the unsharded port's (measured up to
-    9.5e-3 on the data-only meshes, 8.5e-3 on (2, 2)): under any rules
-    context the scores are rounded to bf16 before their sum over 'model',
-    as the reference rounds them (a one-member 'model' included); and
-    within 2e-5 with the scores summed in float32 (``_reduce_scores``
+    9.5e-3 on the data-only meshes and on (2, 2)): under any rules
+    context the scores' float32 sum over 'model' is rounded to bf16 once,
+    as the reference's compiled step rounds it (a one-member 'model'
+    included); and within 2e-5 with the scores summed in float32 (``_reduce_scores``
     patched in the worker; measured up to 1.7e-6 on the data-only meshes,
     where the cross-rank softmax merge sums in another order, and 2.0e-6 on
     (2, 2));
   - decode logits within 3e-2 of the reference's (measured up to 1.6e-4
-    on the data-only meshes, 9.9e-3 on (2, 2)).
+    on the data-only meshes, 4.6e-5 on (2, 2)).
 
 The float64 case (compute dtype float64 on (4, 1)) holds the SSM's state
 hand-off -- mamba2-1.3b's last hidden row, its state (kept in float32 by

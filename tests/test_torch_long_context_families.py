@@ -41,12 +41,13 @@ torch 2.13 and jax 0.9, x86-64 CPU):
     largest of each (measured up to 1.7e-6): the halo'd flash and the
     row-parallel sums add in another order;
   - decode logits within 3e-2 of the unsharded port's and of the
-    reference's (measured up to 1.2e-2 and 1.7e-2): under any rules
-    context the scores are rounded to bf16 before their sum over 'model',
-    as the reference rounds them; a step whose MoE routes flip against the
-    unsharded run's is left out of this hold (one, on (2, 2)); and at
-    every step with the scores summed in float32 (``_reduce_scores``
-    patched in the worker and in the reference), within 2e-5 of the
+    reference's at every step (measured up to 1.1e-2 and 9.8e-4, the
+    latter whisper-medium's P = 1 runs, where the two packages' unsharded
+    engines already part; dense up to 2.2e-4): under any rules context the
+    scores' float32 sum over 'model' is rounded to bf16 once, as the
+    reference's compiled step rounds it; and at every step with the scores
+    summed in float32 (``_reduce_scores`` patched in the worker and in the
+    reference), within 2e-5 of the
     unsharded port's (measured up to 1.2e-6: the cross-rank softmax merge
     of the window and of the cross K/V's frames sums in another order) and
     of the reference's float32-score run with a dense cache (measured up
@@ -103,7 +104,10 @@ DECODE_F32_TOL = 2e-5
 # of a decode step's K/V coded a planes byte apart), far below a route
 # flip's O(1)
 DECODE_F32_PLANES_REF_TOL = 1e-3
-MAX_FLIPS = 2
+# decode steps of a case whose MoE routes may differ from the unsharded
+# run's with bf16 scores: none, the scores' sum over 'model' being rounded
+# once, as the reference's compiled step rounds it
+MAX_FLIPS = 0
 F64_TOL = 1e-12
 
 COMMON = r"""
@@ -135,6 +139,13 @@ def inputs(cfg, b, s):
 def seq_len(cfg, s):
     # every position of the prefix, the prompt and the decode steps, in 8s
     return -(-(cfg.prefix_embeds + s + STEPS) // 8) * 8
+
+def reduce_inputs():
+    # integer q (B, Hkv, G, hd) and K (B, W, Hkv, hd), exact in bf16: their
+    # products and head_dim partial sums (up to 11 bits) exact in float32
+    rng = np.random.default_rng(11)
+    return (rng.integers(-15, 16, (2, 2, 2, 16)).astype(np.float32),
+            rng.integers(-15, 16, (2, 32, 2, 16)).astype(np.float32))
 """
 
 REFERENCE = COMMON + r"""
@@ -209,12 +220,33 @@ for name, arch, shape, mode, P, b, s, kw in CASES:
                 lg.append(np.asarray(step))
             out[f"{{name}}/{{tag}}"] = np.stack(lg)
         RE._reduce_scores = bf16_reduce
+
+# the score all-reduce alone, compiled on (2, 2) under LONG_CONTEXT_RULES:
+# _slab_attend's einsum of q and K split over head_dim, then _reduce_scores;
+# the element types of the compiled step's all-reduces recorded
+rq, rk = reduce_inputs()
+mesh = Mesh(devs.reshape(2, 2), ("data", "model"))
+hdsh = NamedSharding(mesh, PS(None, None, None, "model"))
+
+def scores(q, k):
+    q = rsharding.shard_activation(q, ("act_batch", None, None, "act_hd"))
+    s = jnp.einsum("bhgd,bkhd->bhgk", q, k, preferred_element_type=jnp.float32)
+    return RE._reduce_scores(s / np.sqrt(q.shape[-1]).astype(np.float32))
+
+with rsharding.use_rules(mesh, rsharding.LONG_CONTEXT_RULES):
+    f = jax.jit(scores, in_shardings=(hdsh, hdsh))
+    args = (jnp.asarray(rq, jnp.bfloat16), jnp.asarray(rk, jnp.bfloat16))
+    out["reduce/scores"] = np.asarray(f(*args))
+    hlo = f.lower(*args).compile().as_text()
+out["reduce/all_reduce_types"] = np.array([ln.split("=", 1)[1].split("[", 1)[0].strip()
+                                           for ln in hlo.splitlines() if "all-reduce(" in ln])
 np.savez(sys.argv[1], **out)
 print("REFERENCE-OK")
 """
 
 WORKER = COMMON + r"""
 import contextlib
+import math
 import sys
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -353,6 +385,19 @@ with SH.use_rules(mesh, LONG), SH.sequence(10):
     out["collectives/prefix_ok"] = np.array(
         torch.equal(before, torch.full((2, 5), rank * (rank + 1) // 2, dtype=torch.int64))
         and before.dtype == torch.int64)
+
+if world == 4:
+    # the score all-reduce alone on (2, 2): this rank's head_dim columns of
+    # q and K scored, then _reduce_scores over 'model'; beside it the
+    # partials rounded to bf16 before their sum, which rounds twice
+    rq, rk = (torch.from_numpy(a) for a in reduce_inputs())
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    with SH.use_rules(mesh, LONG):
+        dims = SH.mesh_dims("act_hd")
+        lo, hi = SH.chunk_range(rq.shape[-1], dims)
+        s = torch.einsum("bhgd,bkhd->bhgk", rq[..., lo:hi], rk[..., lo:hi]) / math.sqrt(16)
+        out["reduce/scores"] = E._reduce_scores(s.clone(), dims).numpy()
+        out["reduce/twice"] = SH.all_reduce(s.to(torch.bfloat16), dims).float().numpy()
 
 if {float64!r}:
     # float64 on (4, 1): the MoE's output at each layer (the drop case's
@@ -535,13 +580,10 @@ def test_decode_matches_the_unsharded_engine_and_the_reference(runs, name):
     DECODE_F32_TOL at every step of the unsharded port's and of the
     reference's own float32-score run (its ``_reduce_scores`` patched the
     same way; with a P = 1 cache within DECODE_F32_PLANES_REF_TOL of the
-    reference's), so every step is held against the JAX package.  A
-    bf16-score step whose MoE routes differ from the unsharded run's (a
-    top-k choice between experts within the scores' bf16 rounding) moves
-    its logits by O(1) and is left out of the bf16 holds only; at most
-    MAX_FLIPS of the 16 may (measured: one, deepseek_2x2_dense's step 15,
-    0.44 of the largest logit; whether the reference's bf16 run flips there
-    is not recorded).  The float32-score run flips none."""
+    reference's), so every step is held against the JAX package.  No
+    step's MoE routes differ from the unsharded run's (MAX_FLIPS), with
+    bf16 scores or float32 ones: the scores' float32 sum over 'model' is
+    rounded to bf16 once, as the reference's compiled step rounds it."""
     ref, ranks = runs
     v = _cfg(name).vocab_size
     ref_tol = DECODE_F32_TOL if _case(name)[3] == "dense" else DECODE_F32_PLANES_REF_TOL
@@ -563,6 +605,22 @@ def test_decode_matches_the_unsharded_engine_and_the_reference(runs, name):
         assert max(_rel(g, w) for g, w in zip(f32, ref_f32)) <= ref_tol
         want = got if want is None else want
         assert np.array_equal(got, want)
+
+
+def test_reduce_scores_rounds_the_float32_sum_once(runs):
+    """Under LONG_CONTEXT_RULES on (2, 2) the reference's compiled score
+    step all-reduces the float32 head_dim partials over 'model' (its HLO
+    has no bf16 all-reduce) and rounds their sum to bf16 once; the port's
+    ``_reduce_scores`` on the gloo ranks gives the same scores bit for bit
+    (integer inputs, so the partial sums are exact), and rounding each
+    rank's partial before the sum would not."""
+    ref, ranks = runs
+    assert set(ref["reduce/all_reduce_types"].tolist()) == {"f32"}
+    want = ref["reduce/scores"]
+    assert want.dtype == np.float32 and want.shape == (2, 2, 2, 32)
+    for rk in ranks[:4]:
+        assert np.array_equal(rk["reduce/scores"], want)
+        assert not np.array_equal(rk["reduce/twice"], want)
 
 
 def test_moe_capacity_fills_across_a_rank_boundary(runs):

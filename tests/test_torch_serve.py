@@ -1,10 +1,12 @@
 """The port's serving engine against the JAX package.
 
 ``repro_torch.serve.engine`` (prefill + decode_step, dense and SZx-planes KV
-caches) against ``repro.serve.engine`` on the reduced llama3.2-1b and on the
+caches) against ``repro.serve.engine`` on the reduced llama3.2-1b, on the
 reduced h2o-danube-1.8b with sliding_window=8 (a ring of 8 slots that
-evicts), with the reference's weights loaded through ``params_from_jax`` and
-tokens made with numpy from a seed.
+evicts), and on the reduced stablelm-3b (as many kv heads as query heads)
+and yi-6b (4 query heads over 1, rope theta 5e6), with the reference's
+weights loaded through ``params_from_jax`` and tokens made with numpy from
+a seed.
 
 What is compared, and to what:
   - logits of the prefill and of every decode step, float32 throughout,
@@ -53,7 +55,8 @@ from repro_torch.launch import serve as serve_cli
 from repro_torch.models import transformer as T
 from repro_torch.serve import engine as E
 
-ARCHS = {"llama3.2-1b": (0, 2, 24, 3), "h2o-danube-1.8b": (8, 1, 16, 6)}   # window, B, S, extra
+ARCHS = {"llama3.2-1b": (0, 2, 24, 3), "h2o-danube-1.8b": (8, 1, 16, 6),   # window, B, S, extra
+         "stablelm-3b": (0, 2, 24, 3), "yi-6b": (0, 2, 24, 3)}
 MODES = [("dense", 1), ("compressed", 1), ("compressed", 2)]
 LOGIT_TOL = 1e-4
 

@@ -27,11 +27,11 @@ torch 2.13 and jax 0.9, x86-64 CPU):
   - prefill logits within 1e-5 of the unsharded port's and of the
     reference's (measured up to 1.4e-6 and 1.9e-6: the row-parallel
     partial sums and the SSM's split norm are summed in another order);
-  - decode logits within 3e-2 of both (measured up to 8.4e-3 and
-    1.1e-2; the placed cache's first step up to 7.0e-3): the decode
-    scores, self- and cross-attention alike, are rounded to bf16 before
-    their cross-shard sum as the reference's ``_reduce_scores`` rounds
-    them.  With the scores summed in float32 (``_reduce_scores`` patched
+  - decode logits within 3e-2 of both (measured up to 5.7e-3 and
+    8.9e-5; the placed cache's first step up to 3.9e-3): the decode
+    scores' float32 cross-shard sum, self- and cross-attention alike, is
+    rounded to bf16 once, as the reference's compiled ``_reduce_scores``
+    rounds it.  With the scores summed in float32 (``_reduce_scores`` patched
     in the worker) the sharded decode is held to 2e-5 of the unsharded
     port's (measured up to 1.2e-6; mamba2-1.3b has no scores, and its two
     runs are the same);

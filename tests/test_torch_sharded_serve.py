@@ -24,11 +24,11 @@ torch 2.13 and jax 0.9, x86-64 CPU):
     reference's (measured up to 7.5e-7 and 1.1e-6: the row-parallel
     partial sums are all-reduced in another order than one matmul sums
     them);
-  - decode logits within 3e-2 of both (measured up to 8.4e-3 and 1.1e-2): under a
-    rules context the decode scores are rounded to bf16 before their
-    cross-shard sum, as the reference's ``_reduce_scores`` rounds them, so
-    a score moves by up to 2^-9 of itself, and the partial sums round at
-    other places in the two packages.  With the scores summed in float32
+  - decode logits within 3e-2 of both (measured up to 6.7e-3 and 1.0e-4):
+    under a rules context the decode scores' float32 cross-shard sum is
+    rounded to bf16 once, as the reference's compiled ``_reduce_scores``
+    rounds it, so a score moves by up to 2^-9 of itself, and the partial
+    sums round at other places in the two packages.  With the scores summed in float32
     (``_reduce_scores`` patched in the worker) the sharded decode is held
     to 2e-5 of the unsharded port's (measured up to 7.3e-6);
   - the prefill's dense K/V records and the compressed records' mu within
@@ -405,15 +405,16 @@ def test_pure_data_parallel_moves_nothing_over_model(runs):
 def _decode_model_bytes(cfg, b: int, w: int, n: int) -> dict:
     """Collective bytes over an n-way 'model' of one sharded decode step, a
     device: each layer gathers q, k, v (whole, in the compute dtype) and
-    the attention's head_dim columns, all-reduces the bf16 scores (B x Hq x
-    W x 2 bytes) and the two row-parallel outputs, and exchanges the fused
+    the attention's head_dim columns, all-reduces the float32 scores (B x
+    Hq x W x 4 bytes, rounded to bf16 after the sum) and the two
+    row-parallel outputs, and exchanges the fused
     [gate | up] columns (2F / n a rank, one all-to-all); the embedding's
     rows are all-reduced and the logits' columns gathered."""
     item = 4                                    # the reduced configs compute in float32
     hd, hq, hkv, d = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
     gather = cfg.n_layers * (2 * b * hq * hd + 2 * b * hkv * hd) * item \
         + b * cfg.padded_vocab * item
-    reduce = cfg.n_layers * (b * hq * w * 2 + 2 * b * d * item) + b * d * item
+    reduce = cfg.n_layers * (b * hq * w * 4 + 2 * b * d * item) + b * d * item
     return {"all-gather": gather, "all-reduce": reduce,
             "all-to-all": cfg.n_layers * b * 2 * cfg.d_ff // n * item}
 

@@ -283,7 +283,8 @@ def test_shard_activation_is_a_no_op_outside_rules():
 
 def test_reduce_scores_casts_through_bf16_under_rules():
     """The reference's ``_reduce_scores``: exact outside rules, the scores
-    rounded to bf16 inside (there it halves the cross-shard sum's bytes)."""
+    rounded to bf16 inside (after their cross-shard sum, which a plain
+    tensor does not have)."""
     s = torch.randn(2, 3, 4, 64, dtype=torch.float32)
     assert engine._reduce_scores(s) is s
     pm = types.SimpleNamespace(mesh_dim_names=("data", "model"), shape=(16, 16))
