@@ -79,26 +79,32 @@ def compressed_psum_mean(grads, group=None, *, num_planes: int = 1,
     inv_n = torch.tensor(1.0, dtype=torch.float32) / n
 
     def leaf(g):
-        enc = _encode_leaf(g, num_planes, block)
+        # gradcomp.decode twice a leaf: the local decode runs before the
+        # all-gather, right after the encode whose planes it reads
+        with obs.span("gradcomp.encode"):
+            enc = _encode_leaf(g, num_planes, block)
         _record_wire("psum_mean", g, enc, members=n)
-        dec_local = _decode_leaf(enc, g.shape, torch.float32)
-        residual = ref.flush(ref.flush(g.to(torch.float32)) - dec_local)
+        with obs.span("gradcomp.decode"):
+            dec_local = _decode_leaf(enc, g.shape, torch.float32)
+            residual = ref.flush(ref.flush(g.to(torch.float32)) - dec_local)
         gathered = {}
-        for name in _ARRAYS:
-            wire = _wire(name, enc[name])
-            parts = [torch.empty_like(wire) for _ in range(n)]
-            dist.all_gather(parts, wire, group=group)
-            gathered[name] = [_unwire(name, p) for p in parts]
-        total = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
-        for i in range(n):
-            if i == me:              # this member's own encoding: decoded above
-                dec = dec_local
-            else:
-                member = enc.replace(**{k: gathered[k][i] for k in _ARRAYS})
-                dec = _decode_leaf(member, g.shape, torch.float32)
-            total = ref.flush(total + dec)
-        # times 1/n; 1/1 leaves the (already flushed) total's bits unchanged
-        mean = total if n == 1 else ref.mul_flushed(total, inv_n.to(total.device))
+        with obs.span("gradcomp.all_gather"):
+            for name in _ARRAYS:
+                wire = _wire(name, enc[name])
+                parts = [torch.empty_like(wire) for _ in range(n)]
+                dist.all_gather(parts, wire, group=group)
+                gathered[name] = [_unwire(name, p) for p in parts]
+        with obs.span("gradcomp.decode"):
+            total = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+            for i in range(n):
+                if i == me:              # this member's own encoding: decoded above
+                    dec = dec_local
+                else:
+                    member = enc.replace(**{k: gathered[k][i] for k in _ARRAYS})
+                    dec = _decode_leaf(member, g.shape, torch.float32)
+                total = ref.flush(total + dec)
+            # times 1/n; 1/1 leaves the (already flushed) total's bits unchanged
+            mean = total if n == 1 else ref.mul_flushed(total, inv_n.to(total.device))
         return mean.to(g.dtype), residual
 
     pairs = []

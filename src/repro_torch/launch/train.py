@@ -14,7 +14,8 @@ SZx-compressed checkpoints and telemetry.
     ... --data-workers N       # ingest worker threads (default 2)
     ... --profile-dir DIR      # telemetry on: DIR/trace.json (Chrome trace of
                                # the obs spans), DIR/metrics.prom, and
-                               # torch.profiler's trace DIR/torch_trace.json
+                               # torch.profiler's trace DIR/torch_trace.json,
+                               # where every obs span shows on its clock too
 
 Without ``--device`` it runs on the card, and fails without one.  The
 gradient compression averages over the process group; launched alone, the
@@ -65,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--profile-dir", default=None,
                     help="enable telemetry and write <dir>/trace.json (Chrome trace, "
                          "opens in Perfetto) plus <dir>/metrics.prom; torch.profiler "
-                         "traces the run into <dir>/torch_trace.json")
+                         "traces the run into <dir>/torch_trace.json, where every obs "
+                         "span (train.step, train.forward_backward, train.grad_exchange, "
+                         "train.optimizer, gradcomp.*) shows on the profiler's clock")
     ap.add_argument("--device", default=None, help="default: the card (raises without one)")
     ap.add_argument("--seed", type=int, default=0)
     return ap

@@ -77,6 +77,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.codec.device import DeviceEncoding, resolve_device
 from repro_torch.core.codec.planes_codec import PlanesCodec
@@ -389,6 +390,7 @@ def _cross_attend(p, x1, cross_k, cross_v, cfg: ArchConfig, t: int, hd_dims=(), 
 # prefill / decode steps
 # ---------------------------------------------------------------------------
 
+@obs.traced("serve.prefill")
 @torch.no_grad()
 @L.exact_matmuls()
 def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
@@ -427,40 +429,43 @@ def prefill(params, cfg: ArchConfig, tokens, *, frames=None, image_embeds=None,
             raise ValueError(f"a prompt of {s_all} tokens leaves the last of the {n} members of "
                              f"act_seq without a position")
         lo, hi = S.member_range(s_all, seq, S.coordinate(seq))
-    with S.sequence(s_all):
-        h, enc_out = T._inputs(params, cfg, *rows, T._run_layers)
-        h, _, caps = T._run_layers(params["layers"], h, cfg, causal=True, enc_out=enc_out,
-                                   capture=True, capture_from=max(s_all - take - lo, 0))
-    h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
-    last = h[:, -1:].contiguous()
-    if seq is not None:                          # the last position is the last rank's
-        S.broadcast(last, seq, S.mesh_size((seq,)) - 1)
-    logits = T.logits_for(params, cfg, last)
-    lays = {part: {name: cache_layout(name, t.shape) for name, t in whole[part].items()}
-            for part in ("layers", "cross") if part in whole}
-    cache = {"pos": s_all, "slot_pos": torch.full(whole["slot_pos"].shape, -1,
-                                                  dtype=torch.int32, device=h.device)}
-    for part, lay in lays.items():
-        cache[part] = {name: torch.zeros(_local_shape(whole[part][name].shape, lay[name]),
-                                         dtype=whole[part][name].dtype, device=h.device)
-                       for name in lay}
-    if "k" in caps:
-        kv_lay = lays["layers"]["k" if kv_mode == "dense" else "kpl"]
-        h0, h1 = S.chunk_range(cfg.resolved_head_dim, kv_lay[-1])
-        w_dims = kv_lay[-3]
-        k, v = caps["k"], caps["v"]
-        positions = torch.arange(s_all - take, s_all, device=h.device)
-        if seq is not None:
-            k, v, positions = _to_slot_owners(k, v, seq, max(lo, s_all - take), hi, s_all, w,
-                                              w_dims)
-        fill_cache(cache, k, v, kv_mode=kv_mode, num_planes=num_planes, hd=slice(h0, h1),
-                   positions=positions, total=s_all, slot0=S.chunk_range(w, w_dims)[0])
-    if "state" in caps:
-        cache["layers"]["state"].copy_(caps["state"])              # this rank's heads
-        cache["layers"]["conv"].copy_(S.take(caps["conv"], -1, lays["layers"]["conv"][-1]))
-    for nm in ("k", "v") if cfg.encoder_decoder else ():    # whole: this rank's frames, hd
-        lay = lays["cross"][nm]
-        cache["cross"][nm].copy_(S.take(S.take(caps["cross_" + nm], 2, lay[2]), -1, lay[-1]))
+    with obs.span("serve.prefill.forward"):
+        with S.sequence(s_all):
+            h, enc_out = T._inputs(params, cfg, *rows, T._run_layers)
+            h, _, caps = T._run_layers(params["layers"], h, cfg, causal=True, enc_out=enc_out,
+                                       capture=True, capture_from=max(s_all - take - lo, 0))
+        h = L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+        last = h[:, -1:].contiguous()
+        if seq is not None:                          # the last position is the last rank's
+            S.broadcast(last, seq, S.mesh_size((seq,)) - 1)
+        logits = T.logits_for(params, cfg, last)
+    with obs.span("serve.prefill.kv_fill"):
+        lays = {part: {name: cache_layout(name, t.shape) for name, t in whole[part].items()}
+                for part in ("layers", "cross") if part in whole}
+        cache = {"pos": s_all, "slot_pos": torch.full(whole["slot_pos"].shape, -1,
+                                                      dtype=torch.int32, device=h.device)}
+        for part, lay in lays.items():
+            cache[part] = {name: torch.zeros(_local_shape(whole[part][name].shape, lay[name]),
+                                             dtype=whole[part][name].dtype, device=h.device)
+                           for name in lay}
+        if "k" in caps:
+            kv_lay = lays["layers"]["k" if kv_mode == "dense" else "kpl"]
+            h0, h1 = S.chunk_range(cfg.resolved_head_dim, kv_lay[-1])
+            w_dims = kv_lay[-3]
+            k, v = caps["k"], caps["v"]
+            positions = torch.arange(s_all - take, s_all, device=h.device)
+            if seq is not None:
+                k, v, positions = _to_slot_owners(k, v, seq, max(lo, s_all - take), hi, s_all,
+                                                  w, w_dims)
+            fill_cache(cache, k, v, kv_mode=kv_mode, num_planes=num_planes, hd=slice(h0, h1),
+                       positions=positions, total=s_all, slot0=S.chunk_range(w, w_dims)[0])
+        if "state" in caps:
+            cache["layers"]["state"].copy_(caps["state"])              # this rank's heads
+            cache["layers"]["conv"].copy_(S.take(caps["conv"], -1, lays["layers"]["conv"][-1]))
+        for nm in ("k", "v") if cfg.encoder_decoder else ():    # whole: this rank's frames, hd
+            lay = lays["cross"][nm]
+            cache["cross"][nm].copy_(S.take(S.take(caps["cross_" + nm], 2, lay[2]), -1,
+                                            lay[-1]))
     if meshed:
         cache["slot_pos"] = S.from_local(cache["slot_pos"], ((),), whole["slot_pos"].shape)
         for part, lay in lays.items():

@@ -48,6 +48,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import grad_compress
 from repro_torch.core.pytree import key_paths, leaves, tree_map, unflatten
@@ -95,8 +96,10 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, *, mesh=None, group=None,
 
     if not compress_planes:
         def train_step(state, batch):
-            loss, grads = value_and_grad(cfg, state["params"], batch)
-            params, opt_state, metrics = opt.update(grads, state["opt"], state["params"])
+            with obs.span("train.forward_backward"):
+                loss, grads = value_and_grad(cfg, state["params"], batch)
+            with obs.span("train.optimizer"):
+                params, opt_state, metrics = opt.update(grads, state["opt"], state["params"])
             return {"params": params, "opt": opt_state}, {"loss": loss, **metrics}
 
         return train_step
@@ -107,19 +110,22 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, *, mesh=None, group=None,
         if n > leaves(ef)[0].shape[0]:
             raise ValueError(f"error feedback has {leaves(ef)[0].shape[0]} rows for a "
                              f"group of {n}")
-        loss, grads = value_and_grad(cfg, state["params"], batch)
-        g_eff = tree_map(lambda g, e: g.to(torch.float32) + e[me].to(torch.float32),
-                         grads, ef)
-        del grads
-        mean, resid = grad_compress.compressed_psum_mean(
-            g_eff, group, num_planes=compress_planes)
-        del g_eff
-        dist.all_reduce(loss, group=group)
-        loss = loss / n
-        for e, r in zip(leaves(ef), leaves(resid)):
-            e[me].copy_(r.to(torch.bfloat16))
-        del resid
-        params, opt_state, metrics = opt.update(mean, state["opt"], state["params"])
+        with obs.span("train.forward_backward"):
+            loss, grads = value_and_grad(cfg, state["params"], batch)
+        with obs.span("train.grad_exchange"):
+            g_eff = tree_map(lambda g, e: g.to(torch.float32) + e[me].to(torch.float32),
+                             grads, ef)
+            del grads
+            mean, resid = grad_compress.compressed_psum_mean(
+                g_eff, group, num_planes=compress_planes)
+            del g_eff
+            dist.all_reduce(loss, group=group)
+            loss = loss / n
+            for e, r in zip(leaves(ef), leaves(resid)):
+                e[me].copy_(r.to(torch.bfloat16))
+            del resid
+        with obs.span("train.optimizer"):
+            params, opt_state, metrics = opt.update(mean, state["opt"], state["params"])
         return ({"params": params, "opt": opt_state, "ef": ef}, {"loss": loss, **metrics})
 
     return train_step
@@ -272,8 +278,8 @@ def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
                                            for x, lay, p in zip(xs, layouts, plist)])
         groups = [mesh.get_group(names.index(a)) for a in mean_axes]
         n_mean = math.prod(mesh.size(names.index(a)) for a in mean_axes)
-        with L.exact_matmuls(), sharding.use_rules(mesh, rules), \
-                sharding.split_batch(groups, n_mean, mean_dims):
+        with obs.span("train.forward_backward"), L.exact_matmuls(), \
+                sharding.use_rules(mesh, rules), sharding.split_batch(groups, n_mean, mean_dims):
             with torch.enable_grad():
                 loss = T.loss_fn(tree, cfg, local)
                 grads = list(torch.autograd.grad(loss, xs))
@@ -284,27 +290,30 @@ def _make_sharded_step(cfg: ArchConfig, opt: AdamW, mesh, compress_planes: int,
             loss = sharding.all_reduce_sum(loss, groups) / n_mean
         out = {}
         if compress_planes:
-            pod = mesh.get_group(names.index("pod"))
-            n_pod = dist.get_world_size(pod)
-            ef = [e.to_local() for e in leaves(state["ef"])]
-            g_eff = [g.to(torch.float32) + e[0].to(torch.float32) for g, e in zip(grads, ef)]
-            del grads
-            grads, resid = grad_compress.compressed_psum_mean(g_eff, pod,
-                                                              num_planes=compress_planes)
-            del g_eff
-            for e, r in zip(ef, resid):
-                e[0].copy_(r.to(torch.bfloat16))
-            del resid
-            if n_pod > 1:
-                loss = sharding.all_reduce_sum(loss, [pod]) / n_pod
+            with obs.span("train.grad_exchange"):
+                pod = mesh.get_group(names.index("pod"))
+                n_pod = dist.get_world_size(pod)
+                ef = [e.to_local() for e in leaves(state["ef"])]
+                g_eff = [g.to(torch.float32) + e[0].to(torch.float32)
+                         for g, e in zip(grads, ef)]
+                del grads
+                grads, resid = grad_compress.compressed_psum_mean(g_eff, pod,
+                                                                  num_planes=compress_planes)
+                del g_eff
+                for e, r in zip(ef, resid):
+                    e[0].copy_(r.to(torch.bfloat16))
+                del resid
+                if n_pod > 1:
+                    loss = sharding.all_reduce_sum(loss, [pod]) / n_pod
             out["ef"] = state["ef"]
         params = [p.to_local() for p in plist]
         ost = state["opt"]
         opt_local = AdamWState(step=ost.step.to_local(),
                                m=[m.to_local() for m in leaves(ost.m)],
                                v=[v.to_local() for v in leaves(ost.v)])
-        _, _, metrics = opt.update(grads, opt_local, params,
-                                   norm_fn=lambda g32: _sharded_norm(g32, layouts, mesh))
+        with obs.span("train.optimizer"):
+            _, _, metrics = opt.update(grads, opt_local, params,
+                                       norm_fn=lambda g32: _sharded_norm(g32, layouts, mesh))
         return ({"params": state["params"], "opt": ost, **out}, {"loss": loss, **metrics})
 
     return train_step
